@@ -55,9 +55,6 @@ class BiCADMMConfig:
     cg_iters: int = 200
     cg_tol: float = 1e-6
     precision: Any = "fp32"
-    # ladder bracketing rounds of the projections; None takes the device's
-    # default (repro_torch.runtime.ladder_rounds: 2 on the card, 0 on CPU)
-    ladder_rounds: int | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "precision",
@@ -121,7 +118,7 @@ def _fista_betas(iters: int) -> list[float]:
 
 
 def _zt_update(z0, t0, w, s, v, N: float, rho_c: float, rho_b: float,
-               iters: int, *, rounds: int | None = None):
+               iters: int):
     """Step (7b): min over {(z,t): ||z||_1 <= t} of
     (N rho_c / 2) ||z - w||^2 + (rho_b / 2) (s^T z - t + v)^2
     by FISTA with the exact sort-free cone projection."""
@@ -129,18 +126,16 @@ def _zt_update(z0, t0, w, s, v, N: float, rho_c: float, rho_b: float,
     L = a + rho_b * (torch.sum(s * s) + 1.0)   # ||Hessian||_2 upper bound
     step = 1.0 / L
 
-    def project(zz, tt):
-        return bilinear.project_l1_epigraph(zz, tt, rounds=rounds)
-
     def grads(z, t):
         r = torch.sum(s * z) - t + v
         return a * (z - w) + rho_b * r * s, -rho_b * r
 
-    z, t = project(z0, t0)
+    z, t = bilinear.project_l1_epigraph(z0, t0)
     zy, ty = z, t
     for beta in _fista_betas(iters):
         gz, gt = grads(zy, ty)
-        z_new, t_new = project(zy - step * gz, ty - step * gt)
+        z_new, t_new = bilinear.project_l1_epigraph(zy - step * gz,
+                                                    ty - step * gt)
         zy = z_new + beta * (z_new - z)
         ty = t_new + beta * (t_new - t)
         z, t = z_new, t_new
@@ -197,7 +192,6 @@ class BiCADMM:
         cfg = self.cfg
         N = As.shape[0]
         rho_c, rho_b = params.rho_c, params.rho_b
-        rounds = cfg.ladder_rounds
 
         q = st.z[None] - st.u                              # (N, n)
         x_new = x_solve(factors, q, rho_c, params.sigma, x0=st.x)
@@ -208,9 +202,8 @@ class BiCADMM:
 
         w = torch.mean(x_eff + st.u, dim=0)                # consensus center
         z_new, t_new = _zt_update(st.z, st.t, w, st.s, st.v, float(N),
-                                  rho_c, rho_b, cfg.zt_iters, rounds=rounds)
-        s_new = bilinear.s_update(z_new, t_new, st.v, params.kappa,
-                                  rounds=rounds)
+                                  rho_c, rho_b, cfg.zt_iters)
+        s_new = bilinear.s_update(z_new, t_new, st.v, params.kappa)
         u_new = st.u + x_eff - z_new[None]
         gval = bilinear.g(z_new, s_new, t_new)
         v_new = st.v + gval

@@ -4,7 +4,7 @@
 //   matvec:  out[z, i, k] = sum_j A[z, i, j] * X[z, j, k]     (A x)
 //   rmatvec: out[z, j, k] = sum_i A[z, i, j] * Y[z, i, k]     (A^T y)
 //
-// A is (N, m, n) row-major; X is (N, n, K), Y is (N, m, K), out f32.
+// A is (N, m, n) row-major f32; X is (N, n, K), Y is (N, m, K), out f32.
 //
 // Replaces: src/repro/kernels/matvec.py, _mv_kernel and _rmv_kernel (the
 // TPU kernels) and _mv_kernel_gpu / _rmv_kernel_gpu (their Pallas-Triton
@@ -19,17 +19,15 @@
 //
 // Design:
 // * matvec: one warp per row, 16-byte loads along n when the row is
-//   16-byte aligned (n % 4 == 0, f32), a warp-shuffle reduction, K handled
+//   16-byte aligned (n % 4 == 0), a warp-shuffle reduction, K handled
 //   four columns per pass with the accumulators in registers. X is small
 //   and stays in L1/L2 for all rows of a node.
 // * rmatvec: one thread per column, so a warp reads 32 neighbouring words
 //   of a row (coalesced), looping over a slice of rows whose Y values sit in
 //   shared memory. m is split into slices of kRows rows across blockIdx.y so
 //   the card has enough blocks in flight; each slice writes its own partial,
-//   and a second pass sums the partials in slice order (deterministic, no
-//   atomics). With one slice the first pass writes the output directly.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+//   and a second kernel sums the partials in slice order (deterministic, no
+//   atomics). With one slice the first kernel writes the output directly.
 #include <cuda_runtime.h>
 
 namespace {
@@ -39,27 +37,20 @@ constexpr int kCols = 256;     // columns per rmatvec block
 constexpr int kRows = 128;     // rows per rmatvec slice
 constexpr int kKc = 4;         // right-hand sides per pass
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
-
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-matvec_kernel(const T* __restrict__ A, const T* __restrict__ X,
+matvec_kernel(const float* __restrict__ A, const float* __restrict__ X,
               float* __restrict__ out, int m, int n, int K, int vec) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + warp;
   const int z = blockIdx.y;
   if (row >= m) return;
-  const T* a = A + ((size_t)z * m + row) * n;
-  const T* x = X + (size_t)z * n * K;
+  const float* a = A + ((size_t)z * m + row) * n;
+  const float* x = X + (size_t)z * n * K;
   float* o = out + ((size_t)z * m + row) * K;
   for (int k0 = 0; k0 < K; k0 += kKc) {
     const int kc = min(kKc, K - k0);
     float acc[kKc] = {0.f, 0.f, 0.f, 0.f};
-    if (vec) {  // f32, K == 1, 16-byte aligned rows
+    if (vec) {  // K == 1, 16-byte aligned rows
       const float4* a4 = reinterpret_cast<const float4*>(a);
       const float4* x4 = reinterpret_cast<const float4*>(x);
       const int n4 = n / 4;
@@ -76,9 +67,9 @@ matvec_kernel(const T* __restrict__ A, const T* __restrict__ X,
     } else {
 #pragma unroll 4
       for (int j = lane; j < n; j += 32) {
-        const float av = widen(a[j]);
-        const T* xj = x + (size_t)j * K + k0;
-        for (int c = 0; c < kc; ++c) acc[c] = fmaf(av, widen(xj[c]), acc[c]);
+        const float av = a[j];
+        const float* xj = x + (size_t)j * K + k0;
+        for (int c = 0; c < kc; ++c) acc[c] = fmaf(av, xj[c], acc[c]);
       }
     }
     for (int c = 0; c < kc; ++c) {
@@ -91,27 +82,26 @@ matvec_kernel(const T* __restrict__ A, const T* __restrict__ X,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kCols)
-rmatvec_kernel(const T* __restrict__ A, const T* __restrict__ Y,
+rmatvec_kernel(const float* __restrict__ A, const float* __restrict__ Y,
                float* __restrict__ part, int N, int m, int n, int K) {
   __shared__ float ys[kRows * kKc];
   const int j = blockIdx.x * kCols + threadIdx.x;
   const int s = blockIdx.y, z = blockIdx.z;
   const int i0 = s * kRows, i1 = min(m, i0 + kRows);
-  const T* a = A + (size_t)z * m * n;
-  const T* y = Y + (size_t)z * m * K;
+  const float* a = A + (size_t)z * m * n;
+  const float* y = Y + (size_t)z * m * K;
   float* p = part + ((size_t)s * N + z) * n * K;
   for (int k0 = 0; k0 < K; k0 += kKc) {
     const int kc = min(kKc, K - k0);
     for (int l = threadIdx.x; l < (i1 - i0) * kc; l += kCols)
-      ys[l] = widen(y[(size_t)(i0 + l / kc) * K + k0 + l % kc]);
+      ys[l] = y[(size_t)(i0 + l / kc) * K + k0 + l % kc];
     __syncthreads();
     if (j < n) {
       float acc[kKc] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
       for (int i = i0; i < i1; ++i) {
-        const float av = widen(a[(size_t)i * n + j]);
+        const float av = a[(size_t)i * n + j];
         const float* yi = ys + (i - i0) * kc;
         for (int c = 0; c < kc; ++c) acc[c] = fmaf(av, yi[c], acc[c]);
       }
@@ -131,25 +121,33 @@ __global__ void sum_slices(const float* __restrict__ part,
   out[t] = acc;
 }
 
-template <typename T>
-int launch_matvec(const void* A, const void* X, float* out, int N, int m,
-                  int n, int K, int vec, void* stream) {
+}  // namespace
+
+extern "C" int rmatvec_rows_per_slice() { return kRows; }
+
+// A (N, m, n) row-major; X (N, n, K); out (N, m, K). vec = 1 selects the
+// 16-byte path (K == 1, n % 4 == 0, A and X 16-byte aligned). One kernel
+// launch. Returns cudaGetLastError().
+extern "C" int matvec_f32(const float* A, const float* X, float* out, int N,
+                          int m, int n, int K, int vec, void* stream) {
   const dim3 grid((m + kWarps - 1) / kWarps, N);
-  matvec_kernel<T><<<grid, kWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<const T*>(X), out, m, n, K, vec);
+  matvec_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      A, X, out, m, n, K, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_rmatvec(const void* A, const void* Y, float* part, float* out,
-                   int N, int m, int n, int K, void* stream) {
+// A (N, m, n) row-major; Y (N, m, K); part (slices, N, n, K) scratch with
+// slices = ceil(m / rmatvec_rows_per_slice()), unused when slices == 1;
+// out (N, n, K). Two kernel launches when slices > 1, else one. Returns
+// cudaGetLastError().
+extern "C" int rmatvec_f32(const float* A, const float* Y, float* part,
+                           float* out, int N, int m, int n, int K,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int slices = (m + kRows - 1) / kRows;
   float* first = slices == 1 ? out : part;
   const dim3 grid((n + kCols - 1) / kCols, slices, N);
-  rmatvec_kernel<T><<<grid, kCols, 0, st>>>(
-      static_cast<const T*>(A), static_cast<const T*>(Y), first, N, m, n, K);
+  rmatvec_kernel<<<grid, kCols, 0, st>>>(A, Y, first, N, m, n, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return (int)err;
   const size_t count = (size_t)N * n * K;
@@ -157,32 +155,3 @@ int launch_rmatvec(const void* A, const void* Y, float* part, float* out,
                                                               slices, count);
   return (int)cudaGetLastError();
 }
-
-}  // namespace
-
-extern "C" int rmatvec_rows_per_slice() { return kRows; }
-
-// A (N, m, n) row-major; X (N, n, K); out (N, m, K) f32. vec = 1 selects the
-// 16-byte path (f32, K == 1, n % 4 == 0, A and X 16-byte aligned).
-// Returns cudaGetLastError().
-#define MATVEC_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const void* A, const void* X, float* out, int N, int m, \
-                      int n, int K, int vec, void* stream) {                  \
-    return launch_matvec<T>(A, X, out, N, m, n, K, vec, stream);              \
-  }
-
-// A (N, m, n) row-major; Y (N, m, K); part (slices, N, n, K) f32 scratch,
-// slices = ceil(m / rmatvec_rows_per_slice()), unused when slices == 1;
-// out (N, n, K) f32. Returns cudaGetLastError().
-#define RMATVEC_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* A, const void* Y, float* part, float* out,  \
-                      int N, int m, int n, int K, void* stream) {             \
-    return launch_rmatvec<T>(A, Y, part, out, N, m, n, K, stream);            \
-  }
-
-MATVEC_ENTRY(matvec_f32, float)
-MATVEC_ENTRY(matvec_bf16, __nv_bfloat16)
-MATVEC_ENTRY(matvec_f16, __half)
-RMATVEC_ENTRY(rmatvec_f32, float)
-RMATVEC_ENTRY(rmatvec_bf16, __nv_bfloat16)
-RMATVEC_ENTRY(rmatvec_f16, __half)

@@ -58,5 +58,6 @@ def _launch(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
                               out.data_ptr(), n, B, nblocks,
                               build.stream(az))
     build.check(rc, "ladder_stats")
-    build.LAUNCHES["ladder_stats"] += 1
+    # two kernels: ladder_partial (skipped when n == 0) and ladder_reduce
+    build.LAUNCHES["ladder_stats"] += 1 + (nblocks > 0)
     return out

@@ -40,8 +40,10 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 
-# Launch counts per kernel wrapper: a wrapper adds one where it launches
-# its kernel and nowhere else (read through repro_torch.kernels.ops).
+# Device kernel launches per kernel: a wrapper adds, where it launches, the
+# number of CUDA kernels its C entry point issued — two for ladder_stats
+# (partial and reduce passes) and for rmatvec over more than one row slice,
+# one otherwise — and nowhere else (read through repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -19,15 +19,11 @@ import torch
 from . import build
 from .ref import matvec_ref, rmatvec_ref
 
-_MV = {torch.float32: "matvec_f32", torch.bfloat16: "matvec_bf16",
-       torch.float16: "matvec_f16"}
-_RMV = {torch.float32: "rmatvec_f32", torch.bfloat16: "rmatvec_bf16",
-        torch.float16: "rmatvec_f16"}
 _SIGNATURES = {
-    **{name: [build.P, build.P, build.P, build.I, build.I, build.I, build.I,
-              build.I, build.P] for name in _MV.values()},
-    **{name: [build.P, build.P, build.P, build.P, build.I, build.I, build.I,
-              build.I, build.P] for name in _RMV.values()},
+    "matvec_f32": [build.P, build.P, build.P, build.I, build.I, build.I,
+                   build.I, build.I, build.P],
+    "rmatvec_f32": [build.P, build.P, build.P, build.P, build.I, build.I,
+                    build.I, build.I, build.P],
     "rmatvec_rows_per_slice": [],
 }
 
@@ -65,9 +61,8 @@ def _launch(a: torch.Tensor, v: torch.Tensor, *, adjoint: bool) -> torch.Tensor:
     if a.ndim not in (2, 3):
         raise ValueError(f"{name}: a must be (m, n) or (N, m, n), got "
                          f"{tuple(a.shape)}")
-    if a.dtype not in _MV or v.dtype != a.dtype:
-        raise ValueError(f"{name}: the kernel takes one of {list(_MV)} for "
-                         f"a and the same dtype for the operand, got "
+    if a.dtype != torch.float32 or v.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes float32 operands, got "
                          f"{a.dtype}, {v.dtype}")
     if not a.is_contiguous():
         raise ValueError(f"{name}: a must be contiguous (row-major); the "
@@ -96,18 +91,18 @@ def _launch(a: torch.Tensor, v: torch.Tensor, *, adjoint: bool) -> torch.Tensor:
             slices = -(-m // lib.rmatvec_rows_per_slice())
             part = torch.empty((slices, N, n, K) if slices > 1 else (0,),
                                dtype=torch.float32, device=a.device)
-            rc = getattr(lib, _RMV[a.dtype])(
-                ab.data_ptr(), vb.data_ptr(), part.data_ptr(),
-                out.data_ptr(), N, m, n, K, build.stream(a))
+            rc = lib.rmatvec_f32(ab.data_ptr(), vb.data_ptr(),
+                                 part.data_ptr(), out.data_ptr(), N, m, n, K,
+                                 build.stream(a))
+            launches = 1 + (slices > 1)     # rmatvec_kernel (+ sum_slices)
         else:
-            vec = int(a.dtype == torch.float32 and K == 1 and n % 4 == 0
-                      and ab.data_ptr() % 16 == 0
+            vec = int(K == 1 and n % 4 == 0 and ab.data_ptr() % 16 == 0
                       and vb.data_ptr() % 16 == 0)
-            rc = getattr(lib, _MV[a.dtype])(
-                ab.data_ptr(), vb.data_ptr(), out.data_ptr(), N, m, n, K,
-                vec, build.stream(a))
+            rc = lib.matvec_f32(ab.data_ptr(), vb.data_ptr(), out.data_ptr(),
+                                N, m, n, K, vec, build.stream(a))
+            launches = 1
         build.check(rc, name)
-        build.LAUNCHES[name] += 1
+        build.LAUNCHES[name] += launches
     if a.ndim == 2:
         out = out[0]
     return out[..., 0] if one else out

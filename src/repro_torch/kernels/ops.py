@@ -17,9 +17,9 @@ There is no default row: a CUDA tensor reaches a kernel or an error.
 Outputs are cast to ``a.dtype`` unless ``out_dtype`` is given, as in the
 JAX package (``repro/kernels/ops.py:54-63``).
 
-:func:`launch_counts` reads how many times each kernel was launched since
-:func:`reset_launch_counts` (kernel launches only; the CPU rows count
-nothing).
+:func:`launch_counts` reads how many CUDA kernels each wrapper launched
+since :func:`reset_launch_counts`: device launches, so a two-pass
+``ladder_stats`` call counts 2 (the CPU rows count nothing).
 """
 from __future__ import annotations
 

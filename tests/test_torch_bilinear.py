@@ -6,10 +6,13 @@ apex and inside cases, t0 <= 0, tiny scale, fractional and over-budget
 kappa. The CPU fits run ``rounds=0``; ``rounds=2`` runs the bracketing
 rounds through the plain ladder statistics here (the card runs the kernel).
 Tolerance: the JAX ladder tests' own, atol 1e-5 on the projections
-(1e-36 at 1e-30 scale), and exact equality for hard thresholding.
+(1e-36 at 1e-30 scale), and exact equality for hard thresholding. The JAX
+functions run under ``jax.jit``, as the JAX solver runs them; that also
+compiles each shape once instead of dispatching every loop step.
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,13 @@ import torch
 
 from repro.core import bilinear as jbl
 from repro_torch.core import bilinear as tbl
+
+J_PROJECT = jax.jit(jbl.project_l1_epigraph)
+J_PROJECT_SORT = jax.jit(jbl.project_l1_epigraph_sort)
+J_SUPPORT = jax.jit(jbl.support_skappa_ladder)
+J_S_UPDATE = jax.jit(jbl.s_update)
+J_HARD = jax.jit(jbl.hard_threshold, static_argnums=1)
+J_HARD_SORT = jax.jit(jbl.hard_threshold_sort, static_argnums=1)
 
 
 def _vec(seed, n, scale=1.0):
@@ -34,16 +44,16 @@ def _jax_case(fn_name, case):
     """The JAX result of one case, computed once for both ``rounds``."""
     if fn_name == "project":
         _, z0, t0 = CASES[case]
-        zj, tj = jbl.project_l1_epigraph(jnp.asarray(z0), jnp.float32(t0))
+        zj, tj = J_PROJECT(jnp.asarray(z0), jnp.float32(t0))
         return np.asarray(zj), float(tj)
     z, kappa = SUPPORT[case]
-    uj, sj = jbl.support_skappa_ladder(jnp.asarray(z), kappa)
+    uj, sj = J_SUPPORT(jnp.asarray(z), kappa)
     return float(uj), np.asarray(sj)
 
 
 def _project_both(z0, t0, rounds, case=None):
     if case is None:
-        zj, tj = jbl.project_l1_epigraph(jnp.asarray(z0), jnp.float32(t0))
+        zj, tj = J_PROJECT(jnp.asarray(z0), jnp.float32(t0))
     else:
         zj, tj = _jax_case("project", case)
     zt, tt = tbl.project_l1_epigraph(torch.as_tensor(z0),
@@ -80,7 +90,7 @@ def test_project_l1_epigraph_tiny_scale():
 @pytest.mark.parametrize("seed,n", [(0, 40), (1, 513)])
 def test_sort_oracle_matches_jax_sort_oracle(seed, n):
     z0 = _vec(seed, n)
-    zj, tj = jbl.project_l1_epigraph_sort(jnp.asarray(z0), 0.7)
+    zj, tj = J_PROJECT_SORT(jnp.asarray(z0), 0.7)
     zt, tt = tbl.project_l1_epigraph_sort(torch.as_tensor(z0), 0.7)
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), atol=1e-5)
     assert abs(float(tt) - float(tj)) < 1e-5
@@ -110,7 +120,7 @@ def test_support_skappa_ladder_matches_jax(case, rounds):
                                           (2, 8, 1.0)])
 def test_s_update_matches_jax(seed, n, kappa, rounds):
     z = _vec(seed, n)
-    sj = jbl.s_update(jnp.asarray(z), 1.7, 0.3, kappa)
+    sj = J_S_UPDATE(jnp.asarray(z), 1.7, 0.3, kappa)
     st = tbl.s_update(torch.as_tensor(z), 1.7, 0.3, kappa, rounds=rounds)
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-5)
     ss = tbl.s_update(torch.as_tensor(z), 1.7, 0.3, kappa, method="sort")
@@ -125,12 +135,12 @@ def test_s_update_matches_jax(seed, n, kappa, rounds):
     (np.float32([1.0, 1.0, 1.0, 1.0]), 1),
     (_vec(8, 100), 17), (_vec(9, 100), 0)])
 def test_hard_threshold_matches_jax_including_ties(z, kappa):
-    want = np.asarray(jbl.hard_threshold(jnp.asarray(z), kappa))
+    want = np.asarray(J_HARD(jnp.asarray(z), kappa))
     np.testing.assert_array_equal(
         tbl.hard_threshold(torch.as_tensor(z), kappa).numpy(), want)
     np.testing.assert_array_equal(
         tbl.hard_threshold_sort(torch.as_tensor(z), kappa).numpy(),
-        np.asarray(jbl.hard_threshold_sort(jnp.asarray(z), kappa)))
+        np.asarray(J_HARD_SORT(jnp.asarray(z), kappa)))
 
 
 def test_bilinear_residual_matches_jax():
