@@ -6,13 +6,16 @@ reference engine.
 >>> model.fit(X, y).score(X, y)            # X: (samples, n) or (N, m, n)
 >>> SparseLinearRegression(kappa=20, device="cpu")          # asks for the CPU
 
-Entry points run on the card unless the caller asks for the CPU: with
-``device=None`` and no CUDA device they raise ``RuntimeError``. What this
-slice has not ported raises :class:`CapabilityError` up front: the other
-three estimators, the sharded engine and meshes, the feature-split
-sub-solver, ``projection="sort"``, precisions other than ``"fp32"``,
-per-solve ``gamma``/``rho_c`` overrides, divergence recovery, and the
-path, grid, fleet, serving and streaming entry points.
+The paper's four models are here — :class:`SparseLinearRegression`,
+:class:`SparseLogisticRegression`, :class:`SparseSVM` and
+:class:`SparseSoftmaxRegression` — with the direct x-update or the
+feature-split sub-solver (``n_feature_blocks > 1``). Entry points run on the
+card unless the caller asks for the CPU: with ``device=None`` and no CUDA
+device they raise ``RuntimeError``. What the port has not ported raises
+:class:`CapabilityError` up front: the sharded engine and meshes,
+``projection="sort"``, precisions other than ``"fp32"``, per-solve
+``gamma``/``rho_c`` overrides, divergence recovery, and the path, grid,
+fleet, serving and streaming entry points.
 """
 from __future__ import annotations
 
@@ -55,10 +58,20 @@ class SparseProblem:
             raise ValueError("n_classes must be >= 1")
         if self.gamma <= 0 or self.rho_c <= 0:
             raise ValueError("gamma and rho_c must be positive")
+        if isinstance(self.loss, Loss):
+            # a Loss instance carries its own class count: adopt it when
+            # n_classes was left at the default, reject a contradiction
+            if self.n_classes not in (1, self.loss.n_classes):
+                raise ValueError(
+                    f"n_classes={self.n_classes} contradicts the loss "
+                    f"instance's n_classes={self.loss.n_classes}")
+            object.__setattr__(self, "n_classes", self.loss.n_classes)
+        name = self.loss if isinstance(self.loss, str) else self.loss.name
+        if name.startswith("softmax") and self.n_classes < 2:
+            raise ValueError("softmax needs n_classes >= 2")
 
     def resolve_loss(self) -> Loss:
-        """The :class:`Loss` this problem names (unported losses raise
-        :class:`CapabilityError`)."""
+        """The :class:`Loss` this problem names."""
         if isinstance(self.loss, Loss):
             return self.loss
         return get_loss(self.loss, self.n_classes)
@@ -75,6 +88,9 @@ class SolverOptions:
     zt_iters: int = 120
     x_solver: str = "auto"
     n_feature_blocks: int = 1
+    inner_iters: int = 15
+    rho_l: float = 1.0
+    newton_iters: int = 12
     cg_iters: int = 200
     cg_tol: float = 1e-6
     force_feature_split: bool = False
@@ -120,7 +136,9 @@ class Capabilities:
 
 def engine_capabilities(engine: str = "reference") -> Capabilities:
     """The reference engine's capabilities in this port; other engines
-    raise :class:`CapabilityError`."""
+    raise :class:`CapabilityError`. Dynamic penalties are off: the spectral
+    factors are not ported, and with the feature split on they stay off in
+    any case, since it bakes the penalties into its per-block factors."""
     if engine != "reference":
         raise CapabilityError(f"engine {engine!r} is not ported to "
                               "repro_torch yet; use engine='reference'")
@@ -136,9 +154,6 @@ def _check_options(options: SolverOptions) -> None:
     unported = []
     if options.engine == "sharded" or options.mesh is not None:
         unported.append("the sharded engine (engine='sharded' / mesh=)")
-    if options.n_feature_blocks > 1 or options.force_feature_split:
-        unported.append("the feature-split sub-solver (n_feature_blocks > 1 "
-                        "/ force_feature_split)")
     if options.projection != "ladder":
         unported.append(f"projection={options.projection!r}")
     if options.precision != runtime.PRECISION_PRESETS["fp32"]:
@@ -159,7 +174,11 @@ def build_config(problem: SparseProblem,
         alpha=problem.alpha, rho_b=problem.rho_b,
         max_iter=options.max_iter, tol=options.tol,
         divergence_tol=options.divergence_tol, zt_iters=options.zt_iters,
-        polish=options.polish, over_relax=options.over_relax,
+        n_feature_blocks=options.n_feature_blocks,
+        inner_iters=options.inner_iters, rho_l=options.rho_l,
+        newton_iters=options.newton_iters, polish=options.polish,
+        over_relax=options.over_relax,
+        force_feature_split=options.force_feature_split,
         x_solver=options.x_solver, cg_iters=options.cg_iters,
         cg_tol=options.cg_tol, precision=options.precision)
 
@@ -185,7 +204,10 @@ def validate_data(X: torch.Tensor, y: torch.Tensor) -> None:
         raise ValueError(
             f"y has {y.numel()} targets but X has {n_rows} sample rows "
             f"(X shape {tuple(X.shape)}, y shape {tuple(y.shape)})")
-    if X.is_floating_point() and not bool(torch.isfinite(X).all()):
+    # the extremes are non-finite exactly when an entry is: no temporary of
+    # X's size (X may fill a good part of the card)
+    if X.is_floating_point() and not bool(
+            torch.isfinite(torch.stack(torch.aminmax(X))).all()):
         raise ValueError("X contains non-finite entries (NaN or Inf); "
                          "clean or impute the data before fitting")
     if y.is_floating_point() and not bool(torch.isfinite(y).all()):
@@ -231,7 +253,8 @@ class _ReferenceAdapter:
         if gamma is not None or rho_c is not None:
             raise CapabilityError(
                 "per-solve gamma/rho_c overrides need the spectral factors "
-                "of a later slice; build a new problem instead")
+                "of a later slice (and the feature split bakes the penalties "
+                "into its factors); build a new problem instead")
         if state is None and kappa is None:
             return self.solver.fit(As, bs)
         state = state if state is not None else self.solver.init_state(As, bs)
@@ -265,6 +288,7 @@ class SparseEstimator:
     with sklearn-shaped ``fit`` / ``predict`` / ``score``. ``device=``
     (or ``options=SolverOptions(device=...)``) says where it runs."""
     _loss_name: str = "squared"
+    _score_kind: str = "r2"           # "r2" | "accuracy"
 
     def __init__(self, kappa: int, *, gamma: float = 1.0,
                  rho_c: float = 1.0, alpha: float = 0.5,
@@ -293,7 +317,8 @@ class SparseEstimator:
         As, bs = _stack(X, y, self.device)
         res = self._adapter.fit(As, bs, state=state)
         self.result_ = res
-        self.coef_ = res.coef[:, 0]
+        K = self.problem.n_classes
+        self.coef_ = res.coef[:, 0] if K == 1 else res.coef
         self.support_ = res.support
         self.n_iter_ = int(res.iters)
         self.engine_ = self._adapter.name
@@ -310,20 +335,25 @@ class SparseEstimator:
         X = _as_tensor(X, self.device)
         if X.ndim == 3:
             X = X.reshape(-1, X.shape[-1])
-        return (X @ self.result_.coef)[:, 0]
+        scores = X @ self.result_.coef               # (samples, K)
+        return scores[:, 0] if self.problem.n_classes == 1 else scores
 
     def decision_function(self, X) -> torch.Tensor:
-        """Raw decision values (the fitted response for regression)."""
+        """Raw decision values: residual fit / margins / ``(m, C)``
+        logits, per the loss's ``decision`` map."""
         return self.problem.resolve_loss().decision(self._scores(X))
 
     def predict(self, X) -> torch.Tensor:
-        """Predicted targets."""
+        """Predicted targets: response (regression), {-1, +1} labels
+        (margin losses) or argmax class labels (softmax)."""
         return self.problem.resolve_loss().predict(self._scores(X))
 
     def score(self, X, y) -> float:
-        """R^2 of the prediction."""
+        """R^2 for regression, accuracy for classification."""
         y = _as_tensor(y, self.device).reshape(-1)
         yhat = self.predict(X)
+        if self._score_kind == "accuracy":
+            return float(torch.mean((yhat == y).to(torch.float32)))
         ss_res = torch.sum((y - yhat) ** 2)
         ss_tot = torch.sum((y - torch.mean(y)) ** 2)
         return float(1.0 - ss_res / torch.clamp_min(ss_tot, 1e-30))
@@ -334,23 +364,34 @@ class SparseLinearRegression(SparseEstimator):
     _loss_name = "squared"
 
 
-class _UnportedEstimator(SparseEstimator):
-    def __init__(self, *args, **kwargs):
-        raise CapabilityError(
-            f"{type(self).__name__} is not ported to repro_torch yet (its "
-            "loss needs the Newton-CG x-update); use the JAX package")
+class SparseLogisticRegression(SparseEstimator):
+    """SLogR: exact-l0 logistic regression, labels in {-1, +1}."""
+    _loss_name = "logistic"
+    _score_kind = "accuracy"
 
 
-class SparseLogisticRegression(_UnportedEstimator):
-    """SLogR — not ported yet (raises :class:`CapabilityError`)."""
+class SparseSVM(SparseEstimator):
+    """SSVM: exact-l0 support vector machine. Defaults to the Huberized
+    (smoothed) hinge; ``hinge="plain"`` takes the non-smooth hinge prox."""
+    _loss_name = "smoothed_hinge"
+    _score_kind = "accuracy"
+
+    def __init__(self, kappa: int, *, hinge: str = "smoothed", **kw):
+        if hinge not in ("smoothed", "plain"):
+            raise ValueError(f"hinge must be 'smoothed' or 'plain', "
+                             f"got {hinge!r}")
+        self._loss_name = "smoothed_hinge" if hinge == "smoothed" else "hinge"
+        super().__init__(kappa, **kw)
 
 
-class SparseSVM(_UnportedEstimator):
-    """SSVM — not ported yet (raises :class:`CapabilityError`)."""
+class SparseSoftmaxRegression(SparseEstimator):
+    """SSR: exact-l0 softmax regression over C classes; ``coef_`` is
+    ``(n, C)`` and ``kappa`` budgets the flattened ``(n*C,)`` vector."""
+    _loss_name = "softmax"
+    _score_kind = "accuracy"
 
-
-class SparseSoftmaxRegression(_UnportedEstimator):
-    """SSR — not ported yet (raises :class:`CapabilityError`)."""
+    def __init__(self, kappa: int, n_classes: int, **kw):
+        super().__init__(kappa, n_classes=n_classes, **kw)
 
 
 # functional entry points of the JAX api that wait for later slices

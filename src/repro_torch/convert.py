@@ -1,41 +1,68 @@
 """Carry solver state and results between the JAX package and the port.
 
-A JAX ``BiCADMMState`` crosses as a dict of numpy arrays
-(``{k: np.asarray(v) for k, v in st._asdict().items()}``, with
-``inner=None``); :func:`state_from_numpy` turns it into the port's state on
-a device, and :func:`state_to_numpy` / :func:`result_to_numpy` go back.
-Warm starts then move between the packages.
+A JAX ``BiCADMMState`` crosses as a dict of numpy arrays, one per field
+(``{k: np.asarray(v) for k, v in st._asdict().items() if k != "inner"}``).
+Its ``inner`` field, the feature-split sub-solver's state, crosses as
+``None``, as a dict of the three arrays ``x_blocks`` / ``nu`` /
+``omega_bar``, or as any object with those attributes (the JAX
+``SubsolverState`` itself). :func:`state_from_numpy` turns it into the
+port's state on a device, and :func:`state_to_numpy` /
+:func:`result_to_numpy` go back, with ``inner`` as a dict. Warm starts then
+move between the packages.
 """
 from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from .core.bicadmm import BiCADMMState
 from .core.results import FitResult
+from .core.subsolver import SubsolverState
 
 _INT_FIELDS = ("k",)
+_INNER_FIELDS = tuple(f.name for f in dataclasses.fields(SubsolverState))
+
+
+def _tensor(arr, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.array(arr), device=device).to(dtype)
+
+
+def _inner_from(inner, device) -> SubsolverState | None:
+    if inner is None:
+        return None
+    get = inner.__getitem__ if isinstance(inner, Mapping) else (
+        lambda name: getattr(inner, name))
+    return SubsolverState(**{name: _tensor(get(name), device)
+                             for name in _INNER_FIELDS})
 
 
 def state_from_numpy(d: dict, device) -> BiCADMMState:
     """The port's state from a dict of numpy arrays (one per field)."""
-    if d.get("inner") is not None:
-        raise ValueError("feature-split sub-solver state is not ported; "
-                         "carry a state with inner=None")
     fields = {}
     for name in BiCADMMState._fields:
         if name == "inner":
             continue
-        arr = np.array(d[name])          # a writable copy
         dtype = torch.int32 if name in _INT_FIELDS else torch.float32
-        fields[name] = torch.as_tensor(arr, device=device).to(dtype)
-    return BiCADMMState(**fields, inner=None)
+        fields[name] = _tensor(d[name], device, dtype)
+    return BiCADMMState(**fields, inner=_inner_from(d.get("inner"), device))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def state_to_numpy(st: BiCADMMState) -> dict:
-    """A dict of numpy arrays, one per state field (``inner`` is None)."""
-    return {name: (None if val is None else val.detach().cpu().numpy())
-            for name, val in st._asdict().items()}
+    """A dict of numpy arrays, one per state field; ``inner`` is None or
+    the dict of the sub-solver's three arrays."""
+    out = {name: _numpy(val) for name, val in st._asdict().items()
+           if name != "inner"}
+    out["inner"] = (None if st.inner is None else
+                    {name: _numpy(getattr(st.inner, name))
+                     for name in _INNER_FIELDS})
+    return out
 
 
 def result_to_numpy(res: FitResult) -> dict:
@@ -44,6 +71,6 @@ def result_to_numpy(res: FitResult) -> dict:
     for name in ("coef", "z", "support", "iters", "p_r", "d_r", "b_r",
                  "status"):
         val = getattr(res, name)
-        out[name] = None if val is None else val.detach().cpu().numpy()
+        out[name] = None if val is None else _numpy(val)
     out["state"] = None if res.state is None else state_to_numpy(res.state)
     return out

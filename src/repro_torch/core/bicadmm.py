@@ -1,12 +1,12 @@
 """Bi-cADMM — Algorithm 1 of the paper, reference engine (counterpart of
 ``repro.core.bicadmm``).
 
-Solves   min_x sum_i 1/2||A_i x - b_i||^2 + 1/(2 gamma) ||x||^2
+Solves   min_x sum_i l(A_i x, b_i) + 1/(2 gamma) ||x||^2
          s.t.  ||x||_0 <= kappa
 
 via the bi-linear consensus reformulation and the ADMM splitting (7):
 
-  (7a) x_i  <- prox of the local loss        [prox.NodeProxEngine, per node]
+  (7a) x_i  <- prox of the local loss        [per node: see below]
   (7b) (z,t)<- QP over the l1-epigraph cone  [FISTA + exact cone projection]
   (7c) s    <- closed form over S^kappa      [bilinear.s_update]
   (7d) u_i  <- u_i + x_i - z
@@ -15,12 +15,15 @@ via the bi-linear consensus reformulation and the ADMM splitting (7):
 The JAX ``while_loop``/``fori_loop`` drivers are Python loops here; the
 outer loop reads its stopping test from the device once per iteration.
 Data is the node-stacked (N, m, n) / (N, m) layout, and the iterates keep
-the JAX state's (N, n) / (n,) layout so states carry across packages
-(:mod:`repro_torch.convert`).
+the JAX state's (N, d) / (d,) layout, d = n K for a K-class loss, so states
+carry across packages (:mod:`repro_torch.convert`).
 
-This slice runs the squared loss at float32. The feature-split sub-solver,
-the fleet driver, ``fit_with_history`` and fault injection wait for later
-slices.
+The x-update (7a) takes one of three routes, as in the JAX package: the
+feature-split sub-solver (Algorithm 2, :mod:`.subsolver`) when
+``n_feature_blocks > 1`` or ``force_feature_split``; else the squared
+loss's factorized engines (:class:`.prox.NodeProxEngine`); else
+:func:`.prox.newton_cg_prox`. Everything runs at float32. The fleet driver,
+``fit_with_history`` and fault injection wait for later slices.
 """
 from __future__ import annotations
 
@@ -32,10 +35,13 @@ import torch
 
 from . import bilinear, prox
 from .losses import Loss, get_loss
-from .prox import NodeProxEngine, x_solve
+from .prox import NodeProxEngine, newton_cg_prox, x_solve
 from .results import FitResult, classify_status, divergence_probe
+from .subsolver import (SubsolverState, node_prox_feature_split,
+                        subsolver_setup)
 from .. import runtime
-from ..kernels.ops import gram_auto, normal_matvec_auto, rmatvec_auto
+from ..kernels.ops import (gram_auto, matvec_auto, normal_matvec_auto,
+                           rmatvec_auto)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +55,13 @@ class BiCADMMConfig:
     tol: float = 1e-4               # applied to p_r / d_r / b_r
     divergence_tol: float = 1e12
     zt_iters: int = 120             # FISTA iterations for step (7b)
+    n_feature_blocks: int = 1       # M (Algorithm 2); 1 => direct prox
+    inner_iters: int = 15           # inner ADMM iterations per x-update
+    rho_l: float = 1.0              # inner ADMM penalty
+    newton_iters: int = 12          # direct Newton-CG prox iterations
     polish: bool = True             # debias on the recovered support
     over_relax: float = 1.0
+    force_feature_split: bool = False  # Algorithm 2 even when M == 1
     x_solver: str = "auto"          # "auto" | "dense" | "woodbury" | "pcg"
     cg_iters: int = 200
     cg_tol: float = 1e-6
@@ -73,6 +84,10 @@ class BiCADMMConfig:
     def rho_b_eff(self) -> float:
         return self.rho_b if self.rho_b is not None else self.alpha * self.rho_c
 
+    @property
+    def use_feature_split(self) -> bool:
+        return self.n_feature_blocks > 1 or self.force_feature_split
+
 
 class SolveParams(NamedTuple):
     """Per-solve hyperparameters (Python scalars in this slice)."""
@@ -83,17 +98,17 @@ class SolveParams(NamedTuple):
 
 
 class BiCADMMState(NamedTuple):
-    x: torch.Tensor   # (N, n) local estimates
-    u: torch.Tensor   # (N, n) scaled consensus duals
-    z: torch.Tensor   # (n,)
+    x: torch.Tensor   # (N, d) local estimates, d = n K
+    u: torch.Tensor   # (N, d) scaled consensus duals
+    z: torch.Tensor   # (d,)
     t: torch.Tensor   # ()
-    s: torch.Tensor   # (n,)
+    s: torch.Tensor   # (d,)
     v: torch.Tensor   # () scaled bi-linear dual
     k: torch.Tensor   # () int32 iteration counter
     p_r: torch.Tensor
     d_r: torch.Tensor
     b_r: torch.Tensor
-    inner: Any = None  # feature-split sub-solver state (not ported: None)
+    inner: Any = None  # SubsolverState of the feature split, else None
 
 
 def reset_for_resume(st: BiCADMMState) -> BiCADMMState:
@@ -148,10 +163,10 @@ class BiCADMM:
 
     _SETUP_CACHE_MAX = 4
 
-    def __init__(self, loss: Loss | str, cfg: BiCADMMConfig):
-        self.loss = get_loss(loss) if isinstance(loss, str) else loss
-        if self.loss.name != "squared":
-            get_loss(self.loss.name, self.loss.n_classes)   # raises
+    def __init__(self, loss: Loss | str, cfg: BiCADMMConfig, *,
+                 n_classes: int = 1):
+        self.loss = (get_loss(loss, n_classes) if isinstance(loss, str)
+                     else loss)
         self.cfg = cfg
         # setup factors keyed on the data tensors' identity, so warm-started
         # run_from calls factorize once. Entries hold strong references to
@@ -173,8 +188,14 @@ class BiCADMM:
         if hit is not None:
             return hit[-1]
         sigma = 1.0 / (N * cfg.gamma)
-        eng = self._x_engine(m, n)
-        out = (eng.setup(As, bs, sigma, cfg.rho_c), N, n)
+        if cfg.use_feature_split:
+            factors = subsolver_setup(As, sigma, cfg.rho_c, cfg.rho_l,
+                                      cfg.n_feature_blocks)
+        elif self.loss.name == "squared":
+            factors = self._x_engine(m, n).setup(As, bs, sigma, cfg.rho_c)
+        else:
+            factors = None
+        out = (factors, N, n)
         if len(self._setup_cache) >= self._SETUP_CACHE_MAX:
             self._setup_cache.pop(next(iter(self._setup_cache)))
         self._setup_cache[key] = (As, bs, out)
@@ -186,15 +207,35 @@ class BiCADMM:
         return SolveParams(kappa=kappa, rho_c=cfg.rho_c, rho_b=cfg.rho_b_eff,
                            sigma=1.0 / (N * cfg.gamma))
 
+    def _x_update(self, factors, params: SolveParams, As, bs, q, x_prev,
+                  inner):
+        """q: (N, d) prox centers, x_prev: (N, d) previous outer iterates
+        (PCG warm start) -> (N, d), new inner state."""
+        cfg, loss = self.cfg, self.loss
+        N, m, n = As.shape
+        K = loss.n_classes
+        if cfg.use_feature_split:
+            x, inner = node_prox_feature_split(
+                loss, factors, bs, q.reshape(N, n, K), cfg.inner_iters, inner)
+            return x.reshape(N, -1), inner
+        if loss.name == "squared":
+            return x_solve(factors, q, params.rho_c, params.sigma,
+                           x0=x_prev), inner
+        qx = q.reshape(N, n, K) if K > 1 else q
+        x = newton_cg_prox(loss, As, bs, qx, params.sigma, params.rho_c,
+                           newton_iters=cfg.newton_iters)
+        return x.reshape(N, -1), inner
+
     # -- one iteration ---------------------------------------------------------
-    def _step(self, factors, As, params: SolveParams,
+    def _step(self, factors, As, bs, params: SolveParams,
               st: BiCADMMState) -> BiCADMMState:
         cfg = self.cfg
         N = As.shape[0]
         rho_c, rho_b = params.rho_c, params.rho_b
 
-        q = st.z[None] - st.u                              # (N, n)
-        x_new = x_solve(factors, q, rho_c, params.sigma, x0=st.x)
+        q = st.z[None] - st.u                              # (N, d)
+        x_new, inner = self._x_update(factors, params, As, bs, q, st.x,
+                                      st.inner)
         if cfg.over_relax != 1.0:
             x_eff = cfg.over_relax * x_new + (1.0 - cfg.over_relax) * st.z[None]
         else:
@@ -214,26 +255,36 @@ class BiCADMM:
         d_r = scale * torch.linalg.vector_norm(z_new - st.z)
         b_r = torch.abs(gval)
         return BiCADMMState(x_new, u_new, z_new, t_new, s_new, v_new,
-                            st.k + 1, p_r, d_r, b_r, None)
+                            st.k + 1, p_r, d_r, b_r, inner)
 
-    def _init_state(self, As, n: int) -> BiCADMMState:
-        N = As.shape[0]
+    def _init_state(self, As, n: int, K: int) -> BiCADMMState:
+        cfg = self.cfg
+        N, m, _ = As.shape
+        d = n * K
         kw = dict(dtype=As.dtype, device=As.device)
+        inner = None
+        if cfg.use_feature_split:
+            M = cfg.n_feature_blocks
+            nb = -(-n // M)
+            inner = SubsolverState(
+                x_blocks=torch.zeros((N, M, nb, K), **kw),
+                nu=torch.zeros((N, m, K), **kw),
+                omega_bar=torch.zeros((N, m, K), **kw))
         inf = float("inf")
         return BiCADMMState(
-            x=torch.zeros((N, n), **kw), u=torch.zeros((N, n), **kw),
-            z=torch.zeros((n,), **kw), t=torch.zeros((), **kw),
-            s=torch.zeros((n,), **kw), v=torch.zeros((), **kw),
+            x=torch.zeros((N, d), **kw), u=torch.zeros((N, d), **kw),
+            z=torch.zeros((d,), **kw), t=torch.zeros((), **kw),
+            s=torch.zeros((d,), **kw), v=torch.zeros((), **kw),
             k=torch.zeros((), dtype=torch.int32, device=As.device),
             p_r=torch.full((), inf, **kw), d_r=torch.full((), inf, **kw),
-            b_r=torch.full((), inf, **kw), inner=None)
+            b_r=torch.full((), inf, **kw), inner=inner)
 
     # -- drivers ---------------------------------------------------------------
     def init_state(self, As, bs) -> BiCADMMState:
         """A fresh zero state."""
-        return self._init_state(As, As.shape[2])
+        return self._init_state(As, As.shape[2], self.loss.n_classes)
 
-    def _run_while(self, factors, As, params: SolveParams,
+    def _run_while(self, factors, As, bs, params: SolveParams,
                    st: BiCADMMState) -> BiCADMMState:
         cfg = self.cfg
         while True:
@@ -243,7 +294,7 @@ class BiCADMM:
             go = (~converged) & (~diverged) & (st.k < cfg.max_iter)
             if not bool(go):
                 return st
-            st = self._step(factors, As, params, st)
+            st = self._step(factors, As, bs, params, st)
 
     def run_from(self, As, bs, state: BiCADMMState, *,
                  kappa=None) -> FitResult:
@@ -252,7 +303,8 @@ class BiCADMM:
         ``kappa`` overrides the configured budget for this solve."""
         factors, N, n = self._setup(As, bs)
         params = self._make_params(N, kappa=kappa)
-        st = self._run_while(factors, As, params, reset_for_resume(state))
+        st = self._run_while(factors, As, bs, params,
+                             reset_for_resume(state))
         return self._finalize(As, bs, st, params)
 
     def fit(self, As, bs) -> FitResult:
@@ -268,29 +320,52 @@ class BiCADMM:
             x_final = self._polish(As, bs, support, z_sparse, params)
         else:
             x_final = z_sparse
-        coef = x_final.reshape(As.shape[2], 1)
+        coef = x_final.reshape(As.shape[2], self.loss.n_classes)
         status = classify_status(st.k, st.p_r, st.d_r, st.b_r, tol=cfg.tol,
                                  divergence_tol=cfg.divergence_tol)
         return FitResult(coef, st.z, support, st.k, st.p_r, st.d_r, st.b_r,
                          None, st, status=status)
 
     def _polish(self, As, bs, support, z0, params: SolveParams):
-        """Debias: the masked-ridge re-fit on the recovered support — a
-        dense solve while the n x n Gram is small, matrix-free Jacobi-PCG
-        on (A^T A + diag(pen + sigma)) beyond."""
-        cfg = self.cfg
+        """Debias: re-fit restricted to the recovered support, as the full
+        regularized problem plus a large quadratic penalty off-support. For
+        the squared loss a dense solve while the n x n Gram is small,
+        matrix-free Jacobi-PCG on (A^T A + diag(pen + sigma)) beyond; for the
+        other losses Newton-CG on the stacked data."""
+        cfg, loss = self.cfg, self.loss
         N, m, n = As.shape
+        K = loss.n_classes
         sigma = N * params.sigma         # full-problem l2 weight = 1 / gamma
         pen = torch.where(support, 0.0, 1e8).to(As.dtype)
         A_all = As.reshape(N * m, n)
         b_all = bs.reshape(-1)
-        if n <= prox.DENSE_MAX_N and cfg.x_solver in ("auto", "dense"):
-            H = gram_auto(A_all) + torch.diag(pen + sigma)
-            x = torch.linalg.solve(H, rmatvec_auto(A_all, b_all))
+        if loss.name == "squared":
+            if n <= prox.DENSE_MAX_N and cfg.x_solver in ("auto", "dense"):
+                H = gram_auto(A_all) + torch.diag(pen + sigma)
+                x = torch.linalg.solve(H, rmatvec_auto(A_all, b_all))
+                return torch.where(support, x, 0.0)
+            shift = pen + sigma
+            inv = 1.0 / (prox.col_sumsq(A_all) + shift)
+            x = prox.pcg(lambda p: normal_matvec_auto(A_all, p, shift),
+                         rmatvec_auto(A_all, b_all), z0, lambda r: inv * r,
+                         max(200, 2 * cfg.cg_iters), cfg.cg_tol)
             return torch.where(support, x, 0.0)
-        shift = pen + sigma
-        inv = 1.0 / (prox.col_sumsq(A_all) + shift)
-        x = prox.pcg(lambda p: normal_matvec_auto(A_all, p, shift),
-                     rmatvec_auto(A_all, b_all), z0, lambda r: inv * r,
-                     max(200, 2 * cfg.cg_iters), cfg.cg_tol)
-        return torch.where(support, x, 0.0)
+
+        # Newton-CG on the masked problem (the penalty keeps off-support ~ 0)
+        xshape = (n, K) if K > 1 else (n,)
+        xf = z0
+        for _ in range(cfg.newton_iters):
+            x = xf.reshape(xshape)
+            pred = matvec_auto(A_all, x)
+            g = rmatvec_auto(A_all, loss.grad(pred, b_all))
+            g = (g + sigma * x).reshape(-1) + pen * xf
+
+            def hvp(p, pred=pred):
+                pv = p[0].reshape(xshape)
+                _, dlg = torch.func.jvp(lambda pr: loss.grad(pr, b_all),
+                                        (pred,), (matvec_auto(A_all, pv),))
+                out = (rmatvec_auto(A_all, dlg) + sigma * pv).reshape(-1)
+                return (out + pen * p[0])[None]
+
+            xf = xf - prox._cg(hvp, g[None], 60)[0]
+        return torch.where(support, xf, 0.0)

@@ -18,6 +18,9 @@ backend           setup          per-solve   memory       regime
 ``pcg``           O(m n)         O(k m n)    O(m n)       both large
 ================  =============  ==========  ===========  =================
 
+The other losses take :func:`newton_cg_prox`, a matrix-free Newton-CG on
+the ``matvec`` / ``rmatvec`` kernels.
+
 Cholesky factorizations and triangular solves go to ``torch.linalg``, as the
 JAX package leaves them to XLA outside any Pallas kernel. The spectral
 (eigh) variants for traced penalties wait for the path-engine slice.
@@ -25,10 +28,12 @@ JAX package leaves them to XLA outside any Pallas kernel. The spectral
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 
+from .bilinear import CHUNK
 from ..kernels.ops import (gram_auto, matvec_auto, normal_matvec_auto,
                            rmatvec_auto)
 
@@ -97,8 +102,17 @@ def woodbury_prox(f: WoodburyFactors, q, rho_c) -> torch.Tensor:
 
 # ----------------------------------------------------------------- pcg ----
 def col_sumsq(A: torch.Tensor) -> torch.Tensor:
-    """Per-column sum of squares — diag(A^T A), the Jacobi preconditioner."""
-    return torch.einsum("...mn,...mn->...n", A, A)
+    """Per-column sum of squares — diag(A^T A), the Jacobi preconditioner.
+    Summed over chunks of about 2^24 elements of A, so no temporary of A's
+    size is made (A may fill a good part of the card)."""
+    row_size = math.prod(A.shape[:-2]) * A.shape[-1]
+    rows = max(1, 2 ** 24 // max(1, row_size))
+    out = torch.zeros(A.shape[:-2] + A.shape[-1:], dtype=A.dtype,
+                      device=A.device)
+    for i in range(0, A.shape[-2], rows):
+        chunk = A[..., i:i + rows, :]
+        out += torch.einsum("...mn,...mn->...n", chunk, chunk)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +173,76 @@ def pcg_prox(f: CGFactors, q, rho_c, sigma, x0=None) -> torch.Tensor:
     x0 = q if x0 is None else x0
     return pcg(lambda p: normal_matvec_auto(f.A, p, c), rhs, x0,
                lambda r: inv * r, f.iters, f.tol)
+
+
+# ------------------------------------------------------------ newton-cg ----
+def _bdot(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-system inner products over every axis but the leading one."""
+    return torch.sum((u * w).flatten(1), dim=1)
+
+
+def _cg(matvec: Callable, rhs: torch.Tensor, iters: int,
+        tol: float = 1e-10) -> torch.Tensor:
+    """Plain conjugate gradients from 0 with at most ``iters`` steps, each
+    system stopping once its squared residual is at most ``tol``.
+
+    ``rhs`` holds independent systems along its leading axis (the nodes):
+    a finished system's iterates are frozen, as the JAX package's vmapped
+    ``while_loop`` leaves them. The host reads the stopping test once per
+    ``CHUNK[device]`` steps.
+    """
+    def col(v):                      # (B,) -> broadcastable against rhs
+        return v.reshape((-1,) + (1,) * (rhs.ndim - 1))
+
+    x, r, p = torch.zeros_like(rhs), rhs, rhs
+    rs = _bdot(rhs, rhs)
+    chunk = CHUNK[rhs.device.type]
+    k = 0
+    while k < iters:
+        for _ in range(min(chunk, iters - k)):
+            active = rs > tol
+            Ap = matvec(p)
+            alpha = rs / torch.clamp_min(_bdot(p, Ap), 1e-30)
+            x_n = x + col(alpha) * p
+            r_n = r - col(alpha) * Ap
+            rs_n = _bdot(r_n, r_n)
+            p_n = r_n + col(rs_n / torch.clamp_min(rs, 1e-30)) * p
+            keep = col(active)
+            x = torch.where(keep, x_n, x)
+            r = torch.where(keep, r_n, r)
+            p = torch.where(keep, p_n, p)
+            rs = torch.where(active, rs_n, rs)
+            k += 1
+        if not bool((rs > tol).any()):
+            break
+    return x
+
+
+def newton_cg_prox(loss, A, b, q, sigma: float, rho_c: float,
+                   newton_iters: int = 15, cg_iters: int = 50
+                   ) -> torch.Tensor:
+    """Matrix-free Newton-CG for
+    argmin_x l(A x, b) + sigma/2 ||x||^2 + rho_c/2 ||x - q||^2, per node.
+
+    ``A`` (N, m, n), ``b`` (N, m), ``q`` (N, n) or (N, n, C) for a C-class
+    loss. The Hessian-vector product is the Gauss form
+    A^T (d grad / d pred)[A p] + (sigma + rho_c) p, with the loss's second
+    derivative taken by forward-mode AD (``torch.func.jvp``) of its
+    gradient, as the JAX package takes ``jax.jvp``. Every A-product runs
+    through the ``matvec`` / ``rmatvec`` kernels.
+    """
+    x = q
+    for _ in range(newton_iters):
+        pred = matvec_auto(A, x)
+        g = rmatvec_auto(A, loss.grad(pred, b)) + sigma * x + rho_c * (x - q)
+
+        def hvp(p, pred=pred):
+            _, dlg = torch.func.jvp(lambda pr: loss.grad(pr, b), (pred,),
+                                    (matvec_auto(A, p),))
+            return rmatvec_auto(A, dlg) + (sigma + rho_c) * p
+
+        x = x - _cg(hvp, g, cg_iters)
+    return x
 
 
 # ------------------------------------------------- the unified engine ----

@@ -4,10 +4,13 @@
 * Standard-normal features, columns normalized to unit l2 norm over the
   global stacked matrix, then split into N nodes of m rows.
 * A planted model with kappa = round(n (1 - s_l)) nonzeros.
-* Targets b = A x_true + noise * e, e ~ N(0, 1).
+* Targets b = A x_true + noise * e, e ~ N(0, 1); the classification
+  variants take the sign (SLogR / SSVM, 2 % of labels flipped) or the argmax
+  over C planted heads (SSR) of the standardized scores.
 
-The generators return float32 numpy arrays — As (N, m, n), bs (N, m),
-x_true (n,) — which the estimators move to the solve's device.
+The generators return numpy arrays — As (N, m, n) float32, bs (N, m)
+(float32, or int64 class labels for the softmax), x_true (n,) or (n, C) —
+which the estimators move to the solve's device.
 """
 from __future__ import annotations
 
@@ -36,20 +39,60 @@ def _targets(rng, spec, As, x_true):
     return (scores + np.float32(spec.noise) * noise).astype(np.float32)
 
 
+def _features(rng, spec):
+    N, m, n = spec.n_nodes, spec.m_per_node, spec.n_features
+    A = rng.standard_normal((N * m, n), dtype=np.float32)
+    A /= np.linalg.norm(A, axis=0, keepdims=True)
+    return A.reshape(N, m, n)
+
+
+def _planted(rng, spec, K: int = 1):
+    """(n, K) with kappa nonzero rows, entries bounded away from 0."""
+    n, kappa = spec.n_features, spec.kappa
+    v = rng.standard_normal((kappa, K), dtype=np.float32)
+    idx = rng.permutation(n)[:kappa]
+    x_true = np.zeros((n, K), np.float32)
+    x_true[idx] = v + np.sign(v)
+    return x_true
+
+
 def make_sparse_regression(seed: int, spec: SyntheticSpec):
     """Returns (As (N,m,n), bs (N,m), x_true (n,)) — the paper's SLS data."""
     rng = np.random.default_rng(seed)
-    N, m, n, kappa = (spec.n_nodes, spec.m_per_node, spec.n_features,
-                      spec.kappa)
-    A = rng.standard_normal((N * m, n), dtype=np.float32)
-    A /= np.linalg.norm(A, axis=0, keepdims=True)
-    As = A.reshape(N, m, n)
-    v = rng.standard_normal(kappa, dtype=np.float32)
-    vals = v + np.sign(v)                       # bounded away from 0
-    idx = rng.permutation(n)[:kappa]
-    x_true = np.zeros(n, np.float32)
-    x_true[idx] = vals
+    As = _features(rng, spec)
+    x_true = _planted(rng, spec)[:, 0]
     return As, _targets(rng, spec, As, x_true), x_true
+
+
+def make_sparse_classification(seed: int, spec: SyntheticSpec):
+    """Labels in {-1, +1} from the planted model, 2 % of them flipped
+    (SLogR / SSVM). Returns (As, bs float32, x_true (n,))."""
+    rng = np.random.default_rng(seed)
+    As = _features(rng, spec)
+    x_true = _planted(rng, spec)[:, 0]
+    scores = As @ x_true
+    scores /= scores.std()
+    flip = rng.random(scores.shape) < 0.02
+    sign = np.sign(scores)
+    bs = np.where(flip, -sign, sign).astype(np.float32)
+    return As, bs, x_true
+
+
+def make_sparse_softmax(seed: int, spec: SyntheticSpec):
+    """Integer labels, the argmax over C = ``spec.n_classes`` planted heads
+    of the standardized scores plus N(0, 0.1^2) noise (SSR). Returns
+    (As, bs int64, x_true (n, C))."""
+    C = spec.n_classes
+    if C < 2:
+        raise ValueError("softmax needs n_classes >= 2")
+    rng = np.random.default_rng(seed)
+    As = _features(rng, spec)
+    x_true = _planted(rng, spec, K=C)
+    scores = As @ x_true
+    scores /= scores.std()
+    noise = rng.standard_normal(scores.shape, dtype=np.float32)
+    bs = np.argmax(scores + np.float32(0.1) * noise, axis=-1)
+    return As, bs, x_true
 
 
 def make_graded_regression(seed: int, spec: SyntheticSpec, *,

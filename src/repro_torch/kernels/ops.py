@@ -11,6 +11,8 @@ gram               csrc/gram.cu                plain ``a^T a``
 matvec / rmatvec   csrc/matvec.cu              plain ``a @ x`` / ``a^T y``
 normal_matvec      matvec + rmatvec kernels    plain composition
 ladder_stats       csrc/ladder_stats.cu        plain broadcast
+block_matvec /     csrc/block_matvec.cu        plain products per block
+block_rmatvec
 =================  ==========================  =============================
 
 There is no default row: a CUDA tensor reaches a kernel or an error.
@@ -28,25 +30,31 @@ import torch
 from .. import runtime
 from . import build, ref
 from .bisect_proj import ladder_stats
+from .block_matvec import block_matvec, block_rmatvec
 from .gram import gram, gram_xy
 from .matvec import matvec, normal_matvec, rmatvec
 
-__all__ = ["gram", "gram_auto", "gram_xy", "ladder_stats",
+__all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
+           "block_rmatvec_auto", "gram", "gram_auto", "gram_xy",
+           "ladder_stats",
            "ladder_stats_auto", "launch_counts", "matvec", "matvec_auto",
            "normal_matvec", "normal_matvec_auto", "reset_launch_counts",
            "rmatvec", "rmatvec_auto"]
 
-KERNELS = ("ladder_stats", "gram", "matvec", "rmatvec")
+KERNELS = ("ladder_stats", "gram", "matvec", "rmatvec", "block_matvec",
+           "block_rmatvec")
 
 
 def _out(x: torch.Tensor, like: torch.Tensor, out_dtype) -> torch.Tensor:
     return x.to(out_dtype if out_dtype is not None else like.dtype)
 
 
-for _dev, _gram, _mv, _rmv, _nmv, _ls in (
-        ("cuda", gram, matvec, rmatvec, normal_matvec, ladder_stats),
+for _dev, _gram, _mv, _rmv, _nmv, _ls, _bmv, _brmv in (
+        ("cuda", gram, matvec, rmatvec, normal_matvec, ladder_stats,
+         block_matvec, block_rmatvec),
         ("cpu", ref.gram_ref, ref.matvec_ref, ref.rmatvec_ref,
-         ref.normal_matvec_ref, ref.ladder_stats_ref)):
+         ref.normal_matvec_ref, ref.ladder_stats_ref, ref.block_matvec_ref,
+         ref.block_rmatvec_ref)):
     runtime.register_kernel(
         "gram", _dev,
         lambda a, out_dtype=None, _f=_gram: _out(_f(a), a, out_dtype))
@@ -58,6 +66,14 @@ for _dev, _gram, _mv, _rmv, _nmv, _ls in (
         lambda a, y, out_dtype=None, _f=_rmv: _out(_f(a, y), a, out_dtype))
     runtime.register_kernel("normal_matvec", _dev, _nmv)
     runtime.register_kernel("ladder_stats", _dev, _ls)
+    runtime.register_kernel(
+        "block_matvec", _dev,
+        lambda a, x, M, out_dtype=None, _f=_bmv: _out(_f(a, x, M), a,
+                                                      out_dtype))
+    runtime.register_kernel(
+        "block_rmatvec", _dev,
+        lambda a, y, M, out_dtype=None, _f=_brmv: _out(_f(a, y, M), a,
+                                                       out_dtype))
 
 
 def gram_auto(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -82,6 +98,22 @@ def normal_matvec_auto(a: torch.Tensor, p: torch.Tensor,
                        shift) -> torch.Tensor:
     """(A^T A + diag(shift)) p without forming A^T A."""
     return runtime.kernel("normal_matvec", a.device.type)(a, p, shift)
+
+
+def block_matvec_auto(a: torch.Tensor, x_blocks: torch.Tensor, M: int,
+                      out_dtype=None) -> torch.Tensor:
+    """Per feature block A_j @ x_j: ``a`` (N, m, n) read in place,
+    ``x_blocks`` (N, M, nb, K) -> (N, M, m, K)."""
+    return runtime.kernel("block_matvec", a.device.type)(a, x_blocks, M,
+                                                         out_dtype)
+
+
+def block_rmatvec_auto(a: torch.Tensor, y_blocks: torch.Tensor, M: int,
+                       out_dtype=None) -> torch.Tensor:
+    """Per feature block A_j^T @ y_j: ``y_blocks`` (N, M, m, K) ->
+    (N, M, nb, K), the padded rows 0."""
+    return runtime.kernel("block_rmatvec", a.device.type)(a, y_blocks, M,
+                                                          out_dtype)
 
 
 def ladder_stats_auto(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@ registry and the oracles the CUDA kernels are held against
 (counterpart of ``repro.kernels.ref``).
 
 Each accepts an optional leading node axis: ``a`` of shape ``(m, n)`` or
-``(N, m, n)`` with operands shaped to match.
+``(N, m, n)`` with operands shaped to match; the block products take the
+node axis always.
 """
 from __future__ import annotations
 
@@ -57,3 +58,52 @@ def normal_matvec_ref(a: torch.Tensor, p: torch.Tensor, shift) -> torch.Tensor:
     pf = p.to(f32)
     w = matvec_ref(a, pf)
     return (rmatvec_ref(a, w) + shift * pf).to(a.dtype)
+
+
+def block_widths(n: int, nb: int, M: int) -> tuple[int, int]:
+    """(full, rest): the number of blocks that hold nb columns of A, and the
+    width of the one ragged block after them (0 when there is none)."""
+    full = min(M, n // nb)
+    return full, (n - full * nb if full < M else 0)
+
+
+def block_matvec_ref(a: torch.Tensor, x_blocks: torch.Tensor,
+                     M: int) -> torch.Tensor:
+    """Per feature block j: A_j @ x_j, in f32.
+
+    ``a`` (N, m, n) row-major, ``x_blocks`` (N, M, nb, K) with nb = ceil(n/M);
+    block j is the columns [j nb, min(n, (j+1) nb)) of ``a``. Entries of
+    ``x_blocks`` past n are the zero padding and add nothing. Returns
+    (N, M, m, K): the einsum ``jmn,jnk->jmk`` of ``repro.kernels.ops`` on the
+    zero-padded blocks, per node.
+    """
+    N, m, n = a.shape
+    nb, K = x_blocks.shape[2], x_blocks.shape[3]
+    full, rest = block_widths(n, nb, M)
+    af, xf = a.to(f32), x_blocks.to(f32)
+    out = torch.zeros((N, M, m, K), dtype=f32, device=a.device)
+    if full:
+        a_full = af[..., :full * nb].unflatten(-1, (full, nb)).transpose(1, 2)
+        out[:, :full] = a_full @ xf[:, :full]
+    if rest:
+        out[:, full] = af[..., full * nb:] @ xf[:, full, :rest]
+    return out
+
+
+def block_rmatvec_ref(a: torch.Tensor, y_blocks: torch.Tensor,
+                      M: int) -> torch.Tensor:
+    """Per feature block j: A_j^T @ y_j, in f32. ``y_blocks`` is
+    (N, M, m, K); returns (N, M, nb, K) with the padded rows 0 (the einsum
+    ``jmn,jmk->jnk`` on the zero-padded blocks)."""
+    N, m, n = a.shape
+    K = y_blocks.shape[3]
+    nb = -(-n // M)
+    full, rest = block_widths(n, nb, M)
+    af, yf = a.to(f32), y_blocks.to(f32)
+    out = torch.zeros((N, M, nb, K), dtype=f32, device=a.device)
+    if full:
+        a_full = af[..., :full * nb].unflatten(-1, (full, nb)).transpose(1, 2)
+        out[:, :full] = a_full.mT @ yf[:, :full]
+    if rest:
+        out[:, full, :rest] = af[..., full * nb:].mT @ yf[:, full]
+    return out

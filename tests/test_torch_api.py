@@ -85,10 +85,14 @@ def test_entry_points_need_a_device_or_an_explicit_cpu(monkeypatch):
         runtime.resolve_device("mps")
 
 
+# the feature split itself is ported; combined with an unported option it
+# still raises up front
 UNPORTED_OPTIONS = {"engine": dict(engine="sharded"),
                     "mesh": dict(mesh="a mesh"),
-                    "feature_blocks": dict(n_feature_blocks=2),
-                    "feature_split": dict(force_feature_split=True),
+                    "feature_blocks": dict(n_feature_blocks=2,
+                                           precision="bf16"),
+                    "feature_split": dict(force_feature_split=True,
+                                          projection="sort"),
                     "projection": dict(projection="sort"),
                     "bf16": dict(precision="bf16"),
                     "fp16": dict(precision="fp16"),
@@ -104,27 +108,36 @@ def test_unported_options_raise_capability_error(name):
 
 
 def test_unported_models_and_entry_points_raise_capability_error():
-    for cls in (api.SparseLogisticRegression, api.SparseSVM,
-                api.SparseSoftmaxRegression):
-        with pytest.raises(api.CapabilityError):
-            cls(kappa=3, device="cpu")
-    for name in ("logistic", "hinge", "smoothed_hinge", "softmax3"):
-        with pytest.raises(api.CapabilityError):
-            losses.get_loss(name)
-    est = api.SparseLinearRegression(kappa=3, device="cpu")
+    """Every model is ported now (each loss resolves); what the models
+    still lack — path, grid and streaming fits, per-solve penalties, the
+    fleet — raises up front, for the classifiers and the feature split
+    too."""
+    for name in ("logistic", "hinge", "smoothed_hinge"):
+        assert losses.get_loss(name).name == name
+    assert losses.get_loss("softmax", 3).n_classes == 3
     X, y = np.ones((4, 3), np.float32), np.ones(4, np.float32)
-    for method in (est.fit_path, est.fit_grid, est.partial_fit):
-        with pytest.raises(api.CapabilityError):
-            method(X, y)
+    for est in (api.SparseLinearRegression(kappa=3, device="cpu"),
+                api.SparseLogisticRegression(kappa=3, device="cpu"),
+                api.SparseSVM(kappa=3, device="cpu", n_feature_blocks=2),
+                api.SparseSoftmaxRegression(kappa=3, n_classes=3,
+                                            device="cpu")):
+        for method in (est.fit_path, est.fit_grid, est.partial_fit):
+            with pytest.raises(api.CapabilityError):
+                method(X, y)
+    with pytest.raises(api.CapabilityError):
+        api.fit_many(api.SparseProblem("logistic", kappa=3), X, y)
     for fn in (api.solve_path, api.solve_grid, api.fit_many, api.serve,
                api.stream, api.recover):
         with pytest.raises(api.CapabilityError):
             fn(api.SparseProblem("squared", kappa=3), X, y)
-    adapter = api._ReferenceAdapter(api.SparseProblem("squared", kappa=3),
-                                    api.SolverOptions(device="cpu"))
-    for over in (dict(gamma=2.0), dict(rho_c=2.0)):
-        with pytest.raises(api.CapabilityError):
-            adapter.fit(torch.ones(1, 4, 3), torch.ones(1, 4), **over)
+    for opts in (api.SolverOptions(device="cpu"),
+                 api.SolverOptions(device="cpu", n_feature_blocks=2)):
+        adapter = api._ReferenceAdapter(api.SparseProblem("squared",
+                                                          kappa=3), opts)
+        assert not adapter.caps.dynamic_penalties
+        for over in (dict(gamma=2.0), dict(rho_c=2.0)):
+            with pytest.raises(api.CapabilityError):
+                adapter.fit(torch.ones(1, 4, 3), torch.ones(1, 4), **over)
     with pytest.raises(api.CapabilityError):
         api.engine_capabilities("sharded")
 

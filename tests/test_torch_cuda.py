@@ -10,7 +10,8 @@ in another order than the plain versions.
 import pytest
 import torch
 
-from repro_torch.kernels import bisect_proj, gram, matvec, ops, ref
+from repro_torch.kernels import (bisect_proj, block_matvec, gram, matvec,
+                                 ops, ref)
 
 RTOL = 1e-4
 
@@ -91,7 +92,8 @@ def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
     matvec.matvec(a, torch.ones(2, 40, device="cuda"))
     gram.gram(a)
     assert ops.launch_counts() == {"ladder_stats": 2, "gram": 1,
-                                   "matvec": 1, "rmatvec": 3}
+                                   "matvec": 1, "rmatvec": 3,
+                                   "block_matvec": 0, "block_rmatvec": 0}
 
 
 @pytest.mark.cuda
@@ -106,3 +108,54 @@ def test_cuda_reduced_precision_operands_widen_to_f32(cuda_gen, dtype):
     _close(gram.gram(a), ref.gram_ref(a), 70)
     with pytest.raises(ValueError):
         matvec.matvec(a, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("shape", [
+    (2, 300, 250, 4),    # ragged: nb = 63, not a multiple of 4
+    (3, 130, 517, 3),    # odd n: no segment starts 16-byte aligned
+    (2, 300, 256, 4),    # every segment aligned: the 16-byte loads
+    (1, 5, 5, 4),        # the last block holds no column at all
+])
+def test_cuda_block_matvec_rmatvec(cuda_gen, shape, K):
+    N, m, n, M = shape
+    nb = -(-n // M)
+    a = torch.randn((N, m, n), device="cuda", generator=cuda_gen)
+    x = torch.randn((N, M, nb, K), device="cuda", generator=cuda_gen)
+    y = torch.randn((N, M, m, K), device="cuda", generator=cuda_gen)
+    _close(block_matvec.block_matvec(a, x, M),
+           ref.block_matvec_ref(a, x, M), nb)
+    got = block_matvec.block_rmatvec(a, y, M)
+    _close(got, ref.block_rmatvec_ref(a, y, M), m)
+    assert not got.reshape(N, M * nb, K)[:, n:].any()   # padded rows: 0
+    # a segment that starts at an odd column: the data seen from column 1
+    a1 = a[..., 1:].contiguous()
+    nb1 = -(-(n - 1) // M)
+    x1 = x[:, :, :nb1].contiguous()
+    _close(block_matvec.block_matvec(a1, x1, M),
+           ref.block_matvec_ref(a1, x1, M), nb1)
+
+
+@pytest.mark.cuda
+def test_cuda_block_launch_counts_and_refusals(cuda_gen):
+    """block_matvec is one launch a call; block_rmatvec one when its rows
+    fit one slice and two (slices + the ordered sum) past that. A
+    non-contiguous a is refused, never copied."""
+    a = torch.randn(2, 4000, 64, device="cuda", generator=cuda_gen)
+    small = a[:, :100].contiguous()
+    x = torch.randn(2, 4, 16, 1, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
+    block_matvec.block_matvec(a, x, 4)
+    block_matvec.block_rmatvec(a, torch.ones(2, 4, 4000, 1, device="cuda"), 4)
+    block_matvec.block_rmatvec(small, torch.ones(2, 4, 100, 1,
+                                                 device="cuda"), 4)
+    counts = ops.launch_counts()
+    assert (counts["block_matvec"], counts["block_rmatvec"]) == (1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        block_matvec.block_matvec(a.mT.contiguous().mT, x, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        block_matvec.block_rmatvec(a[:, :, :32], torch.ones(
+            2, 4, 4000, 1, device="cuda"), 4)
+    with pytest.raises(ValueError):
+        block_matvec.block_matvec(a, x[:, :3], 4)       # wrong block count

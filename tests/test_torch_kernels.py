@@ -17,7 +17,8 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch import runtime
-from repro_torch.kernels import bisect_proj, gram, matvec, ops, ref
+from repro_torch.kernels import (bisect_proj, block_matvec, gram, matvec,
+                                 ops, ref)
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -134,7 +135,9 @@ def test_cuda_row_is_the_kernel_wrapper():
     assert runtime.kernel("ladder_stats", "cuda") is bisect_proj.ladder_stats
     assert runtime.kernel("normal_matvec", "cuda") is matvec.normal_matvec
     wrappers = {"gram": gram.gram, "matvec": matvec.matvec,
-                "rmatvec": matvec.rmatvec}
+                "rmatvec": matvec.rmatvec,
+                "block_matvec": block_matvec.block_matvec,
+                "block_rmatvec": block_matvec.block_rmatvec}
     for name, wrapper in wrappers.items():
         assert runtime.kernel(name, "cuda").__defaults__[-1] is wrapper
 
@@ -145,7 +148,8 @@ def test_cuda_never_resolves_to_a_plain_row():
     with pytest.raises(KeyError):
         runtime.kernel("gram", "default")
     plain = {ref.gram_ref, ref.matvec_ref, ref.rmatvec_ref,
-             ref.normal_matvec_ref, ref.ladder_stats_ref}
+             ref.normal_matvec_ref, ref.ladder_stats_ref,
+             ref.block_matvec_ref, ref.block_rmatvec_ref}
     for name, rows in runtime.kernel_table().items():
         fn = rows["cuda"]
         assert fn not in plain
