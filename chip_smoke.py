@@ -34,6 +34,20 @@ Phases, each printing its own line with its wall time:
               m = 5,000 per node on N = 8 to bound the run's time).
 8. parity   — reduced fits on the card against the port's own CPU fits:
               Woodbury, and the feature split (squared and logistic).
+9. lm       — the dense LM's serving path at full width and depth:
+              qwen3-8b (36 layers, 8.19e9 parameters drawn on the card
+              from seed 0, 16.4 GB in bf16), 4 prompts of 2,048 tokens
+              (numpy seed 0) through ``zoo.prefill`` (max_seq 2,080), then
+              32 greedy ``zoo.decode_step``s. Each prefill must launch the
+              flash-attention kernel once per layer. Prints the prefill's
+              time and prompt tokens per second, the decode time per
+              token, the peak device memory and the flash kernel's share
+              of the prefill's device time (profiler).
+10. lm_parity — (a) qwen3-8b at full width cut to 2 layers, bf16: prefill
+              and decode through the kernel against the same model through
+              the plain ``impl="full"``; (b) the reduced f32 config, card
+              against the port's CPU run; (c) decode after prefill against
+              the forward pass on the card, 2 layers at full width in f32.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -58,9 +72,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # float32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12      # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 RTOL = 1e-4          # the JAX package's f32 kernel bound (rtol 1e-4,
 ATOL_PER_SCALE = 1e-5  # atol 1e-5 per unit of summed magnitude)
+# The JAX package's own bounds for flash attention (tests/test_kernels.py)
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 1e-1)}
+LM_TOL = 2e-2        # LM logits: max |diff| within 2e-2 of the logit scale
+# the device kernels of csrc/flash_attention.cu (CUDA cores; tensor cores)
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_mma_kernel")
 
 REPLACES = {
     "ladder_stats": "src/repro/kernels/bisect_proj.py:42",
@@ -69,6 +89,7 @@ REPLACES = {
     "rmatvec": "src/repro/kernels/matvec.py:135",
     "block_matvec": "src/repro/kernels/ops.py:115",
     "block_rmatvec": "src/repro/kernels/ops.py:126",
+    "flash_attention": "src/repro/kernels/flash_attention.py:30",
 }
 SOURCES = {
     "ladder_stats": "src/repro_torch/csrc/ladder_stats.cu",
@@ -77,6 +98,7 @@ SOURCES = {
     "rmatvec": "src/repro_torch/csrc/matvec.cu",
     "block_matvec": "src/repro_torch/csrc/block_matvec.cu",
     "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 MAIN_KERNELS = ("ladder_stats", "gram", "matvec", "rmatvec")
 BLOCK_KERNELS = ("block_matvec", "block_rmatvec")
@@ -126,19 +148,305 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+def bound(nbytes: float, flops: float,
+          peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_close(torch, name, got, want, scale) -> float:
+def check_close(torch, name, got, want, scale, rtol=RTOL,
+                atol=None) -> float:
+    """``got`` against ``want`` at ``rtol`` and an atol of ``atol``, by
+    default ATOL_PER_SCALE per unit of ``scale``."""
+    got, want = got.float(), want.float()
     err = float((got - want).abs().max())
-    atol = ATOL_PER_SCALE * float(scale)
-    ok = bool(torch.allclose(got, want, rtol=RTOL, atol=atol))
+    atol = ATOL_PER_SCALE * float(scale) if atol is None else atol
+    ok = bool(torch.allclose(got, want, rtol=rtol, atol=atol))
     require(ok, f"{name}: kernel disagrees with its plain version "
-                f"(max abs err {err:.3e}, rtol {RTOL}, atol {atol:.3e})")
+                f"(max abs err {err:.3e}, rtol {rtol}, atol {atol:.3e})")
     return err
+
+
+def device_table(prof) -> dict:
+    """{name: {"device_ms", "calls"}} of the device ops a profiler saw."""
+    table = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            table[ev.key] = {"device_ms": dev_us / 1e3, "calls": ev.count}
+    return table
+
+
+def lm_phase(torch, dev, report) -> dict:
+    """9. The qwen3-8b serving path at full width and depth (module
+    docstring). Returns the launch counts of the timed prefill and decode
+    steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-8b")
+    B, S, n_new = 4, 2048, 32
+    max_seq = S + n_new
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    model = zoo.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    w_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+
+    def greedy(logits):
+        return logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+
+    # warm-up: a prefill and two decode steps; then two more decode steps
+    # with the profiler on (where a decode step's time goes)
+    logits, cache = zoo.prefill(model, cfg, batch, max_seq=max_seq)
+    tok = greedy(logits)
+    for pos in (S, S + 1):
+        logits, cache = zoo.decode_step(model, cfg, {"token": tok,
+                                                     "pos": pos}, cache)
+        tok = greedy(logits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_w = time.perf_counter()
+        for pos in (S + 2, S + 3):
+            logits, cache = zoo.decode_step(model, cfg, {"token": tok,
+                                                         "pos": pos}, cache)
+            tok = greedy(logits)
+        torch.cuda.synchronize()
+        dec_window = time.perf_counter() - t_w
+    dec_busy = sum(v["device_ms"] for v in device_table(prof).values())
+    dec_launches = sum(ev.count for ev in prof.key_averages()
+                       if ev.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    t_p = time.perf_counter()
+    logits, cache = zoo.prefill(model, cfg, batch, max_seq=max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t_p
+    flash_prefill = ops.launch_counts()["flash_attention"]
+    require(flash_prefill == cfg.n_layers,
+            f"lm: the prefill launched the flash kernel {flash_prefill} "
+            f"times, not once per layer ({cfg.n_layers})")
+    require(tuple(logits.shape) == (B, 1, cfg.padded_vocab),
+            f"lm: prefill logits of shape {tuple(logits.shape)}")
+    finite = torch.isfinite(logits).all()
+    tok = greedy(logits)
+    generated = [tok]
+    t_d = time.perf_counter()
+    for i in range(n_new):
+        logits, cache = zoo.decode_step(model, cfg,
+                                        {"token": tok, "pos": S + i}, cache)
+        finite &= torch.isfinite(logits).all()
+        tok = greedy(logits)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t_d
+    counts = ops.launch_counts()
+    require(bool(finite), "lm: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() - mem0
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    del logits, cache
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_w = time.perf_counter()
+        out = zoo.prefill(model, cfg, batch, max_seq=max_seq)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t_w
+    del out
+    table = device_table(prof)
+    busy = sum(v["device_ms"] for v in table.values())
+    flash_ms = sum(v["device_ms"] for k, v in table.items()
+                   if any(n in k for n in FLASH_KERNEL_NAMES))
+    require(busy == 0 or flash_ms > 0,
+            "lm: the profiled prefill shows no flash-attention kernel")
+    top = sorted(table.items(), key=lambda kv: -kv[1]["device_ms"])[:6]
+    share = flash_ms / busy if busy > 0 else None
+    report["lm"] = {
+        "config": "qwen3-8b", "batch": B, "prompt_len": S, "max_seq": max_seq,
+        "decode_steps": n_new, "init_s": init_s, "prefill_s": prefill_s,
+        "prompt_tokens_per_s": B * S / prefill_s,
+        "decode_ms_per_token": decode_s / n_new * 1e3,
+        "weights_bytes": w_bytes, "cache_bytes": cache_bytes,
+        "peak_bytes_above_start": peak, "launches": counts,
+        "profile": {"window_s_profiler_on": window, "device_busy_ms": busy,
+                    "flash_ms": flash_ms, "flash_share": share,
+                    "top": dict(top)},
+        "decode_profile": {"steps": 2, "window_s_profiler_on": dec_window,
+                           "device_busy_ms": dec_busy,
+                           "kernel_launches": dec_launches},
+        "generated": torch.cat(generated, 1).tolist()}
+    share_txt = ("not measured (the profiler saw no device time)"
+                 if share is None else
+                 f"{share:.3f} ({flash_ms:.1f} of {busy:.1f} ms busy in a "
+                 f"{window * 1e3:.1f} ms window with the profiler on)")
+    phase("lm", t0, f"qwen3-8b, {cfg.n_layers} layers, bf16, "
+                    f"{w_bytes / 1e9:.2f} GB of weights drawn in "
+                    f"{init_s:.2f} s: prefill {B} x {S} tokens "
+                    f"{prefill_s * 1e3:.1f} ms ({B * S / prefill_s:.0f} "
+                    f"prompt tokens/s), {n_new} decode steps "
+                    f"{decode_s / n_new * 1e3:.2f} ms per token (profiled: "
+                    f"device busy {dec_busy / 2:.2f} ms of "
+                    f"{dec_window * 1e3 / 2:.2f} ms per step, "
+                    f"{dec_launches // 2} kernel launches per step); flash "
+                    f"launches {flash_prefill} per prefill; peak device "
+                    f"memory above the start {peak / 1e9:.2f} GB (weights "
+                    f"{w_bytes / 1e9:.2f} GB + cache {cache_bytes / 1e9:.2f} "
+                    f"GB); flash share of the prefill's device time "
+                    f"{share_txt}; top: "
+                    + "; ".join(f"{k[:40]} {v['device_ms']:.1f} ms/"
+                                f"{v['calls']}" for k, v in top[:4]))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lm_parity_phase(torch, dev, report) -> None:
+    """10. The LM on the card against its plain attention, against the
+    port's CPU run, and its decode against its forward pass."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    def gen(device, seed=0):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    # (a) full width, 2 layers, bf16: the kernel against impl="full"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2)
+    V, B, S, n_new = cfg.vocab_size, 4, 2048, 8
+    model = zoo.init_params(cfg, generator=gen(dev), device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, V, (B, S)), device=dev)
+    steps = {}
+    caches = {}
+    ops.reset_launch_counts()
+    for impl in ("flash", "full"):
+        logits, caches[impl] = zoo.prefill(model, cfg, {"tokens": tokens},
+                                           max_seq=S + n_new, impl=impl)
+        steps[impl] = [logits[:, -1, :V].float()]
+    require(ops.launch_counts()["flash_attention"] == cfg.n_layers,
+            "lm_parity: only the flash prefill launches the kernel")
+    tok = steps["flash"][0].argmax(-1, keepdim=True)
+    for i in range(n_new):          # both fed the kernel path's tokens
+        for impl in ("flash", "full"):
+            logits, _ = zoo.decode_step(model, cfg, {"token": tok,
+                                                     "pos": S + i},
+                                        caches[impl])
+            steps[impl].append(logits[:, -1, :V].float())
+        tok = steps["flash"][-1].argmax(-1, keepdim=True)
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(steps["flash"], steps["full"])):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        require(err <= LM_TOL * scale,
+                f"lm_parity: step {i} logits differ by {err:.3f}, over "
+                f"{LM_TOL} of the logit scale {scale:.1f}")
+        worst = max(worst, err / scale)
+    # the greedy next token of each prompt: equal, unless the reference's
+    # top two logits are within one bf16 step of each other (a tie in the
+    # logits' own dtype, which either path may break either way)
+    got, want = steps["flash"][0], steps["full"][0]
+    top2 = want.topk(2, dim=-1).values
+    bf16_step = torch.exp2(torch.floor(torch.log2(top2[:, 0].abs())) - 7)
+    ties = (top2[:, 0] - top2[:, 1]) <= bf16_step
+    same = got.argmax(-1) == want.argmax(-1)
+    require(bool((same | ties).all()),
+            f"lm_parity: greedy next tokens differ: "
+            f"{got.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}")
+    agree = [int((a.argmax(-1) == b.argmax(-1)).sum())
+             for a, b in zip(steps["flash"][1:], steps["full"][1:])]
+    del model, caches, steps
+    torch.cuda.empty_cache()
+    report["lm_parity_flash_vs_full"] = {
+        "worst_err_over_scale": worst, "steps": n_new + 1,
+        "next_token_equal": same.tolist(), "next_token_ties": ties.tolist(),
+        "decode_greedy_agree_per_step": agree}
+    phase("lm_parity", t0, f"qwen3-8b cut to 2 layers, bf16, {B} x {S}: "
+                           f"prefill + {n_new} decode steps through the "
+                           f"kernel vs impl='full': logits within "
+                           f"{worst:.2e} of their scale (limit {LM_TOL}); "
+                           f"greedy next token equal for "
+                           f"{int(same.sum())} of {B} prompts "
+                           f"({int((ties & ~same).sum())} bf16 ties); "
+                           f"decode steps' greedy tokens agree in "
+                           f"{sum(agree)} of {B * n_new}")
+
+    # (b) the reduced f32 config: the card against the port's CPU run
+    t0 = time.perf_counter()
+    cfg = reduced_config(get_config("qwen3-8b"))
+    on_cpu = zoo.init_params(cfg, generator=gen("cpu"), device="cpu")
+    on_card = copy.deepcopy(on_cpu).to(dev)
+    tok_np = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
+    ops.reset_launch_counts()
+    outs = {}
+    for name, model in (("card", on_card), ("cpu", on_cpu)):
+        full, _ = zoo.forward(model, cfg, {"tokens": tok_np})
+        last, cache = zoo.prefill(model, cfg, {"tokens": tok_np[:, :-1]},
+                                  max_seq=32)
+        pre_k = cache["k"].clone()
+        step, cache = zoo.decode_step(model, cfg, {"token": tok_np[:, -1:],
+                                                   "pos": 31}, cache)
+        outs[name] = [t.cpu() for t in (full, last, pre_k, step,
+                                        cache["v"])]
+    require(ops.launch_counts()["flash_attention"] == 2 * cfg.n_layers,
+            "lm_parity: the card's forward and prefill launch the kernel "
+            "once per layer each")
+    err = 0.0
+    for got, want in zip(outs["card"], outs["cpu"]):
+        err = max(err, float((got - want).abs().max()))
+        require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+                f"lm_parity: reduced config, card vs CPU differ by {err}")
+    phase("lm_parity", t0, f"reduced qwen3-8b (2 layers, d_model 64, f32): "
+                           f"forward, prefill logits and cache, decode "
+                           f"logits and cache on the card within {err:.2e} "
+                           f"of the port's CPU run (limit 1e-4)")
+    report["lm_parity_card_vs_cpu"] = {"max_abs_diff": err}
+
+    # (c) decode after prefill against the forward pass, full width, f32
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2,
+                              dtype="float32")
+    model = zoo.init_params(cfg, generator=gen(dev), device=dev)
+    x = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 128)), device=dev)
+    full, _ = zoo.forward(model, cfg, {"tokens": x})
+    _, cache = zoo.prefill(model, cfg, {"tokens": x[:, :-1]}, max_seq=128)
+    step, _ = zoo.decode_step(model, cfg, {"token": x[:, -1:], "pos": 127},
+                              cache)
+    got, want = step[:, 0, :cfg.vocab_size], full[:, -1]
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=2e-3, atol=2e-3),
+            f"lm_parity: decode after prefill differs from forward by {err}")
+    del model, cache, full
+    torch.cuda.empty_cache()
+    report["lm_parity_decode_vs_forward"] = {"max_abs_diff": err}
+    phase("lm_parity", t0, f"qwen3-8b cut to 2 layers, f32, 2 x 128: "
+                           f"decode(prefill(x[:-1]), x[-1]) within "
+                           f"{err:.2e} of forward(x)[:, -1] (rtol and atol "
+                           f"2e-3)")
 
 
 def main() -> int:
@@ -156,8 +464,8 @@ def main() -> int:
     from repro_torch.core.results import SolveStatus
     from repro_torch.data import (SyntheticSpec, make_sparse_classification,
                                   make_sparse_regression, make_sparse_softmax)
-    from repro_torch.kernels import (bisect_proj, block_matvec, build, gram,
-                                     matvec, ops, ref)
+    from repro_torch.kernels import (bisect_proj, block_matvec, build,
+                                     flash_attention, gram, matvec, ops, ref)
 
     report: dict = {}
     dev = torch.device("cuda")
@@ -208,9 +516,11 @@ def main() -> int:
     rows = {}
 
     def kernel_row(name, label, fn, plain, library, got_want_scale,
-                   nbytes, flops):
-        err = check_close(torch, label, *got_want_scale)
-        bnd, by = bound(nbytes, flops)
+                   nbytes, flops, peak=PEAK_F32_FLOPS, tol=None):
+        err = check_close(torch, label, *got_want_scale,
+                          **({} if tol is None else
+                             dict(rtol=tol[0], atol=tol[1])))
+        bnd, by = bound(nbytes, flops, peak)
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "shape": label,
                "max_abs_err": err, "ms": graph_ms(torch, fn),
@@ -289,10 +599,20 @@ def main() -> int:
     want = ref.normal_matvec_ref(A_all, p, shift)
     scale = float((A_all.abs().mT @ (A_all.abs() @ p.abs())).max())
     err = check_close(torch, "normal_matvec", got, want, scale)
-    nm_ms = cuda_ms(torch, lambda: matvec.normal_matvec(A_all, p, shift))
-    print(f"  normal_matvec {tuple(A_all.shape)}: {nm_ms:.4f} ms (matvec + "
-          f"rmatvec), max abs err {err:.3e}", flush=True)
-    report["normal_matvec_ms"] = nm_ms
+    nm = {"ms": graph_ms(torch,
+                         lambda: matvec.normal_matvec(A_all, p, shift)),
+          "call_ms": cuda_ms(torch,
+                             lambda: matvec.normal_matvec(A_all, p, shift)),
+          "plain_ms": graph_ms(torch, lambda: ref.normal_matvec_ref(
+              A_all, p, shift)),
+          "bound_ms": bound(4 * (A_all.numel() + 3 * n),
+                            4 * A_all.numel() + 3 * n)[0],
+          "max_abs_err": err}
+    print(f"  normal_matvec {tuple(A_all.shape)} (matvec + rmatvec): "
+          f"{nm['ms']:.4f} ms (eager call {nm['call_ms']:.4f} ms), plain "
+          f"{nm['plain_ms']:.4f} ms, bound {nm['bound_ms']:.4f} ms (bytes), "
+          f"max abs err {err:.3e}", flush=True)
+    report["normal_matvec"] = nm
 
     # block_matvec / block_rmatvec: the Fig. 3 point with M = 4 blocks (the
     # first rows are the path's shape), and a ragged shape whose last block
@@ -341,8 +661,49 @@ def main() -> int:
                4 * Mb * mb * nb + 4 * Mb * nb * nb, 2 * Mb * nb * nb * mb)
     del got, want, Ar
     torch.cuda.empty_cache()
+
+    # flash attention: the qwen3-8b prefill's shape first (4 prompts x 32
+    # query heads over 8 KV heads, S = 2,048, Dh = 128), in bf16 and f32;
+    # then ragged S, GQA groups 1, 3 and 8, Dh 64, non-causal, Sq != Sk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for B, Hq, Hkv, Sq, Sk, Dh, causal, dt in (
+            (4, 32, 8, 2048, 2048, 128, True, torch.bfloat16),
+            (4, 32, 8, 2048, 2048, 128, True, torch.float32),
+            (1, 32, 32, 1000, 1000, 128, True, torch.bfloat16),
+            (1, 24, 8, 1000, 1000, 128, True, torch.bfloat16),
+            (2, 32, 4, 1000, 1000, 64, True, torch.bfloat16),
+            (1, 32, 8, 512, 1024, 128, False, torch.bfloat16),
+            (1, 32, 8, 300, 2048, 128, True, torch.float32)):
+        q = torch.randn(B * Hq, Sq, Dh, device=dev, generator=g).to(dt)
+        k = torch.randn(B * Hkv, Sk, Dh, device=dev, generator=g).to(dt)
+        v = torch.randn(B * Hkv, Sk, Dh, device=dev, generator=g).to(dt)
+        got = flash_attention.flash_attention_flat(q, k, v, causal=causal)
+        want = ref.flash_attention_flat_ref(q, k, v, causal=causal)
+        require(got.dtype == dt, "flash_attention: output dtype")
+        pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+                 else Sq * Sk)
+        views = [t.view(B, -1, t.shape[1], Dh) for t in (q, k, v)]
+        dname = str(dt).removeprefix("torch.")
+        kernel_row(
+            "flash_attention",
+            f"flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} "
+            f"{'causal' if causal else 'full'} {dname}",
+            lambda q=q, k=k, v=v, c=causal:
+                flash_attention.flash_attention_flat(q, k, v, causal=c),
+            lambda q=q, k=k, v=v, c=causal:
+                ref.flash_attention_flat_ref(q, k, v, causal=c),
+            lambda views=views, c=causal: sdpa(*views, is_causal=c,
+                                               enable_gqa=True),
+            (got, want, None),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            4 * B * Hq * Dh * pairs,
+            peak=PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS,
+            tol=FLASH_TOL[dname])
+        del q, k, v, views, got, want
+    torch.cuda.empty_cache()
     phase("kernels", t0, "every kernel agrees with its plain version "
-                         f"(rtol {RTOL}, atol {ATOL_PER_SCALE} x scale)")
+                         f"(rtol {RTOL}, atol {ATOL_PER_SCALE} x scale; "
+                         f"flash_attention at {FLASH_TOL})")
 
     def support_f1(est, x_true) -> float:
         got = est.support_.cpu().numpy()
@@ -442,16 +803,10 @@ def main() -> int:
             prof_est.fit(As, bs, state=state)
             torch.cuda.synchronize()
             window = time.perf_counter() - t_w
-        on_device, syncs = {}, 0
-        for ev in prof.key_averages():
-            if ev.key == "aten::_local_scalar_dense":
-                syncs += ev.count      # a device-to-host read of a scalar
-            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                dev_us = getattr(ev, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-                on_device[ev.key] = {"device_ms": dev_us / 1e3,
-                                     "calls": ev.count}
+        on_device = device_table(prof)
+        # a device-to-host read of a scalar
+        syncs = sum(ev.count for ev in prof.key_averages()
+                    if ev.key == "aten::_local_scalar_dense")
         busy_ms = sum(v["device_ms"] for v in on_device.values())
         n_dev = sum(v["calls"] for v in on_device.values())
         top = sorted(on_device.items(),
@@ -595,15 +950,21 @@ def main() -> int:
                             f"{SolveStatus(int(on_card.status)).name} and "
                             f"support, coef max abs diff {coef_err:.2e}")
 
+    # 9. the LM serving path; 10. its parity checks
+    lm_counts = lm_phase(torch, dev, report)
+    lm_parity_phase(torch, dev, report)
+
     # launches: each kernel's count from the full-width path that runs it
-    # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit)
+    # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit, the qwen3-8b
+    # prefill and decode)
     kernels = []
     for name in ops.KERNELS:
         row = dict(rows[name])
         row.pop("shape")
         row.pop("call_ms")
-        row["launches"] = (block_counts if name in BLOCK_KERNELS
-                           else main_counts)[name]
+        counts = (lm_counts if name == "flash_attention" else
+                  block_counts if name in BLOCK_KERNELS else main_counts)
+        row["launches"] = counts[name]
         kernels.append(row)
     report["kernels"] = kernels
     if args.report:

@@ -9,6 +9,9 @@ Its ``inner`` field, the feature-split sub-solver's state, crosses as
 port's state on a device, and :func:`state_to_numpy` /
 :func:`result_to_numpy` go back, with ``inner`` as a dict. Warm starts then
 move between the packages.
+
+:func:`lm_params_from_jax` carries the JAX package's LM parameters (a tree
+of numpy arrays) into the port's model.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from .core.bicadmm import BiCADMMState
 from .core.results import FitResult
 from .core.subsolver import SubsolverState
+from .models import transformer, zoo
 
 _INT_FIELDS = ("k",)
 _INNER_FIELDS = tuple(f.name for f in dataclasses.fields(SubsolverState))
@@ -74,3 +78,40 @@ def result_to_numpy(res: FitResult) -> dict:
         out[name] = None if val is None else _numpy(val)
     out["state"] = None if res.state is None else state_to_numpy(res.state)
     return out
+
+
+def lm_params_from_jax(params: Mapping, cfg, device) -> transformer.LM:
+    """The port's dense LM with the weights of a JAX ``zoo.init_params``
+    tree, given as numpy arrays (any float dtype; cast to ``cfg.dtype``).
+
+    The JAX tree stacks the blocks on a leading L axis and lays dense
+    weights out (d_in, d_out) for ``x @ W``; the port's ``nn.Linear``
+    weights are (d_out, d_in), so those are transposed. Embedding, LM head
+    and norm weights keep their layout."""
+    zoo._require_dense(cfg)
+    dtype = zoo.dtype_of(cfg.dtype)
+    dev = torch.device(device)
+    model = transformer.lm_init(None, cfg, dtype, dev)
+
+    def t(arr) -> torch.Tensor:
+        return torch.as_tensor(np.array(arr, dtype=np.float32)).to(
+            device=dev, dtype=dtype)
+
+    blocks = params["blocks"]
+    with torch.no_grad():
+        model.embed.copy_(t(params["embed"]))
+        model.lm_head.copy_(t(params["lm_head"]))
+        model.final_norm.copy_(t(params["final_norm"]))
+        for i, blk in enumerate(model.blocks):
+            blk.norm1.copy_(t(blocks["norm1"][i]))
+            blk.norm2.copy_(t(blocks["norm2"][i]))
+            for name in ("wq", "wk", "wv", "wo"):
+                getattr(blk.attn, name).weight.copy_(
+                    t(blocks["attn"][name][i]).T)
+            if cfg.qk_norm:
+                blk.attn.q_norm.copy_(t(blocks["attn"]["q_norm"][i]))
+                blk.attn.k_norm.copy_(t(blocks["attn"]["k_norm"][i]))
+            for name in ("w_gate", "w_up", "w_down"):
+                getattr(blk.mlp, name).weight.copy_(
+                    t(blocks["mlp"][name][i]).T)
+    return model

@@ -33,17 +33,20 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ladder_stats", "gram", "matvec", "block_matvec")
+SOURCES = ("ladder_stats", "gram", "matvec", "block_matvec",
+           "flash_attention")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
+F = ctypes.c_float
 
 # Device kernel launches per kernel: a wrapper adds, where it launches, the
 # number of CUDA kernels its C entry point issued — two for ladder_stats
 # (partial and reduce passes) and for rmatvec / block_rmatvec over more than
-# one row slice, one otherwise — and nowhere else (read through repro_torch.kernels.ops).
+# one row slice, one otherwise (flash_attention: one) — and nowhere else
+# (read through repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -13,6 +13,7 @@ normal_matvec      matvec + rmatvec kernels    plain composition
 ladder_stats       csrc/ladder_stats.cu        plain broadcast
 block_matvec /     csrc/block_matvec.cu        plain products per block
 block_rmatvec
+flash_attention    csrc/flash_attention.cu     plain softmax attention
 =================  ==========================  =============================
 
 There is no default row: a CUDA tensor reaches a kernel or an error.
@@ -31,18 +32,20 @@ from .. import runtime
 from . import build, ref
 from .bisect_proj import ladder_stats
 from .block_matvec import block_matvec, block_rmatvec
+from .flash_attention import check_flat, flash_attention_flat
 from .gram import gram, gram_xy
 from .matvec import matvec, normal_matvec, rmatvec
 
 __all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
-           "block_rmatvec_auto", "gram", "gram_auto", "gram_xy",
+           "block_rmatvec_auto", "flash_attention", "flash_attention_auto",
+           "flash_attention_flat", "gram", "gram_auto", "gram_xy",
            "ladder_stats",
            "ladder_stats_auto", "launch_counts", "matvec", "matvec_auto",
            "normal_matvec", "normal_matvec_auto", "reset_launch_counts",
            "rmatvec", "rmatvec_auto"]
 
 KERNELS = ("ladder_stats", "gram", "matvec", "rmatvec", "block_matvec",
-           "block_rmatvec")
+           "block_rmatvec", "flash_attention")
 
 
 def _out(x: torch.Tensor, like: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -74,6 +77,18 @@ for _dev, _gram, _mv, _rmv, _nmv, _ls, _bmv, _brmv in (
         "block_rmatvec", _dev,
         lambda a, y, M, out_dtype=None, _f=_brmv: _out(_f(a, y, M), a,
                                                        out_dtype))
+
+
+def _flash_plain(q, k, v, *, causal=True, sm_scale=None):
+    """The CPU row: the JAX contract's argument checks, then the plain
+    version."""
+    check_flat(q, k, v, causal=causal)
+    return ref.flash_attention_flat_ref(q, k, v, causal=causal,
+                                        sm_scale=sm_scale)
+
+
+runtime.register_kernel("flash_attention", "cuda", flash_attention_flat)
+runtime.register_kernel("flash_attention", "cpu", _flash_plain)
 
 
 def gram_auto(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -119,6 +134,28 @@ def block_rmatvec_auto(a: torch.Tensor, y_blocks: torch.Tensor, M: int,
 def ladder_stats_auto(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     """(2, B) ladder statistics of az against the rungs ``thetas``."""
     return runtime.kernel("ladder_stats", az.device.type)(az, thetas)
+
+
+def flash_attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Flat-layout attention, q (BHq, Sq, Dh) over k/v (BHkv, Sk, Dh),
+    through the registry."""
+    return runtime.kernel("flash_attention", q.device.type)(q, k, v,
+                                                            causal=causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Model-layout wrapper: q (B, Sq, Hq, Dh), k/v (B, Sk, Hkv, Dh) to the
+    flat head-major layout, through :func:`flash_attention_auto`, and back
+    to (B, Sq, Hq, Dh), as ``repro.kernels.ops.flash_attention``."""
+    B, Sq, Hq, Dh = q.shape
+    _, Sk, Hkv, _ = k.shape
+    qf = q.transpose(1, 2).reshape(B * Hq, Sq, Dh)
+    kf = k.transpose(1, 2).reshape(B * Hkv, Sk, Dh)
+    vf = v.transpose(1, 2).reshape(B * Hkv, Sk, Dh)
+    out = flash_attention_auto(qf, kf, vf, causal=causal)
+    return out.reshape(B, Hq, Sq, Dh).transpose(1, 2)
 
 
 def launch_counts() -> dict[str, int]:

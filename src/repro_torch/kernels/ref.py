@@ -2,11 +2,14 @@
 registry and the oracles the CUDA kernels are held against
 (counterpart of ``repro.kernels.ref``).
 
-Each accepts an optional leading node axis: ``a`` of shape ``(m, n)`` or
-``(N, m, n)`` with operands shaped to match; the block products take the
-node axis always.
+Each solver product accepts an optional leading node axis: ``a`` of shape
+``(m, n)`` or ``(N, m, n)`` with operands shaped to match; the block
+products take the node axis always. The attention oracle takes the flat
+head-major layout of the kernel.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -107,3 +110,24 @@ def block_rmatvec_ref(a: torch.Tensor, y_blocks: torch.Tensor,
     if rest:
         out[:, full, :rest] = af[..., full * nb:].mT @ yf[:, full]
     return out
+
+
+def flash_attention_flat_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             sm_scale: float | None = None) -> torch.Tensor:
+    """Softmax attention with grouped-query heads: q (BHq, Sq, Dh), k/v
+    (BHkv, Sk, Dh) head-major, query row b reading KV row b // (BHq / BHkv).
+    Scores and softmax in f32, causal mask top-left aligned (masked scores
+    -1e30); the output is cast to q.dtype."""
+    BH, Sq, Dh = q.shape
+    BHkv, Sk, _ = k.shape
+    group = BH // BHkv
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(Dh)
+    k = k.repeat_interleave(group, dim=0)
+    v = v.repeat_interleave(group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.to(f32), k.to(f32)) * sm_scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        s = s.masked_fill(qpos < torch.arange(Sk, device=q.device), -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.to(f32)).to(q.dtype)

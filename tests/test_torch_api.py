@@ -170,7 +170,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path} imports {bad}"
     code = ("import sys, repro_torch.api, repro_torch.convert, "
-            "repro_torch.data; sys.path.insert(0, %r); import chip_smoke; "
+            "repro_torch.data, repro_torch.models, repro_torch.configs; "
+            "repro_torch.configs.get_config('qwen3-8b'); "
+            "sys.path.insert(0, %r); import chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad; print('ok')"
             % str(ROOT))

@@ -5,13 +5,15 @@ and skip where there is no card. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 They import only ``torch`` and ``repro_torch``. Tolerance: rtol 1e-4 and
 an atol of 1e-5 per unit of the summed magnitudes, since the kernels sum
-in another order than the plain versions.
+in another order than the plain versions. Flash attention is held to the
+JAX package's own bounds for it (tests/test_kernels.py): f32 rtol 2e-5 /
+atol 1e-4, bf16 and fp16 rtol 2e-2 / atol 1e-1.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import (bisect_proj, block_matvec, gram, matvec,
-                                 ops, ref)
+from repro_torch.kernels import (bisect_proj, block_matvec, flash_attention,
+                                 gram, matvec, ops, ref)
 
 RTOL = 1e-4
 
@@ -93,7 +95,8 @@ def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
     gram.gram(a)
     assert ops.launch_counts() == {"ladder_stats": 2, "gram": 1,
                                    "matvec": 1, "rmatvec": 3,
-                                   "block_matvec": 0, "block_rmatvec": 0}
+                                   "block_matvec": 0, "block_rmatvec": 0,
+                                   "flash_attention": 0}
 
 
 @pytest.mark.cuda
@@ -159,3 +162,95 @@ def test_cuda_block_launch_counts_and_refusals(cuda_gen):
             2, 4, 4000, 1, device="cuda"), 4)
     with pytest.raises(ValueError):
         block_matvec.block_matvec(a, x[:, :3], 4)       # wrong block count
+
+
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 1e-1),
+             torch.float16: (2e-2, 1e-1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("BH,BHkv,Sq,Sk,causal", [
+    (4, 4, 128, 128, True),      # group 1, whole tiles
+    (6, 2, 100, 100, True),      # group 3, ragged S
+    (8, 2, 1000, 1000, True),    # group 4, ragged over many tiles
+    (16, 2, 200, 100, False),    # group 8, non-causal, Sk < block_k
+    (6, 2, 64, 256, False),      # Sq != Sk, non-causal
+    (8, 2, 70, 300, True),       # Sq < Sk, causal (top-left aligned)
+    (3, 1, 1, 5, True),          # one query row
+])
+def test_cuda_flash_attention(cuda_gen, BH, BHkv, Sq, Sk, causal, Dh,
+                              dtype):
+    q = torch.randn(BH, Sq, Dh, device="cuda", generator=cuda_gen).to(dtype)
+    k = torch.randn(BHkv, Sk, Dh, device="cuda", generator=cuda_gen).to(dtype)
+    v = torch.randn(BHkv, Sk, Dh, device="cuda", generator=cuda_gen).to(dtype)
+    got = flash_attention.flash_attention_flat(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_flat_ref(q, k, v, causal=causal)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_fp16_scale_and_model_layout(cuda_gen):
+    q = torch.randn(2, 300, 8, 64, device="cuda", generator=cuda_gen)
+    k = torch.randn(2, 300, 2, 64, device="cuda", generator=cuda_gen)
+    v = torch.randn(2, 300, 2, 64, device="cuda", generator=cuda_gen)
+    got = ops.flash_attention(q.half(), k.half(), v.half())
+    assert got.dtype == torch.float16
+    flat = [t.transpose(1, 2).reshape(-1, 300, 64) for t in (q, k, v)]
+    want = ref.flash_attention_flat_ref(*flat).reshape(2, 8, 300, 64)
+    torch.testing.assert_close(got.float(), want.transpose(1, 2),
+                               rtol=2e-2, atol=1e-1)
+    got = flash_attention.flash_attention_flat(*flat, sm_scale=0.05)
+    torch.testing.assert_close(
+        got, ref.flash_attention_flat_ref(*flat, sm_scale=0.05),
+        rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_launches_once_and_refuses(cuda_gen):
+    q = torch.randn(8, 200, 64, device="cuda", generator=cuda_gen)
+    k = torch.randn(2, 200, 64, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
+    flash_attention.flash_attention_flat(q, k, k)
+    ops.flash_attention_auto(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == 2
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention_flat(q[..., :48].contiguous(),
+                                             k[..., :48].contiguous(),
+                                             k[..., :48].contiguous())
+    with pytest.raises(ValueError, match="non-causal"):
+        flash_attention.flash_attention_flat(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_flat(q.mT.contiguous().mT, k, k)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_flat(q.double(), k.double(),
+                                             k.double())
+    assert ops.launch_counts()["flash_attention"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,BHkv,Sq,Sk,Dh,causal", [
+    (8, 2, 2048, 2048, 128, True), (4, 4, 333, 333, 64, True),
+    (6, 2, 130, 512, 32, False), (3, 1, 77, 77, 16, True)])
+def test_cuda_flash_attention_bf16_within_one_rounding(cuda_gen, BH, BHkv,
+                                                       Sq, Sk, Dh, causal):
+    """The bf16 (tensor-core) kernel against the f32 computation on the
+    same bf16 inputs: within one rounding of its bf16 output (rtol 2^-8)
+    plus 1e-4. sm_scale 1 makes each row's softmax peaked, so a missed or
+    misplaced key shows."""
+    bf = torch.bfloat16
+    q = torch.randn(BH, Sq, Dh, device="cuda", generator=cuda_gen).to(bf)
+    k = torch.randn(BHkv, Sk, Dh, device="cuda", generator=cuda_gen).to(bf)
+    v = torch.randn(BHkv, Sk, Dh, device="cuda", generator=cuda_gen).to(bf)
+    for sm_scale in (None, 1.0):
+        got = flash_attention.flash_attention_flat(q, k, v, causal=causal,
+                                                   sm_scale=sm_scale)
+        want = ref.flash_attention_flat_ref(q.float(), k.float(), v.float(),
+                                            causal=causal, sm_scale=sm_scale)
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -8,
+                                   atol=1e-4)
