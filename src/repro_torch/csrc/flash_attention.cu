@@ -20,8 +20,8 @@
 // against 168 MB of q, k, v and o, so the bound is set by operations: 0.14 ms
 // at the bf16 tensor-core peak. bf16 operands therefore run on the tensor
 // cores (flash_mma_kernel, mma.sync; wgmma and TMA are a later change).
-// f32 and fp16 operands run on the CUDA cores (flash_fwd_kernel, the
-// 67 TFLOP/s f32 rate at 700 W), where f32 inputs keep the f32 parity.
+// f32 operands run on the CUDA cores (flash_fwd_kernel, the 67 TFLOP/s f32
+// rate at 700 W), where they keep the f32 parity.
 //
 // Both kernels: one block per (query row b, 64-row query tile), the longest
 // causal tiles launched first; for each 64-key tile up to the diagonal (tiles
@@ -33,28 +33,19 @@
 // q, k or v.
 //
 // flash_fwd_kernel: 256 threads; the Q tile staged once in shared memory,
-// transposed and widened to f32; K^T staged per tile and every thread forms a
+// transposed; K^T staged per tile and every thread forms a
 // 4 x 4 block of scores from 16-byte shared-memory reads; the 16 threads that
 // share four query rows are one half-warp; the probabilities go through a
 // per-warp slice of shared memory to the P V product, for which V replaces
 // K^T in the same buffer. Each thread keeps its four rows' running max,
 // denominator and Dh/16 output columns in registers.
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int BQ = 64, BK = 64, kThreads = 256, PAD = 4;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
-
-__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
-__device__ __forceinline__ void narrow(__half* p, float v) {
-  *p = __float2half(v);
-}
 
 template <int DH>
 constexpr int smem_floats() {
@@ -81,11 +72,11 @@ __device__ __forceinline__ void load_row(const float* src, float (&dst)[W]) {
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int group, float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq,
+                 int Sk, int group, float scale, int causal) {
   constexpr int W = DH / 16;            // output columns per thread
   constexpr int LDQ = BQ + PAD, LDK = BK + PAD, LDV = DH + PAD,
                 LDP = BQ + PAD;
@@ -98,14 +89,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = (Sq + BQ - 1) / BQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;   // longest rows first
   const int bh = blockIdx.y;
-  const T* qp = q + (size_t)bh * Sq * DH;
-  const T* kp = k + (size_t)(bh / group) * Sk * DH;
-  const T* vp = v + (size_t)(bh / group) * Sk * DH;
+  const float* qp = q + (size_t)bh * Sq * DH;
+  const float* kp = k + (size_t)(bh / group) * Sk * DH;
+  const float* vp = v + (size_t)(bh / group) * Sk * DH;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
   for (int l = tid; l < BQ * DH; l += kThreads) {
     const int r = l / DH, d = l % DH, row = q0 + r;
-    QsT[d * LDQ + r] = row < Sq ? widen(qp[(size_t)row * DH + d]) : 0.f;
+    QsT[d * LDQ + r] = row < Sq ? qp[(size_t)row * DH + d] : 0.f;
   }
 
   float m[4], lsum[4], acc[4][W];
@@ -126,7 +117,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                    // the last tile's V reads are done
     for (int l = tid; l < BK * DH; l += kThreads) {
       const int c = l / DH, d = l % DH, key = k0 + c;
-      KVs[d * LDK + c] = key < Sk ? widen(kp[(size_t)key * DH + d]) : 0.f;
+      KVs[d * LDK + c] = key < Sk ? kp[(size_t)key * DH + d] : 0.f;
     }
     __syncthreads();
 
@@ -192,7 +183,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                    // every read of K^T is done
     for (int l = tid; l < BK * DH; l += kThreads) {
       const int c = l / DH, d = l % DH, key = k0 + c;
-      KVs[c * LDV + d] = key < Sk ? widen(vp[(size_t)key * DH + d]) : 0.f;
+      KVs[c * LDV + d] = key < Sk ? vp[(size_t)key * DH + d] : 0.f;
     }
     __syncthreads();
 
@@ -215,9 +206,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float denom = fmaxf(lsum[i], 1e-30f);
-    T* op = o + ((size_t)bh * Sq + row) * DH + tx * W;
+    float* op = o + ((size_t)bh * Sq + row) * DH + tx * W;
 #pragma unroll
-    for (int w = 0; w < W; ++w) narrow(op + w, acc[i][w] / denom);
+    for (int w = 0; w < W; ++w) op[w] = acc[i][w] / denom;
   }
 }
 
@@ -441,13 +432,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Which kernel takes an operand type: the CUDA-core kernel for f32 and
-// fp16, the tensor-core kernel for bf16.
+// Which kernel takes an operand type: the CUDA-core kernel for f32, the
+// tensor-core kernel for bf16.
 template <typename T, int DH>
 struct Route {
   static constexpr int kBytes = smem_floats<DH>() * (int)sizeof(float);
   static constexpr int kBlock = kThreads;
-  static auto kernel() { return flash_fwd_kernel<T, DH>; }
+  static auto kernel() { return flash_fwd_kernel<DH>; }
 };
 
 template <int DH>
@@ -511,4 +502,3 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 FLASH_ENTRY(flash_attention_f32, float)
 FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
-FLASH_ENTRY(flash_attention_f16, __half)

@@ -5,8 +5,8 @@
 (BHq, Sq, Dh) and k/v (BHkv, Sk, Dh), query row b reading KV row
 b // (BHq / BHkv). On CUDA tensors it launches ``csrc/flash_attention.cu``
 (one kernel per call; Dh in {16, 32, 64, 128}; f32 softmax state inside,
-output in q.dtype): bf16 operands on the tensor cores, f32 and fp16 on the
-CUDA cores. Any other head dim, operand type or layout raises. On CPU
+output in q.dtype): bf16 operands on the tensor cores, f32 on the CUDA
+cores. Any other head dim, operand type or layout raises. On CPU
 tensors it is the plain version of :mod:`repro_torch.kernels.ref`. Both
 keep the JAX contract at its default ``block_k`` of 128: a non-causal call
 whose Sk is above 128 and not a multiple of it raises ``ValueError``,
@@ -25,8 +25,7 @@ from .ref import flash_attention_flat_ref
 HEAD_DIMS = (16, 32, 64, 128)
 BLOCK_K = 128          # the JAX function's default key block
 _ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16",
-          torch.float16: "flash_attention_f16"}
+          torch.bfloat16: "flash_attention_bf16"}
 _SIG = [build.P, build.P, build.P, build.P, build.I, build.I, build.I,
         build.I, build.I, build.F, build.I, build.P]
 _SIGNATURES = {name: _SIG for name in _ENTRY.values()}

@@ -8,7 +8,10 @@
 hand-written CUDA kernel on the card. ``impl="full"`` is the plain
 ``_sdpa_full``. One-token decoding stays plain PyTorch: an einsum and a
 softmax over the cache written so far, as the JAX package computes it
-outside any kernel. The sharding constraints of the JAX module are the
+outside any kernel. Each function takes the RoPE table ``rope`` (cos, sin
+of :func:`rope_table`) from its caller, which computes it once for every
+layer, or computes it itself when given none. The sharding constraints of
+the JAX module are the
 identity without a mesh and are left out; the memory-chunked
 ``_sdpa_chunked`` comes with the training path.
 """
@@ -47,8 +50,12 @@ def attn_init(generator, cfg: ModelConfig, dtype, device) -> Attention:
     return Attention(cfg, generator=generator, dtype=dtype, device=device)
 
 
-def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+def rope_table(cfg: ModelConfig, positions: torch.Tensor):
+    """cos, sin of ``positions`` (B or 1, S) at the model's head dim."""
+    return rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, positions)
+
+
+def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor, rope):
     """q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh); qk-norm before RoPE."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -58,7 +65,7 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
-    cos, sin = rope_freqs(Dh, cfg.rope_theta, positions)
+    cos, sin = rope
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -96,28 +103,26 @@ def _causal_attention(q, k, v, impl: str) -> torch.Tensor:
 
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
-              impl: str = "auto") -> torch.Tensor:
+              impl: str = "auto", rope=None) -> torch.Tensor:
     """Causal self-attention over x (B, S, D); returns (B, S, D)."""
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _causal_attention(q, k, v, impl)
-    return p.wo(out.reshape(B, S, -1))
+    return attention_with_cache(p, cfg, x, impl=impl, rope=rope)[0]
 
 
 def attention_with_cache(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
-                         impl: str = "flash"):
+                         impl: str = "flash", rope=None):
     """Prefill: causal self-attention as :func:`attention`, and the (k, v)
     of every position for the cache."""
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    if rope is None:
+        rope = rope_table(cfg, torch.arange(S, device=x.device)[None, :])
+    q, k, v = _project_qkv(p, cfg, x, rope)
     out = _causal_attention(q, k, v, impl)
     return p.wo(out.reshape(B, S, -1)), (k, v)
 
 
 def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int):
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     *, rope=None):
     """One-token decode. x (B, 1, D); cache (B, Smax, Hkv, Dh).
 
     Writes the new k/v at ``pos`` in place (in the cache dtype) and attends
@@ -126,8 +131,9 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     B = x.shape[0]
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     pos = int(pos)
-    positions = torch.full((B, 1), pos, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    if rope is None:
+        rope = rope_table(cfg, torch.full((1, 1), pos, device=x.device))
+    q, k_new, v_new = _project_qkv(p, cfg, x, rope)
     cache_k[:, pos] = k_new[:, 0]
     cache_v[:, pos] = v_new[:, 0]
     kx = cache_k[:, :pos + 1].to(x.dtype)

@@ -5,7 +5,8 @@ A plain loop over the layers: no remat, no scan, no sharding
 constraints. The KV cache is {"k", "v"}, each (L, B, max_seq, Hkv, Dh) in
 the configuration's cache dtype; the prefill writes positions [0, S) of a
 zeroed cache and a decode step writes position ``pos`` in place, giving
-the values of the JAX package's functions.
+the values of the JAX package's functions. Each pass computes the RoPE
+table once and hands it to every layer.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from .attention import (attention, attention_with_cache, attn_init,
-                        decode_attention)
+                        decode_attention, rope_table)
 from .layers import embed_init, mlp_apply, mlp_init, norm_init, rms_norm
 
 
@@ -58,9 +59,10 @@ def _ffn(p: Block, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return mlp_apply(p.mlp, h)
 
 
-def block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def block_apply(p: Block, cfg: ModelConfig, x: torch.Tensor, *,
+                rope=None) -> torch.Tensor:
     """One block over the whole sequence (inference)."""
-    x = x + attention(p.attn, cfg, rms_norm(x, p.norm1))
+    x = x + attention(p.attn, cfg, rms_norm(x, p.norm1), rope=rope)
     return x + _ffn(p, cfg, rms_norm(x, p.norm2))
 
 
@@ -77,12 +79,18 @@ def _lm_logits(p: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return rms_norm(h, p.final_norm) @ p.lm_head.T
 
 
+def _prompt_rope(cfg: ModelConfig, tokens: torch.Tensor):
+    return rope_table(cfg, torch.arange(tokens.shape[1],
+                                        device=tokens.device)[None, :])
+
+
 def lm_forward(p: LM, cfg: ModelConfig,
                tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> final-normed hidden states (B, S, D)."""
     h = _embed_tokens(p, cfg, tokens)
+    rope = _prompt_rope(cfg, tokens)
     for blk in p.blocks:
-        h = block_apply(blk, cfg, h)
+        h = block_apply(blk, cfg, h, rope=rope)
     return rms_norm(h, p.final_norm)
 
 
@@ -104,9 +112,11 @@ def lm_prefill(p: LM, cfg: ModelConfig, tokens: torch.Tensor, cache_dtype,
     if max_seq < S:
         raise ValueError(f"max_seq {max_seq} is shorter than the prompt, {S}")
     cache = lm_cache_init(cfg, B, max_seq, cache_dtype, h.device)
+    rope = _prompt_rope(cfg, tokens)
     for i, blk in enumerate(p.blocks):
         out, (k, v) = attention_with_cache(blk.attn, cfg,
-                                           rms_norm(h, blk.norm1), impl=impl)
+                                           rms_norm(h, blk.norm1), impl=impl,
+                                           rope=rope)
         h = h + out
         h = h + _ffn(blk, cfg, rms_norm(h, blk.norm2))
         cache["k"][i, :, :S] = k
@@ -120,9 +130,11 @@ def lm_decode_step(p: LM, cfg: ModelConfig, token: torch.Tensor, pos: int,
     layer's cache in place; returns logits (B, 1, padded vocab) and the
     cache."""
     h = _embed_tokens(p, cfg, token)
+    rope = rope_table(cfg, torch.full((1, 1), int(pos), device=h.device))
     for i, blk in enumerate(p.blocks):
         out, _, _ = decode_attention(blk.attn, cfg, rms_norm(h, blk.norm1),
-                                     cache["k"][i], cache["v"][i], pos)
+                                     cache["k"][i], cache["v"][i], pos,
+                                     rope=rope)
         h = h + out
         h = h + _ffn(blk, cfg, rms_norm(h, blk.norm2))
     return _lm_logits(p, cfg, h), cache
