@@ -84,8 +84,12 @@ ATOL_PER_SCALE = 1e-5  # atol 1e-5 per unit of summed magnitude)
 # rounding of the bf16 output (rtol 2^-8) plus 1e-4
 FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2 ** -8, 1e-4)}
 LM_TOL = 2e-2        # LM logits: max |diff| within 2e-2 of the logit scale
-# the device kernels of csrc/flash_attention.cu (CUDA cores; tensor cores)
-FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_mma_kernel")
+# the device kernels of csrc/flash_attention.cu (f32 on the CUDA cores; bf16
+# on the tensor cores through wgmma)
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_wgmma_kernel")
+# device kernels whose ptxas report (registers, shared memory, spills) the
+# build phase prints
+PTXAS_SHOWN = ("flash_wgmma_kernel", "gram_xy_kernel")
 
 REPLACES = {
     "ladder_stats": "src/repro/kernels/bisect_proj.py:42",
@@ -171,6 +175,21 @@ def check_close(torch, name, got, want, scale, rtol=RTOL,
     require(ok, f"{name}: kernel disagrees with its plain version "
                 f"(max abs err {err:.3e}, rtol {rtol}, atol {atol:.3e})")
     return err
+
+
+def ptxas_summary(info: dict) -> list[str]:
+    """One line per kernel of PTXAS_SHOWN from the build's ptxas reports:
+    its registers, shared memory and spill bytes."""
+    lines, entry = [], None
+    for name, v in info.items():
+        for ln in v.get("log", "").splitlines():
+            if "Compiling entry function" in ln:
+                entry = next((k for k in PTXAS_SHOWN if k in ln), None)
+                mangled = ln.split("'")[1] if "'" in ln else ln
+            elif entry and ("spill" in ln or "Used" in ln):
+                lines.append(f"{name}: {entry} {mangled[:48]}: "
+                             f"{ln.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def device_table(prof) -> dict:
@@ -528,6 +547,8 @@ def main() -> int:
         built.append(f"{k} (cached)" if v["cached"]
                      else f"{k} ({v['seconds']:.1f} s)")
     phase("build", t0, "built " + ", ".join(built))
+    for line in ptxas_summary(info):
+        print("  " + line, flush=True)
 
     # data of the two Fig. 2 points and the Fig. 3 point (numpy, seed 0) --
     t0 = time.perf_counter()
@@ -588,16 +609,35 @@ def main() -> int:
                    (got[0], want[0], float(az.sum())),
                    4 * (nn + B) + 8 * B, 4 * nn * B)
 
-    # gram: A A^T of the Woodbury setup, A^T A of the dense setup
+    # gram: A A^T of the Woodbury setup, A^T A of the dense setup. Both are
+    # symmetric products (X^T X): their needed work is nb nx (nx + 1) m
+    # flops, half the full product's, and that is what the bound counts.
     for label, X in ((f"gram A A^T {tuple(A.shape)}", A.mT),
                      (f"gram A^T A {tuple(An.shape)}", An)):
         nb, mm, nx = X.shape
         got, want = gram.gram(X), ref.gram_ref(X)
+        # the upper tiles mirrored are the full product's values, bit for bit
+        require(torch.equal(got, got.mT)
+                and torch.equal(got, gram.gram_xy(X, X.clone())),
+                f"{label}: the symmetric path differs from the full product")
         scale = float((ref.gram_ref(X.abs())).max())
-        kernel_row("gram", label, lambda X=X: gram.gram(X),
-                   lambda X=X: ref.gram_ref(X),
+        kernel_row("gram", f"{label} (symmetric: nb nx (nx+1) m flop)",
+                   lambda X=X: gram.gram(X), lambda X=X: ref.gram_ref(X),
                    lambda X=X: torch.matmul(X.mT, X), (got, want, scale),
-                   4 * nb * mm * nx + 4 * nb * nx * nx, 2 * nb * nx * nx * mm)
+                   4 * nb * mm * nx + 4 * nb * nx * nx,
+                   nb * nx * (nx + 1) * mm)
+    # gram_xy of two different operands: the general (full) product
+    B = torch.randn(A.shape, device=dev, generator=g)
+    X, Y = A.mT, B.mT
+    nb, mm, nx = X.shape
+    got, want = gram.gram_xy(X, Y), ref.gram_xy_ref(X, Y)
+    scale = float(ref.gram_xy_ref(X.abs(), Y.abs()).max())
+    kernel_row("gram", f"gram_xy A^T B of two {tuple(A.shape)} arrays "
+                       "(general: 2 nb nx ny m flop)",
+               lambda: gram.gram_xy(X, Y), lambda: ref.gram_xy_ref(X, Y),
+               lambda: torch.matmul(X.mT, Y), (got, want, scale),
+               8 * nb * mm * nx + 4 * nb * nx * nx, 2 * nb * nx * nx * mm)
+    del B, X, Y, got, want
 
     # matvec / rmatvec: per node (Woodbury prox) and stacked (polish)
     for Aa in (A, A_all):
@@ -686,16 +726,19 @@ def main() -> int:
                    (lambda view=view, y=y: torch.matmul(view.mT, y)),
                    (got, want, scale), nbytes, flops)
         del got, want
-    # gram on one node's blocks, the strided (M, m, nb) view of the
-    # feature split's set-up (N calls per fit)
-    Xb = A3[0].view(A3.shape[1], M3, -1).transpose(0, 1)
-    Mb, mb, nb = Xb.shape
+    # gram on every node's blocks, the strided (N, M, m, nb) view of A that
+    # the feature split's set-up passes in one call
+    Xb = A3.unflatten(-1, (M3, -1)).permute(0, 2, 1, 3)
+    Nb, Mb, mb, nb = Xb.shape
     got, want = gram.gram(Xb), ref.gram_ref(Xb)
-    kernel_row("gram", f"gram A_j^T A_j {tuple(Xb.shape)} (one node)",
+    require(torch.equal(got, got.mT), "gram A_j^T A_j: not symmetric")
+    kernel_row("gram", f"gram A_j^T A_j {tuple(Xb.shape)} (every node's "
+                       "blocks; symmetric: N M nb (nb+1) m flop)",
                lambda: gram.gram(Xb), lambda: ref.gram_ref(Xb),
                lambda: torch.matmul(Xb.mT, Xb),
                (got, want, float(ref.gram_ref(Xb.abs()).max())),
-               4 * Mb * mb * nb + 4 * Mb * nb * nb, 2 * Mb * nb * nb * mb)
+               4 * Nb * Mb * mb * nb + 4 * Nb * Mb * nb * nb,
+               Nb * Mb * nb * (nb + 1) * mb)
     del got, want, Ar
     torch.cuda.empty_cache()
 
@@ -819,8 +862,8 @@ def main() -> int:
         return est
 
     # 4. the main path at full width ---------------------------------------
-    est = fit_phase("woodbury", As_w, bs_w, xt_w, wide.kappa, "woodbury",
-                    MAIN_KERNELS)
+    est = fit_phase("woodbury", A, torch.as_tensor(bs_w, device=dev), xt_w,
+                    wide.kappa, "woodbury", MAIN_KERNELS, setup=True)
     main_counts = report["woodbury"]["launches"]
 
     def profile_phase(name, est_kw, As, bs, state):

@@ -72,18 +72,18 @@ class SubsolverFactors:
 
 def _block_grams(A: torch.Tensor, M: int, nb: int) -> torch.Tensor:
     """G_j = A_j^T A_j per node and block, (N, M, nb, nb), zero in the
-    padded rows and columns. The full-width blocks of a node reach the
-    ``gram`` kernel as one strided view of A (no copy); a ragged last block
-    takes a second call on its own column slice."""
+    padded rows and columns. The full-width blocks of every node reach the
+    ``gram`` kernel as one strided (N, full, m, nb) view of A (no copy, one
+    launch); a ragged last block takes a second call on its own column
+    slice of every node."""
     N, m, n = A.shape
     full, rest = block_widths(n, nb, M)
     G = torch.zeros((N, M, nb, nb), dtype=A.dtype, device=A.device)
-    for i in range(N):
-        if full:
-            view = A[i, :, :full * nb].unflatten(-1, (full, nb))
-            G[i, :full] = gram_auto(view.permute(1, 0, 2))
-        if rest:
-            G[i, full, :rest, :rest] = gram_auto(A[i, :, full * nb:])
+    if full:
+        view = A[:, :, :full * nb].unflatten(-1, (full, nb))
+        G[:, :full] = gram_auto(view.permute(0, 2, 1, 3))
+    if rest:
+        G[:, full, :rest, :rest] = gram_auto(A[:, :, full * nb:])
     return G
 
 

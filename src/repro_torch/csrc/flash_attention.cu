@@ -19,26 +19,32 @@
 // qwen3-8b prefill (q (128, 2048, 128) bf16, causal) that is 1.4e11 flops
 // against 168 MB of q, k, v and o, so the bound is set by operations: 0.14 ms
 // at the bf16 tensor-core peak. bf16 operands therefore run on the tensor
-// cores (flash_mma_kernel, mma.sync; wgmma and TMA are a later change).
+// cores through wgmma (flash_wgmma_kernel: two consumer warpgroups and a TMA
+// producer warp around a ring of K/V tiles; the split P makes its work 1.5x
+// the bound's).
 // f32 operands run on the CUDA cores (flash_fwd_kernel, the 67 TFLOP/s f32
 // rate at 700 W), where they keep the f32 parity.
 //
-// Both kernels: one block per (query row b, 64-row query tile), the longest
-// causal tiles launched first; for each 64-key tile up to the diagonal (tiles
-// wholly above it are never visited) the scores, then an online softmax with
-// each row's max and sum taken by butterfly shuffles among the lanes that
-// hold the row (the same value in every lane: no float atomics, a fixed order
-// for every row), then the P V product. Keys past Sk and query rows past Sq
-// are masked inside the kernel (V past Sk is staged as 0): no padded copy of
-// q, k or v.
+// Both kernels: one block per (query row b, query tile) — 64 rows on the
+// CUDA cores, 128 on the tensor cores — the longest causal tiles launched
+// first; for each key tile up to the diagonal (tiles wholly above it are
+// never visited) the scores, then an online softmax with each row's max and
+// sum taken by butterfly shuffles among the lanes that hold the row (the
+// same value in every lane: no float atomics, a fixed order for every row),
+// then the P V product. Keys past Sk and query rows past Sq are masked
+// inside the kernel (V past Sk is staged as 0): no padded copy of q, k or v.
 //
-// flash_fwd_kernel: 256 threads; the Q tile staged once in shared memory,
-// transposed; K^T staged per tile and every thread forms a
+// flash_fwd_kernel: 256 threads, 64-key tiles; the Q tile staged once in
+// shared memory, transposed; K^T staged per tile and every thread forms a
 // 4 x 4 block of scores from 16-byte shared-memory reads; the 16 threads that
 // share four query rows are one half-warp; the probabilities go through a
 // per-warp slice of shared memory to the P V product, for which V replaces
 // K^T in the same buffer. Each thread keeps its four rows' running max,
 // denominator and Dh/16 output columns in registers.
+#include <cstdint>
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -213,53 +219,61 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands: the same function on the tensor cores (mma.sync m16n8k16).
-// One block of 4 warps per (query row b, 64-row query tile), each warp
-// owning 16 query rows; Q, K and V tiles are staged in shared memory as
-// bf16 (rows padded by 16 bytes, so ldmatrix reads them without bank
-// conflicts) and read into mma fragments by ldmatrix (V transposed). Scores
-// come out of the tensor cores in f32 (bf16 products are exact in f32), the
-// running max, denominator and accumulator stay in f32 registers, and a row's
-// max and sum are butterfly shuffles over the 4 lanes that hold it. P enters
-// the P V product as a bf16 high part plus a bf16 low part (two mma each),
-// so P keeps about 16 bits instead of bf16's 8: the product stays near the
-// f32 computation of the TPU kernel.
-constexpr int kMmaThreads = 128;
+// bf16 operands: the same function on Hopper's warpgroup tensor-core
+// instructions (wgmma), flash_wgmma_kernel. One block of two warpgroups (256
+// threads) per (query row b, 128-row query tile); warpgroup w owns the
+// tile's query rows [64 w, 64 w + 64) and keeps their scores, running max,
+// denominator and output accumulator in f32 registers. Per 128-key tile:
+//   S = Q K^T   wgmma m64n128k16, Q and K both read from shared memory;
+//   softmax     in base 2 (exp2f, scale * log2(e) folded into one multiply),
+//               a row's max over the 4 lanes of a quad by two shuffles, its
+//               sum kept per lane and added across the quad once at the end;
+//   O += P V    wgmma m64nDk16 with P from registers (the S accumulator's
+//               layout is the A operand's, so P never touches shared memory)
+//               and V from shared memory as the MN-major B operand (the
+//               transpose flag, so no transposed copy of V is made).
+// P enters P V as a bf16 high part plus a bf16 low part (two wgmma each), so
+// P keeps about 16 bits instead of bf16's 8 and the product stays near the
+// f32 computation of the TPU kernel (1.5x the needed tensor-core work).
+//
+// Shared memory holds the Q tile and a ring of two K/V stages (164 KB at
+// Dh 128: one block an SM), each tile in the 128-byte-swizzled layout that
+// wgmma's descriptors read: 64-column slabs of 128-byte rows, 16-byte chunk
+// j of row r stored at chunk j ^ (r % 8), so the tensor cores' reads are
+// free of bank conflicts. A ninth warp is the producer: one of its threads
+// fills the ring by TMA (cp.async.bulk.tensor), each stage's copies
+// completing on that stage's "full" mbarrier, and refills a stage once all
+// 256 consumer threads have arrived on its "empty" mbarrier. So tile t + 1
+// is in flight while tile t is computed, and the two warpgroups are tied to
+// each other only through the ring: one may run a tile ahead, its softmax
+// overlapping the other's wgmma. (With the copies issued by the consumers
+// themselves, a __syncthreads a tile held the warpgroups in step, both in
+// softmax at once with the tensor cores idle: 1.3x this kernel's time at
+// the qwen3-8b prefill shape; see PERF.md.) q, k and v
+// are described as 3-D (heads, rows, Dh) tensor maps, so a box that runs
+// past Sq or Sk reads zeros rather than the next head's rows, and a box
+// 64 columns wide over Dh 16 or 32 zero-fills the columns past Dh: GQA and
+// ragged lengths need no padded copy. The maps are built on the host for
+// each call (cuTensorMapEncodeTiled) and passed as __grid_constant__
+// parameters. No setmaxnreg: a thread may hold 168 registers (288 threads
+// put three warps on one of the SM's four 16,384-register sub-partitions)
+// and the kernel fits in them without spilling.
+constexpr int kConsumers = 256, kWgThreads = kConsumers + 32;
+constexpr int WBQ = 128, WBK = 128, kStages = 2;
 
 template <int DH>
-constexpr int mma_smem_bytes() { return 3 * BQ * (DH + 8) * 2; }
+struct WgTile {
+  static constexpr int DP = DH < 64 ? 64 : DH;   // row width in shared memory
+  static constexpr int kQ = WBQ * DP * 2;           // bytes of the Q tile
+  static constexpr int kKV = WBK * DP * 2;          // bytes of one K or V tile
+  static constexpr int kBars = 8 * (1 + 2 * kStages);   // the mbarriers
+  // + 1,024: the swizzle pattern repeats every 1,024 bytes, so the tiles
+  // start 1,024-aligned inside the dynamic shared memory
+  static constexpr int kBytes = kQ + kStages * 2 * kKV + kBars + 1024;
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(const __nv_bfloat16* p,
-                                        unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const __nv_bfloat16* p,
-                                              unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a (16 x 16, row-major fragment) * b (16 x 8, column fragment b0 b1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ unsigned bits(__nv_bfloat162 x) {
@@ -274,198 +288,365 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
   lo = bits(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
 }
 
-// Rows [r0, r0 + 64) of a (n, DH) bf16 matrix into shared memory with row
-// stride DH + 8, 16 bytes a thread at a time; rows past n are zero.
-template <int DH>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int r0,
-                                           int n) {
-  constexpr int CH = DH / 8;
-  for (int c = threadIdx.x; c < BQ * CH; c += kMmaThreads) {
-    const int r = c / CH, j = c % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * DH +
-                                            j * 8);
-    *reinterpret_cast<uint4*>(dst + r * (DH + 8) + j * 8) = val;
-  }
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// One arrival that also expects `bytes` of copies to land on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
 }
 
+// A 64-column x 128-row x 1-head box of a 3-D tensor map into shared memory
+// at dst (1,024-aligned; the map's 128-byte swizzle gives the layout wgmma
+// reads), completing on barrier bar. Coordinates: column, row, head.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
+                                         unsigned bar, int col, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address addr:
+// 8-row groups 1,024 bytes apart (stride byte offset); lbo is the leading
+// byte offset, the distance between 64-column slabs of an MN-major operand
+// (unused by a K-major one, whose 16-deep slice lies inside one 128-byte row).
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr, unsigned lbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of a wgmma accumulator
+// across the asynchronous instructions that own it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D8(b)                                                           \
+  "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),              \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// d (64 x 128, f32) (+)= A B^T over 16 of the K axis: A (64 x 16) and
+// B (128 x 16) both K-major in shared memory; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x N, f32) += A B over 16 of the K axis: A (64 x 16 bf16) from
+// registers in the accumulator's row layout, B (16 x N) MN-major in shared
+// memory (transpose flag 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef WG_D8
+
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Sq, int Sk, int group,
-                 float scale, int causal) {
-  constexpr int LD = DH + 8, KC = DH / 16, NO = DH / 8, NS = BK / 8;
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   __nv_bfloat16* __restrict__ o, int Sq, int Sk, int group,
+                   float scale_log2, int causal) {
+  using L = WgTile<DH>;
+  constexpr int DP = L::DP, NS = WBK / 8, NO = DP / 8, SLABS = DP / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
+  const unsigned sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const unsigned sKV = sQ + L::kQ;            // stage s: K, then V
+  const unsigned full_q = sKV + kStages * 2 * L::kKV;
+  const unsigned full0 = full_q + 8, empty0 = full0 + 8 * kStages;
 
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;   // longest rows first
+  const int nq = (Sq + WBQ - 1) / WBQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * WBQ;  // longest rows first
   const int bh = blockIdx.y;
-  const __nv_bfloat16* kp = k + (size_t)(bh / group) * Sk * DH;
-  const __nv_bfloat16* vp = v + (size_t)(bh / group) * Sk * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;     // fragment row, lane in quad
-  const int mi = lane >> 3, mr = lane & 7;    // ldmatrix matrix and row
-  const int row0 = q0 + warp * 16 + g;        // rows row0 and row0 + 8
+  const int tid = threadIdx.x;
+  const int q_last = min(q0 + WBQ, Sq) - 1;
+  int n_tiles = (Sk + WBK - 1) / WBK;
+  if (causal) n_tiles = min(n_tiles, q_last / WBK + 1);
 
-  stage_tile<DH>(Qs, q + (size_t)bh * Sq * DH, q0, Sq);
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  unsigned qf[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-    ldsm_x4(Qs + (warp * 16 + mr + (mi & 1) * 8) * LD + kc * 16 +
-                (mi >> 1) * 8, qf[kc]);
 
-  float acc[NO][4], m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  if (tid >= kConsumers) {
+    // The producer warp: one thread keeps the ring full with TMA copies.
+    if (tid == kConsumers) {
+      mbar_expect_tx(full_q, L::kQ);
+      for (int sl = 0; sl < SLABS; ++sl)
+        tma_load(sQ + sl * (WBQ * 128), &map_q, full_q, sl * 64, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty0 + 8 * s, (t / kStages - 1) & 1);
+        const unsigned kb = sKV + s * 2 * L::kKV, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, 2 * L::kKV);
+        for (int sl = 0; sl < SLABS; ++sl) {
+          tma_load(kb + sl * (WBK * 128), &map_k, bar, sl * 64, t * WBK,
+                   bh / group);
+          tma_load(kb + L::kKV + sl * (WBK * 128), &map_v, bar, sl * 64,
+                   t * WBK, bh / group);
+        }
+      }
+    }
+    return;
+  }
 
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  int n_tiles = (Sk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, q_last / BK + 1);
+  // The two consumer warpgroups.
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int row0 = q0 + wg * 64 + warp * 16 + g;    // rows row0, row0 + 8
+
+  float acc[DP / 2], m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const unsigned qa = sQ + wg * 64 * 128;           // this warpgroup's rows
+  mbar_wait(full_q, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();                    // the last tile's K and V are read
-    stage_tile<DH>(Ks, kp, k0, Sk);
-    stage_tile<DH>(Vs, vp, k0, Sk);
-    __syncthreads();
+    const int k0 = t * WBK, stage = t % kStages;
+    mbar_wait(full0 + 8 * stage, (t / kStages) & 1);  // tile t has landed
+    const unsigned sK = sKV + stage * 2 * L::kKV, sV = sK + L::kKV;
 
-    float s[NS][4];
+    float s[WBK / 2];
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int i = 0; i < WBK / 2; ++i) s[i] = 0.f;
+    wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const unsigned slab = (kk >> 2), off = (kk & 3) * 32;
+      wgmma_ss_n128(s, sw128_desc(qa + slab * (WBQ * 128) + off, 16),
+                    sw128_desc(sK + slab * (WBK * 128) + off, 16), kk > 0);
+    }
+    wg_commit_wait();
+    fence_regs(s);
+
+    const bool masked = k0 + WBK > Sk || (causal && k0 + WBK - 1 > row0);
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        unsigned b[4];
-        ldsm_x4(Ks + (np * 16 + mr + (mi >> 1) * 8) * LD + kc * 16 +
-                    (mi & 1) * 8, b);
-        mma_bf16(s[2 * np], qf[kc], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[kc], b[2], b[3]);
-      }
-    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] *= scale;
+        float x = s[4 * j + e] * scale_log2;
         if (masked) {
-          const int key = k0 + n * 8 + tq * 2 + (e & 1);
+          const int key = k0 + 8 * j + 2 * tq + (e & 1);
           const int row = row0 + (e >> 1) * 8;
-          if (key >= Sk || (causal && key > row)) s[n][e] = kNegInf;
+          if (key >= Sk || (causal && key > row)) x = kNegInf;
         }
+        s[4 * j + e] = x;
       }
 
     // Online softmax of rows row0 (h = 0) and row0 + 8 (h = 1): each lane
-    // of a quad holds 16 of a row's 64 scores.
+    // of a quad holds 32 of a row's 128 scores.
+    float corr[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = kNegInf;
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[h], mx);
-      const float corr = expf(m[h] - m_new);
+      corr[h] = exp2f(m[h] - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        s[n][2 * h] = expf(s[n][2 * h] - m_new);
-        s[n][2 * h + 1] = expf(s[n][2 * h + 1] - m_new);
-        ps += s[n][2 * h] + s[n][2 * h + 1];
+      for (int j = 0; j < NS; ++j) {
+        s[4 * j + 2 * h] = exp2f(s[4 * j + 2 * h] - m_new);
+        s[4 * j + 2 * h + 1] = exp2f(s[4 * j + 2 * h + 1] - m_new);
+        ps += s[4 * j + 2 * h] + s[4 * j + 2 * h + 1];
       }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      lsum[h] = lsum[h] * corr + ps;
+      lsum[h] = lsum[h] * corr[h] + ps;
       m[h] = m_new;
+    }
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        acc[j][2 * h] *= corr;
-        acc[j][2 * h + 1] *= corr;
-      }
+    for (int j = 0; j < NO; ++j) {
+      acc[4 * j] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
     }
 
-    // acc += P V over the tile's keys, 16 at a time: the score fragments
-    // of two adjacent 8-key tiles are the P fragment of 16 keys.
+    // acc += P V over the tile's keys, 16 at a time: the scores of two
+    // adjacent 8-key chunks are the A fragment of 16 keys. Every fragment is
+    // written before the fence that orders register writes before wgmma.
+    unsigned ph[WBK / 16][4], pl[WBK / 16][4];
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      unsigned ph[4], pl[4];
-      split_bf16(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
-      split_bf16(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
-      split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int jp = 0; jp < NO / 2; ++jp) {
-        unsigned b[4];
-        ldsm_x4_trans(Vs + (kc * 16 + mr + (mi & 1) * 8) * LD + jp * 16 +
-                          (mi >> 1) * 8, b);
-        mma_bf16(acc[2 * jp], ph, b[0], b[1]);
-        mma_bf16(acc[2 * jp], pl, b[0], b[1]);
-        mma_bf16(acc[2 * jp + 1], ph, b[2], b[3]);
-        mma_bf16(acc[2 * jp + 1], pl, b[2], b[3]);
-      }
+    for (int kc = 0; kc < WBK / 16; ++kc) {
+      split_bf16(s[8 * kc], s[8 * kc + 1], ph[kc][0], pl[kc][0]);
+      split_bf16(s[8 * kc + 2], s[8 * kc + 3], ph[kc][1], pl[kc][1]);
+      split_bf16(s[8 * kc + 4], s[8 * kc + 5], ph[kc][2], pl[kc][2]);
+      split_bf16(s[8 * kc + 6], s[8 * kc + 7], ph[kc][3], pl[kc][3]);
     }
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < WBK / 16; ++kc) {
+      const uint64_t vb = sw128_desc(sV + kc * 16 * 128, WBK * 128);
+      wgmma_rs(acc, ph[kc], vb);
+      wgmma_rs(acc, pl[kc], vb);
+    }
+    wg_commit_wait();
+    fence_regs(acc);
+    mbar_arrive(empty0 + 8 * stage);    // this thread is done with the stage
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
+    float l = lsum[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = row0 + h * 8;
     if (row >= Sq) continue;
-    const float denom = fmaxf(lsum[h], 1e-30f);
+    const float denom = fmaxf(l, 1e-30f);
     __nv_bfloat16* op = o + ((size_t)bh * Sq + row) * DH + tq * 2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(
-          acc[j][2 * h] / denom, acc[j][2 * h + 1] / denom);
+      if (8 * j < DH)
+        *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * h] / denom, acc[4 * j + 2 * h + 1] / denom);
   }
 }
 
-// Which kernel takes an operand type: the CUDA-core kernel for f32, the
-// tensor-core kernel for bf16.
-template <typename T, int DH>
-struct Route {
-  static constexpr int kBytes = smem_floats<DH>() * (int)sizeof(float);
-  static constexpr int kBlock = kThreads;
-  static auto kernel() { return flash_fwd_kernel<DH>; }
-};
+// Raises a kernel's dynamic shared memory limit to `bytes`, once.
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return e;
+}
 
+// f32 operands: the CUDA-core kernel.
 template <int DH>
-struct Route<__nv_bfloat16, DH> {
-  static constexpr int kBytes = mma_smem_bytes<DH>();
-  static constexpr int kBlock = kMmaThreads;
-  static auto kernel() { return flash_mma_kernel<DH>; }
-};
+int launch_dh(const float* q, const float* k, const float* v, float* o,
+              int bh, int sq, int sk, int group, float scale, int causal,
+              cudaStream_t stream) {
+  constexpr int bytes = smem_floats<DH>() * (int)sizeof(float);
+  const cudaError_t e = allow_smem<flash_fwd_kernel<DH>>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_kernel<DH><<<dim3((sq + BQ - 1) / BQ, bh), kThreads, bytes,
+                         stream>>>(q, k, v, o, sq, sk, group, scale, causal);
+  return (int)cudaGetLastError();
+}
 
-template <typename T, int DH>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int bh,
-              int sq, int sk, int group, float scale, int causal,
-              void* stream) {
-  using R = Route<T, DH>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        R::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  const auto kernel = R::kernel();
-  kernel<<<grid, R::kBlock, R::kBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, group, scale,
-      causal);
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link to the driver library.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }();
+  return fn;
+}
+
+// The (heads, rows, dh) bf16 tensor at base as a 3-D map of 64-column x
+// 128-row x 1-head boxes with the 128-byte swizzle. Being 3-D, a box that
+// runs past `rows` (or past dh, for dh < 64) reads zeros, not the next
+// head's rows.
+bool encode_map(CUtensorMap* map, const void* base, int dh, int rows,
+                int heads) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)rows * dh * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)WBQ, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 operands: the wgmma kernel, its three tensor maps built here.
+template <int DH>
+int launch_dh(const __nv_bfloat16* q, const __nv_bfloat16* k,
+              const __nv_bfloat16* v, __nv_bfloat16* o, int bh, int sq,
+              int sk, int group, float scale, int causal,
+              cudaStream_t stream) {
+  constexpr int bytes = WgTile<DH>::kBytes;
+  const cudaError_t e = allow_smem<flash_wgmma_kernel<DH>>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv;
+  if (!encode_map(&mq, q, DH, sq, bh) ||
+      !encode_map(&mk, k, DH, sk, bh / group) ||
+      !encode_map(&mv, v, DH, sk, bh / group))
+    return (int)cudaErrorInvalidValue;
+  flash_wgmma_kernel<DH><<<dim3((sq + WBQ - 1) / WBQ, bh), kWgThreads, bytes,
+                           stream>>>(mq, mk, mv, o, sq, sk, group,
+                                     scale * 1.4426950408889634f,  // log2(e)
+                                     causal);
   return (int)cudaGetLastError();
 }
 
@@ -473,10 +654,12 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int sk, int dh, int group, float scale, int causal,
            void* stream) {
-#define FLASH_DH(D)                                                     \
-  case D:                                                               \
-    return launch_dh<T, D>(q, k, v, o, bh, sq, sk, group, scale, causal, \
-                           stream)
+#define FLASH_DH(D)                                                       \
+  case D:                                                                 \
+    return launch_dh<D>(static_cast<const T*>(q), static_cast<const T*>(k), \
+                        static_cast<const T*>(v), static_cast<T*>(o), bh,   \
+                        sq, sk, group, scale, causal,                       \
+                        static_cast<cudaStream_t>(stream))
   switch (dh) {
     FLASH_DH(16);
     FLASH_DH(32);

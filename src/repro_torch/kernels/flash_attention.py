@@ -5,13 +5,13 @@
 (BHq, Sq, Dh) and k/v (BHkv, Sk, Dh), query row b reading KV row
 b // (BHq / BHkv). On CUDA tensors it launches ``csrc/flash_attention.cu``
 (one kernel per call; Dh in {16, 32, 64, 128}; f32 softmax state inside,
-output in q.dtype): bf16 operands on the tensor cores, f32 on the CUDA
-cores. Any other head dim, operand type or layout raises. On CPU
-tensors it is the plain version of :mod:`repro_torch.kernels.ref`. Both
-keep the JAX contract at its default ``block_k`` of 128: a non-causal call
-whose Sk is above 128 and not a multiple of it raises ``ValueError``,
-though the kernels (64 x 64 tiles, ragged edges masked inside) would not
-need it.
+output in q.dtype): bf16 operands on the tensor cores (wgmma, K and V
+brought in by TMA), f32 on the CUDA cores. Any other head dim, operand
+type or layout raises. On CPU tensors it is the plain version of
+:mod:`repro_torch.kernels.ref`. Both keep the JAX contract at its default
+``block_k`` of 128: a non-causal call whose Sk is above 128 and not a
+multiple of it raises ``ValueError``, though the kernels (ragged edges
+masked inside) would not need it.
 """
 from __future__ import annotations
 
@@ -79,8 +79,8 @@ def _launch(q, k, v, causal, sm_scale) -> torch.Tensor:
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError("flash_attention: bf16 q, k and v must start "
-                         "16-byte aligned (the tensor-core kernel loads 16 "
-                         "bytes at a time)")
+                         "16-byte aligned (the tensor-core kernel's TMA "
+                         "copies need it)")
     if BH > 65_535 or max(Sq, Sk) >= 2 ** 31:
         raise ValueError(f"flash_attention: {BH} query rows of length {Sq} "
                          "exceed the kernel's grid")

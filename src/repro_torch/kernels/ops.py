@@ -92,8 +92,9 @@ runtime.register_kernel("flash_attention", "cpu", _flash_plain)
 
 
 def gram_auto(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """a^T a (per node for a leading node axis). ``gram_auto(A.mT)`` is
-    A A^T, read from the transposed view without a copy."""
+    """a^T a (per entry of up to two leading batch axes: nodes, blocks).
+    ``gram_auto(A.mT)`` is A A^T, read from the transposed view without a
+    copy."""
     return runtime.kernel("gram", a.device.type)(a, out_dtype)
 
 

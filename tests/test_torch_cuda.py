@@ -42,13 +42,57 @@ def test_cuda_ladder_stats(cuda_gen, n, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 130, 517), (1, 64, 64), (2, 17, 1)])
+@pytest.mark.parametrize("shape", [(3, 130, 517), (1, 64, 64), (2, 17, 1),
+                                   (2, 4000, 300), (1, 700, 1000),
+                                   (3, 50, 129)])
 def test_cuda_gram(cuda_gen, shape):
+    """gram(x) (one operand: only the tiles on and above the diagonal, each
+    written to both places) is exactly symmetric, agrees with the plain
+    version and is bit-identical to the general path's full product of an
+    equal copy (each entry the same f32 sum in the same k order)."""
     a = torch.randn(shape, device="cuda", generator=cuda_gen)
     for x in (a, a.mT, a[0]):
-        _close(gram.gram(x), ref.gram_ref(x), x.shape[-2])
+        got = gram.gram(x)
+        _close(got, ref.gram_ref(x), x.shape[-2])
+        assert torch.equal(got, got.mT)
+        assert torch.equal(got, gram.gram_xy(x, x.clone()))
     b = torch.randn(shape[:-1] + (9,), device="cuda", generator=cuda_gen)
     _close(gram.gram_xy(a, b), ref.gram_xy_ref(a, b), shape[-2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_x,shape_y", [
+    ((2, 3000, 260), (2, 3000, 300)),   # f32, unit column stride: cp.async
+    ((1, 5000, 130), (1, 5000, 7)),     # a long reduction, ragged widths
+    ((3, 20, 2), (3, 20, 257)),
+])
+def test_cuda_gram_xy_general_path(cuda_gen, shape_x, shape_y):
+    x = torch.randn(shape_x, device="cuda", generator=cuda_gen)
+    y = torch.randn(shape_y, device="cuda", generator=cuda_gen)
+    _close(gram.gram_xy(x, y), ref.gram_xy_ref(x, y), shape_x[-2])
+    xt = torch.randn(shape_x[:1] + shape_x[:0:-1], device="cuda",
+                     generator=cuda_gen).mT           # k axis unit stride
+    _close(gram.gram_xy(xt, y), ref.gram_xy_ref(xt, y), shape_x[-2])
+    _close(gram.gram_xy(y, xt), ref.gram_xy_ref(y, xt), shape_x[-2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,m,n,M", [(2, 12_000, 1024, 4), (3, 6_001, 1000, 4),
+                                     (1, 3_000, 1001, 3)])
+def test_cuda_gram_long_strided_block_view(cuda_gen, N, m, n, M):
+    """Every node's feature blocks as one strided (N, M, m, nb) view of A,
+    as the feature split's set-up takes them (long k, one launch): the
+    plain version's values, bit-identical per node to one call a node."""
+    nb = n // M
+    a = torch.randn(N, m, n, device="cuda", generator=cuda_gen)
+    view = a[..., :M * nb].unflatten(-1, (M, nb)).permute(0, 2, 1, 3)
+    ops.reset_launch_counts()
+    got = gram.gram(view)
+    assert ops.launch_counts()["gram"] == 1
+    assert got.shape == (N, M, nb, nb) and torch.equal(got, got.mT)
+    _close(got, ref.gram_ref(view), m)
+    for i in range(N):
+        assert torch.equal(got[i], gram.gram(view[i]))
 
 
 @pytest.mark.cuda
@@ -238,8 +282,37 @@ def test_cuda_flash_attention_launches_once_and_refuses(cuda_gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("BH,BHkv,Sq,Sk,Dh,causal", [
+    (4, 2, 200, 200, 128, True),
+    (6, 2, 130, 300, 64, True),       # Sq < Sk
+    (8, 2, 70, 100, 32, False),       # Sk < one key tile
+    (3, 3, 129, 129, 16, True),       # one key tile and one key
+])
+def test_cuda_flash_attention_bf16_reads_no_key_past_sk(cuda_gen, BH, BHkv,
+                                                        Sq, Sk, Dh, causal):
+    """Ragged Sq and Sk with every other KV head filled with 1e3: the rows
+    just past a head's Sk keys are the next head's, so a key or value read
+    across the boundary breaks the one-rounding check."""
+    bf = torch.bfloat16
+    q = torch.randn(BH, Sq, Dh, device="cuda", generator=cuda_gen).to(bf)
+    k = torch.randn(BHkv, Sk, Dh, device="cuda", generator=cuda_gen)
+    v = torch.randn(BHkv, Sk, Dh, device="cuda", generator=cuda_gen)
+    k[1::2], v[1::2] = 1e3, 1e3
+    k, v = k.to(bf), v.to(bf)
+    got = flash_attention.flash_attention_flat(q, k, v, causal=causal)
+    want = ref.flash_attention_flat_ref(q.float(), k.float(), v.float(),
+                                        causal=causal)
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,BHkv,Sq,Sk,Dh,causal", [
     (8, 2, 2048, 2048, 128, True), (4, 4, 333, 333, 64, True),
-    (6, 2, 130, 512, 32, False), (3, 1, 77, 77, 16, True)])
+    (6, 2, 130, 512, 32, False), (3, 1, 77, 77, 16, True),
+    # fewer keys than the K/V ring holds: below one tile, one tile and one
+    # key, two tiles and one key (a non-causal Sk above 128 is a multiple
+    # of 128, as in the JAX package)
+    *[(4, 2, sk + 3, sk, 128, True) for sk in (1, 64, 127, 128, 129, 257)],
+    *[(4, 2, sk + 3, sk, 128, False) for sk in (1, 64, 127, 128, 256)]])
 def test_cuda_flash_attention_bf16_within_one_rounding(cuda_gen, BH, BHkv,
                                                        Sq, Sk, Dh, causal):
     """The bf16 (tensor-core) kernel against the f32 computation on the
