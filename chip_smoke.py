@@ -65,6 +65,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -90,6 +91,13 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_wgmma_kernel")
 # device kernels whose ptxas report (registers, shared memory, spills) the
 # build phase prints
 PTXAS_SHOWN = ("flash_wgmma_kernel", "gram_xy_kernel")
+# csrc/matvec.cu's kernel templates, summed over their instantiations, and
+# the template arguments of those the solver path runs: matvec <path, rows
+# per warp, KC, X as float4s> at K = 1 and 3, rmatvec <columns a lane, KC>
+PTXAS_MATVEC = {"matvec_kernel": ("0,4,1,0", "1,2,3,1"),
+                "rmatvec_team_kernel": ("4,1", "4,3"),
+                "rmatvec_slices_kernel": ("4,1", "4,3"),
+                "sum_slices": ("",)}
 
 REPLACES = {
     "ladder_stats": "src/repro/kernels/bisect_proj.py:42",
@@ -189,6 +197,39 @@ def ptxas_summary(info: dict) -> list[str]:
             elif entry and ("spill" in ln or "Used" in ln):
                 lines.append(f"{name}: {entry} {mangled[:48]}: "
                              f"{ln.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def ptxas_matvec(log: str) -> list[str]:
+    """One line per kernel template of csrc/matvec.cu from its ptxas
+    report: instantiations, register range, spill stores, and the registers
+    of the instantiations on the solver path (PTXAS_MATVEC)."""
+    fams, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mt = re.search(r"\d+(" + "|".join(sorted(PTXAS_MATVEC,
+                                                       key=len)[::-1])
+                           + r")(?:I((?:L[ib]\d+E)+)E)?", ln)
+            entry = mt and (mt.group(1), ",".join(
+                re.findall(r"L[ib](\d+)E", mt.group(2) or "")))
+        elif entry:
+            fam = fams.setdefault(entry[0], {"regs": {}, "spill": {}})
+            used = re.search(r"Used (\d+) registers", ln)
+            spill = re.search(r"(\d+) bytes spill stores", ln)
+            if used:
+                fam["regs"][entry[1]] = int(used.group(1))
+            if spill and int(spill.group(1)):
+                fam["spill"][entry[1]] = int(spill.group(1))
+    lines = []
+    for name, fam in fams.items():
+        regs, spill = fam["regs"], fam["spill"]
+        path = ", ".join(f"<{k}> {regs[k]}" if k else str(regs[k])
+                         for k in PTXAS_MATVEC[name] if k in regs)
+        spilled = ", ".join(f"<{k}> {v} B" for k, v in spill.items())
+        lines.append(f"matvec: {name} x{len(regs)}: "
+                     f"{min(regs.values())}-{max(regs.values())} registers, "
+                     f"spill stores {spilled or 'none'}; on the path "
+                     f"{path} registers")
     return lines
 
 
@@ -547,7 +588,8 @@ def main() -> int:
         built.append(f"{k} (cached)" if v["cached"]
                      else f"{k} ({v['seconds']:.1f} s)")
     phase("build", t0, "built " + ", ".join(built))
-    for line in ptxas_summary(info):
+    for line in (*ptxas_summary(info),
+                 *ptxas_matvec(info.get("matvec", {}).get("log", ""))):
         print("  " + line, flush=True)
 
     # data of the two Fig. 2 points and the Fig. 3 point (numpy, seed 0) --
@@ -639,8 +681,10 @@ def main() -> int:
                8 * nb * mm * nx + 4 * nb * nx * nx, 2 * nb * nx * nx * mm)
     del B, X, Y, got, want
 
-    # matvec / rmatvec: per node (Woodbury prox) and stacked (polish)
-    for Aa in (A, A_all):
+    # matvec / rmatvec: per node (Woodbury prox), stacked (the polish), and
+    # the classify polish's stacked (8 x 5,000, 4,000): a view of the Fig. 3
+    # data's first 40,000 rows
+    for Aa in (A, A_all, A3.view(-1, A3.shape[-1])[:40_000]):
         label_a = str(tuple(Aa.shape))
         lead = Aa.shape[:-2]
         mm, nn = Aa.shape[-2:]

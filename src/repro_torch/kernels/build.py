@@ -44,9 +44,10 @@ F = ctypes.c_float
 
 # Device kernel launches per kernel: a wrapper adds, where it launches, the
 # number of CUDA kernels its C entry point issued — two for ladder_stats
-# (partial and reduce passes) and for rmatvec / block_rmatvec over more than
-# one row slice, one otherwise (flash_attention: one) — and nowhere else
-# (read through repro_torch.kernels.ops).
+# (partial and reduce passes), for block_rmatvec over more than one row
+# slice and for rmatvec when a second kernel sums its row slices
+# (kernels/matvec.py, plan), one otherwise (flash_attention: one) — and
+# nowhere else (read through repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

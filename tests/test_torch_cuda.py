@@ -115,6 +115,89 @@ def test_cuda_matvec_rmatvec(cuda_gen, shape, k):
            ref.normal_matvec_ref(a, p, shift), m * n)
 
 
+def _misaligned(t):
+    """A contiguous copy of t whose storage starts one float past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, device=t.device, dtype=t.dtype)
+    off = 1 + (-buf.data_ptr() // t.element_size()) % 4
+    out = buf[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+# (N, m, n, the rmatvec plan's slices and launches): m is not a multiple of
+# matvec's 4 or 2 rows a warp nor of rmatvec's 128-row slice; n % 4 is 0-3
+MATVEC_PATH_SHAPES = [
+    (2, 301, 16_896, 3, 1),      # one block per (node, chunk) adds 3 slices
+    (2, 301, 16_897, 3, 1),      # the same on the scalar path
+    (1, 1_031, 256, 9, 2),       # nine slices: partials, then their sum
+    (1, 1_031, 257, 9, 2),
+    (2, 259, 258, 3, 2),         # 3 slices, too few chunks for one block
+    (3, 5, 259, 1, 1),           # one slice
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 8, 9])
+@pytest.mark.parametrize("N,m,n,slices,launches", MATVEC_PATH_SHAPES)
+def test_cuda_matvec_rmatvec_every_path(cuda_gen, N, m, n, slices, launches,
+                                        K):
+    """Every load path, K across the register chunk of 8, aligned and
+    misaligned operands: the plain version's values, and the plan's launch
+    count."""
+    a = torch.randn(N, m, n, device="cuda", generator=cuda_gen)
+    x = torch.randn(N, n, K, device="cuda", generator=cuda_gen)
+    y = torch.randn(N, m, K, device="cuda", generator=cuda_gen)
+    p = matvec.plan(True, N, m, n, K, True, True, matvec.sm_count(a.device))
+    assert (p.slices, p.launches) == (slices, launches)
+    want, want_t = ref.matvec_ref(a, x), ref.rmatvec_ref(a, y)
+    for aa in (a, _misaligned(a)):
+        for xx in (x, _misaligned(x)):
+            _close(matvec.matvec(aa, xx), want, n)
+        for yy in (y, _misaligned(y)):
+            ops.reset_launch_counts()
+            _close(matvec.rmatvec(aa, yy), want_t, m)
+            if aa is a:
+                assert ops.launch_counts()["rmatvec"] == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("N,m,n,slices,launches", MATVEC_PATH_SHAPES)
+def test_cuda_matvec_rmatvec_batched_is_one_call_a_node(cuda_gen, N, m, n,
+                                                       slices, launches, K):
+    """Each node's output of one batched call is bit-identical to a call on
+    that node alone (rmatvec may take another path there: the sums keep
+    their order), and a 1-D operand to its (..., 1) form."""
+    a = torch.randn(N, m, n, device="cuda", generator=cuda_gen)
+    x = torch.randn(N, n, K, device="cuda", generator=cuda_gen)
+    y = torch.randn(N, m, K, device="cuda", generator=cuda_gen)
+    got, got_t = matvec.matvec(a, x), matvec.rmatvec(a, y)
+    for z in range(N):
+        assert torch.equal(got[z], matvec.matvec(a[z], x[z]))
+        assert torch.equal(got_t[z], matvec.rmatvec(a[z], y[z]))
+    if K == 1:
+        assert torch.equal(matvec.matvec(a, x[..., 0]), got[..., 0])
+        assert torch.equal(matvec.rmatvec(a, y[..., 0]), got_t[..., 0])
+        assert torch.equal(matvec.matvec(a[0], x[0, :, 0]), got[0, :, 0])
+        assert torch.equal(matvec.rmatvec(a[0], y[0, :, 0]), got_t[0, :, 0])
+
+
+@pytest.mark.cuda
+def test_cuda_matvec_rmatvec_over_an_empty_axis_are_zeros(cuda_gen):
+    """A^T y over no rows and A x over no columns are zeros, with no launch
+    (a grid of no slices would not launch)."""
+    ops.reset_launch_counts()
+    g = matvec.rmatvec(torch.ones(2, 0, 5, device="cuda"),
+                       torch.ones(2, 0, device="cuda"))
+    w = matvec.matvec(torch.ones(2, 5, 0, device="cuda"),
+                      torch.ones(2, 0, 3, device="cuda"))
+    assert g.shape == (2, 5) and not g.any()
+    assert w.shape == (2, 5, 3) and not w.any()
+    assert ops.launch_counts()["rmatvec"] == ops.launch_counts()["matvec"] == 0
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_gen):
     a = torch.randn(4, 6, device="cuda", generator=cuda_gen)
@@ -128,18 +211,24 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_gen):
 
 @pytest.mark.cuda
 def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
-    """ladder_stats issues two kernels per call, rmatvec two past one
-    128-row slice and one within it, gram and matvec one."""
+    """ladder_stats issues two kernels per call; rmatvec one within one
+    128-row slice, one up to eight slices when one block per (node, column
+    chunk) fills the card (the Woodbury prox's (8, 800, 10,000)), two
+    otherwise; gram and matvec one."""
     a = torch.randn(2, 300, 40, device="cuda", generator=cuda_gen)
+    wide = torch.randn(8, 800, 10_000, device="cuda", generator=cuda_gen)
     ops.reset_launch_counts()
     bisect_proj.ladder_stats(a[0, 0].abs(), torch.rand(
         8, device="cuda", generator=cuda_gen))
-    matvec.rmatvec(a, torch.ones(2, 300, device="cuda"))
-    matvec.rmatvec(a[:, :100].contiguous(), torch.ones(2, 100, device="cuda"))
+    matvec.rmatvec(a, torch.ones(2, 300, device="cuda"))           # 2
+    matvec.rmatvec(a[:, :100].contiguous(), torch.ones(2, 100,
+                                                       device="cuda"))  # 1
+    matvec.rmatvec(wide, torch.ones(8, 800, device="cuda"))        # 1
     matvec.matvec(a, torch.ones(2, 40, device="cuda"))
+    matvec.matvec(wide, torch.ones(8, 10_000, 3, device="cuda"))
     gram.gram(a)
     assert ops.launch_counts() == {"ladder_stats": 2, "gram": 1,
-                                   "matvec": 1, "rmatvec": 3,
+                                   "matvec": 2, "rmatvec": 4,
                                    "block_matvec": 0, "block_rmatvec": 0,
                                    "flash_attention": 0}
 
