@@ -16,7 +16,13 @@ Phases, each printing its own line with its wall time:
               calls) and the bound from bytes and operations. Device times
               replay the calls from a CUDA graph, so the host's share of a
               call is left out; the eager time of one call, host included,
-              is printed beside them.
+              is printed beside them. The one-launch projections are also
+              timed at each cluster size (1, 2, 4, 8 CTAs) at the path's
+              widths and at 0, 1 and 2 bracketing rounds, beside an empty
+              kernel's launch latency.
+   large_n  — one l1-epigraph projection and one S^kappa support one entry
+              past the one-launch limit, where the bracketing rounds run on
+              the two-pass ladder_stats kernel.
 4. woodbury — the paper's Fig. 2 largest point at full width (N = 8 nodes,
               m = 800 rows each, n = 10,000 features, kappa = 2,000) through
               ``SparseLinearRegression.fit`` on the card; the x-update must
@@ -101,6 +107,9 @@ PTXAS_MATVEC = {"matvec_kernel": ("0,4,1,0", "1,2,3,1"),
 
 REPLACES = {
     "ladder_stats": "src/repro/kernels/bisect_proj.py:42",
+    # the loops around the ladder kernel, each now one launch
+    "l1_epigraph_proj": "src/repro/core/bilinear.py:177",
+    "skappa_support": "src/repro/core/bilinear.py:409",
     "gram": "src/repro/kernels/gram.py:35",
     "matvec": "src/repro/kernels/matvec.py:95",
     "rmatvec": "src/repro/kernels/matvec.py:135",
@@ -110,6 +119,8 @@ REPLACES = {
 }
 SOURCES = {
     "ladder_stats": "src/repro_torch/csrc/ladder_stats.cu",
+    "l1_epigraph_proj": "src/repro_torch/csrc/ladder_proj.cu",
+    "skappa_support": "src/repro_torch/csrc/ladder_proj.cu",
     "gram": "src/repro_torch/csrc/gram.cu",
     "matvec": "src/repro_torch/csrc/matvec.cu",
     "rmatvec": "src/repro_torch/csrc/matvec.cu",
@@ -117,8 +128,17 @@ SOURCES = {
     "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
-MAIN_KERNELS = ("ladder_stats", "gram", "matvec", "rmatvec")
+PROJ_KERNELS = ("l1_epigraph_proj", "skappa_support")
+MAIN_KERNELS = (*PROJ_KERNELS, "gram", "matvec", "rmatvec")
 BLOCK_KERNELS = ("block_matvec", "block_rmatvec")
+# the projections against their plain versions and the f64 sort oracles:
+# theta, z, t and u_max at rtol 1e-5 and an atol of 1e-6 x max |z|; s*
+# equal bit for bit (it depends on counts alone)
+PROJ_RTOL, PROJ_ATOL_PER_MAX = 1e-5, 1e-6
+# the cluster sweep's widths: the solver path's d = n K (the split parity
+# fits 250, dense 1,000, the Woodbury parity fit 2,500, fig3 and classify
+# logistic 4,000, woodbury 10,000, classify softmax 12,000) and between
+PROJ_SWEEP_N = (250, 500, 1_000, 2_500, 4_000, 6_000, 10_000, 12_000)
 
 
 def require(cond, msg: str) -> None:
@@ -198,6 +218,27 @@ def ptxas_summary(info: dict) -> list[str]:
                 lines.append(f"{name}: {entry} {mangled[:48]}: "
                              f"{ln.split(':', 1)[-1].strip()}")
     return lines
+
+
+def ptxas_ladder_proj(log: str) -> list[str]:
+    """One line per kernel of csrc/ladder_proj.cu from its ptxas report:
+    registers and spill stores of each cluster size's instantiation."""
+    kern, regs, spills = None, {}, {}
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mt = re.search(r"(l1_proj_kernel|skappa_kernel)ILi(\d+)E", ln)
+            kern = mt and (mt.group(1), int(mt.group(2)))
+        elif kern:
+            used = re.search(r"Used (\d+) registers", ln)
+            spill = re.search(r"(\d+) bytes spill stores", ln)
+            if used:
+                regs.setdefault(kern[0], {})[kern[1]] = int(used.group(1))
+            if spill:
+                spills.setdefault(kern[0], 0)
+                spills[kern[0]] += int(spill.group(1))
+    return [f"ladder_proj: {k} registers by cluster size "
+            + ", ".join(f"<{c}> {r}" for c, r in sorted(v.items()))
+            + f"; spill stores {spills.get(k, 0)} B" for k, v in regs.items()]
 
 
 def ptxas_matvec(log: str) -> list[str]:
@@ -561,6 +602,8 @@ def main() -> int:
     from repro_torch.core.results import SolveStatus
     from repro_torch.data import (SyntheticSpec, make_sparse_classification,
                                   make_sparse_regression, make_sparse_softmax)
+    from repro_torch import runtime
+    from repro_torch.core import bicadmm, bilinear
     from repro_torch.kernels import (bisect_proj, block_matvec, build,
                                      flash_attention, gram, matvec, ops, ref)
 
@@ -589,6 +632,8 @@ def main() -> int:
                      else f"{k} ({v['seconds']:.1f} s)")
     phase("build", t0, "built " + ", ".join(built))
     for line in (*ptxas_summary(info),
+                 *ptxas_ladder_proj(info.get("ladder_proj", {}).get("log",
+                                                                    "")),
                  *ptxas_matvec(info.get("matvec", {}).get("log", ""))):
         print("  " + line, flush=True)
 
@@ -616,7 +661,10 @@ def main() -> int:
     rows = {}
 
     def kernel_row(name, label, fn, plain, library, got_want_scale,
-                   nbytes, flops, peak=PEAK_F32_FLOPS, tol=None):
+                   nbytes, flops, peak=PEAK_F32_FLOPS, tol=None,
+                   plain_eager=False):
+        """``plain_eager``: the plain version reads the host inside its
+        loops, so it is timed eagerly (no CUDA graph can hold it)."""
         err = check_close(torch, label, *got_want_scale,
                           **({} if tol is None else
                              dict(rtol=tol[0], atol=tol[1])))
@@ -624,7 +672,8 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "shape": label,
                "max_abs_err": err, "ms": graph_ms(torch, fn),
-               "plain_ms": graph_ms(torch, plain),
+               "plain_ms": (cuda_ms(torch, plain, reps=5) if plain_eager
+                            else graph_ms(torch, plain)),
                "bound_ms": bnd, "bound_by": by,
                "library_ms": (None if library is None
                               else graph_ms(torch, library)),
@@ -650,6 +699,105 @@ def main() -> int:
                    lambda az=az, th=th: ref.ladder_stats_ref(az, th), None,
                    (got[0], want[0], float(az.sum())),
                    4 * (nn + B) + 8 * B, 4 * nn * B)
+
+    # the one-launch projections at the path's widths (woodbury d = 10,000
+    # first, then fig3 / classify logistic 4,000 and classify softmax
+    # 12,000), held to their plain versions and the f64 sort oracles. The
+    # bound counts 2 n operations (a compare and an add) for each threshold
+    # this run's data needs: the first pass, 128 rungs a round, each polish
+    # step (l1) or 4 a search step (the band and three counts) plus the
+    # output pass (S^kappa); bytes: z read, the output written.
+    proj_stats = {}
+    for nn in (10_000, 4_000, 12_000):
+        z0 = torch.randn(nn, device=dev, generator=g)
+        scale = float(z0.abs().max())
+        ptol = (PROJ_RTOL, PROJ_ATOL_PER_MAX * scale)
+        tz = (0.5 * z0.abs().sum()).reshape(())
+        got = bisect_proj.l1_epigraph_proj(z0, tz, stats=True)
+        want = ref.l1_epigraph_proj_ref(z0, tz, stats=True)
+        sz, st = bilinear.project_l1_epigraph_sort(z0.double(), tz.double())
+        for what, g_, w_ in (("t", got[1], want[1]), ("theta", got[2],
+                                                      want[2]),
+                             ("z vs sort", got[0], sz), ("t vs sort", got[1],
+                                                         st),
+                             ("theta vs sort", got[2], st - tz.double())):
+            check_close(torch, f"l1_epigraph_proj n={nn} {what}", g_, w_,
+                        None, rtol=ptol[0], atol=ptol[1])
+        steps = int(got[3])
+        rounds = runtime.ladder_rounds("cuda")
+        proj_stats[f"l1 n={nn}"] = {"polish_steps": steps,
+                                    "plain_polish_steps": want[3]}
+        kernel_row("l1_epigraph_proj",
+                   f"l1_epigraph_proj n={nn} ({steps} polish steps)",
+                   lambda z0=z0, tz=tz: bisect_proj.l1_epigraph_proj(z0, tz),
+                   lambda z0=z0, tz=tz: ref.l1_epigraph_proj_ref(z0, tz),
+                   None, (got[0], want[0], None), 8 * nn + 8,
+                   2 * nn * (1 + rounds * bisect_proj.RUNGS + steps),
+                   tol=ptol, plain_eager=True)
+        kappa = nn / 5
+        got = bisect_proj.skappa_support(z0, kappa, stats=True)
+        want = ref.skappa_support_ref(z0, kappa, stats=True)
+        require(torch.equal(got[1], want[1]),
+                f"skappa_support n={nn}: s* differs from the plain version")
+        u64, _ = bilinear.support_skappa_sort(z0.double(), kappa)
+        check_close(torch, f"skappa_support n={nn} u_max vs sort", got[0],
+                    u64, None, rtol=ptol[0], atol=ptol[1])
+        steps = int(got[2])
+        proj_stats[f"skappa n={nn}"] = {"search_steps": steps,
+                                        "plain_search_steps": want[2]}
+        kernel_row("skappa_support",
+                   f"skappa_support n={nn} kappa={kappa:g} ({steps} search "
+                   "steps)",
+                   lambda z0=z0, k=kappa: bisect_proj.skappa_support(z0, k),
+                   lambda z0=z0, k=kappa: ref.skappa_support_ref(z0, k),
+                   None, (got[0], want[0], None), 8 * nn + 4,
+                   2 * nn * (2 + rounds * bisect_proj.RUNGS + 4 * steps),
+                   tol=ptol, plain_eager=True)
+    # each cluster size at each of the path's widths (plan picks one), and
+    # the launch latency: an empty kernel
+    sweep = {}
+    for nn in PROJ_SWEEP_N:
+        z0 = torch.randn(nn, device=dev, generator=g)
+        tz = (0.5 * z0.abs().sum()).reshape(())
+        for c in (1, 2, 4, 8):
+            sweep[f"l1 n={nn} ctas={c}"] = graph_ms(
+                torch, lambda z0=z0, tz=tz, c=c: bisect_proj.l1_epigraph_proj(
+                    z0, tz, ctas=c))
+            sweep[f"skappa n={nn} ctas={c}"] = graph_ms(
+                torch, lambda z0=z0, c=c: bisect_proj.skappa_support(
+                    z0, nn / 5, ctas=c))
+        print(f"  cluster sweep n={nn} (plan: {bisect_proj.plan(nn).ctas} "
+              "CTAs): " + "; ".join(
+                  f"{kind} " + " / ".join(
+                      f"{sweep[f'{kind} n={nn} ctas={c}']:.4f}"
+                      for c in (1, 2, 4, 8))
+                  for kind in ("l1", "skappa")) + " ms at 1 / 2 / 4 / 8 CTAs",
+              flush=True)
+    # the bracketing rounds' share: the same projections at 0, 1 and 2
+    # rounds (the path runs 2; fewer rounds leave the polish or search more
+    # steps, with the same result)
+    for nn in (4_000, 10_000, 12_000):
+        z0 = torch.randn(nn, device=dev, generator=g)
+        tz = (0.5 * z0.abs().sum()).reshape(())
+        for r in (0, 1, 2):
+            sweep[f"l1 n={nn} rounds={r}"] = graph_ms(
+                torch, lambda z0=z0, tz=tz, r=r: bisect_proj.l1_epigraph_proj(
+                    z0, tz, rounds=r))
+            sweep[f"skappa n={nn} rounds={r}"] = graph_ms(
+                torch, lambda z0=z0, r=r: bisect_proj.skappa_support(
+                    z0, nn / 5, rounds=r))
+        print(f"  rounds n={nn}: " + "; ".join(
+            f"{kind} " + " / ".join(f"{sweep[f'{kind} n={nn} rounds={r}']:.4f}"
+                                    for r in (0, 1, 2))
+            for kind in ("l1", "skappa")) + " ms at 0 / 1 / 2 rounds",
+            flush=True)
+    empty = {"ms": graph_ms(torch, lambda: bisect_proj.launch_empty(A)),
+             "call_ms": cuda_ms(torch, lambda: bisect_proj.launch_empty(A))}
+    print(f"  empty kernel: {empty['ms']:.4f} ms in a CUDA graph, "
+          f"{empty['call_ms']:.4f} ms eager (the launch latency beside the "
+          "projections' bounds)", flush=True)
+    report["ladder_proj"] = {"stats": proj_stats, "cluster_sweep_ms": sweep,
+                             "empty_kernel": empty}
 
     # gram: A A^T of the Woodbury setup, A^T A of the dense setup. Both are
     # symmetric products (X^T X): their needed work is nb nx (nx + 1) m
@@ -831,6 +979,44 @@ def main() -> int:
                          f"flash_attention against the f32 computation at "
                          f"{FLASH_TOL})")
 
+    # the projections past the one-launch limit: bilinear sends them to the
+    # composed path, whose bracketing rounds run on the ladder_stats kernel
+    t0 = time.perf_counter()
+    nn = bisect_proj.MAX_N + 1
+    require(not bisect_proj.plan(nn).one_launch,
+            f"large_n: n={nn} should be past the one-launch limit")
+    zb = torch.randn(nn, device=dev, generator=g)
+    tb = (0.5 * zb.abs().sum()).reshape(())
+    kb = nn / 5
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    z_l, t_l = bilinear.project_l1_epigraph(zb, tb)
+    u_l, s_l = bilinear.support_skappa_ladder(zb, kb)
+    torch.cuda.synchronize()
+    large_counts = ops.launch_counts()
+    require(large_counts["ladder_stats"] > 0
+            and not any(large_counts[k] for k in PROJ_KERNELS),
+            f"large_n: the projections took {large_counts}, not the "
+            "ladder_stats rounds")
+    scale = float(zb.abs().max())
+    wz, wt = ref.l1_epigraph_proj_ref(zb, tb)
+    wu, ws = ref.skappa_support_ref(zb, kb)
+    err = max(check_close(torch, "large_n l1 z", z_l, wz, None,
+                          rtol=PROJ_RTOL, atol=PROJ_ATOL_PER_MAX * scale),
+              check_close(torch, "large_n l1 t", t_l, wt, None,
+                          rtol=PROJ_RTOL, atol=PROJ_ATOL_PER_MAX * scale),
+              check_close(torch, "large_n u_max", u_l, wu, None,
+                          rtol=PROJ_RTOL, atol=PROJ_ATOL_PER_MAX * scale))
+    require(torch.equal(s_l, ws), "large_n: s* differs from the plain one")
+    report["large_n"] = {"n": nn, "launches": large_counts,
+                         "max_abs_err": err}
+    phase("large_n", t0, f"n={nn} (one past the one-launch limit): "
+                         f"project_l1_epigraph + support_skappa_ladder "
+                         f"through the ladder_stats rounds, launches "
+                         f"{ {k: v for k, v in large_counts.items() if v} }; "
+                         f"within {err:.3e} of the plain versions, s* equal")
+    del zb, z_l, s_l, wz, ws
+
     def support_f1(est, x_true) -> float:
         got = est.support_.cpu().numpy()
         true = x_true != 0
@@ -906,9 +1092,32 @@ def main() -> int:
         return est
 
     # 4. the main path at full width ---------------------------------------
-    est = fit_phase("woodbury", A, torch.as_tensor(bs_w, device=dev), xt_w,
-                    wide.kappa, "woodbury", MAIN_KERNELS, setup=True)
+    # normal_matvec (the PCG polish's product) launches matvec and rmatvec;
+    # its own calls and launches are counted around the solver's binding
+    normal = {"calls": 0, "launches": 0}
+    normal_auto = bicadmm.normal_matvec_auto
+
+    def counted_normal(a, p, shift):
+        before = ops.launch_counts()
+        out = normal_auto(a, p, shift)
+        after = ops.launch_counts()
+        normal["calls"] += 1
+        normal["launches"] += sum(after[k] - before[k]
+                                  for k in ("matvec", "rmatvec"))
+        return out
+
+    bicadmm.normal_matvec_auto = counted_normal
+    try:
+        est = fit_phase("woodbury", A, torch.as_tensor(bs_w, device=dev),
+                        xt_w, wide.kappa, "woodbury", MAIN_KERNELS,
+                        setup=True)
+    finally:
+        bicadmm.normal_matvec_auto = normal_auto
     main_counts = report["woodbury"]["launches"]
+    report["woodbury"]["normal_matvec"] = normal
+    print(f"  normal_matvec in the woodbury fit (PCG polish): "
+          f"{normal['calls']} calls, {normal['launches']} of the matvec and "
+          "rmatvec launches", flush=True)
 
     def profile_phase(name, est_kw, As, bs, state):
         """Where the time goes: two more outer iterations (no polish) from
@@ -964,11 +1173,11 @@ def main() -> int:
 
     # 5. the dense regime ---------------------------------------------------
     fit_phase("dense", As_n, bs_n, xt_n, narrow.kappa, "dense",
-              ("ladder_stats", "gram", "rmatvec"))
+              (*PROJ_KERNELS, "gram", "rmatvec"))
 
     # 6. Fig. 3's smallest point through the feature split ------------------
     est3 = fit_phase("fig3", A3, b3, xt_3, fig3.kappa, "feature split",
-              ("ladder_stats", "gram", *BLOCK_KERNELS),
+              (*PROJ_KERNELS, "gram", *BLOCK_KERNELS),
               est=api.SparseLinearRegression(
                   kappa=fig3.kappa, gamma=10.0, rho_c=4.0, max_iter=60,
                   tol=0.0, n_feature_blocks=M3), setup=True)
@@ -999,7 +1208,7 @@ def main() -> int:
         fit_phase(name, torch.as_tensor(As_c, device=dev),
                   torch.as_tensor(bs_c, device=dev),
                   xt_c.reshape(-1), kappa_c, "feature split",
-                  ("ladder_stats", "gram", "matvec", "rmatvec",
+                  (*PROJ_KERNELS, "gram", "matvec", "rmatvec",
                    *BLOCK_KERNELS), est=est_c,
                   cut=" (rows cut from Fig. 3's 25,000 per node; 30 "
                       "iterations)")
@@ -1082,14 +1291,15 @@ def main() -> int:
 
     # launches: each kernel's count from the full-width path that runs it
     # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit, the qwen3-8b
-    # prefill and decode)
+    # prefill and decode, the projections past the one-launch limit)
     kernels = []
     for name in ops.KERNELS:
         row = dict(rows[name])
         row.pop("shape")
         row.pop("call_ms")
         counts = (lm_counts if name == "flash_attention" else
-                  block_counts if name in BLOCK_KERNELS else main_counts)
+                  block_counts if name in BLOCK_KERNELS else
+                  large_counts if name == "ladder_stats" else main_counts)
         row["launches"] = counts[name]
         kernels.append(row)
     report["kernels"] = kernels

@@ -6,17 +6,27 @@
 The projections are the sort-free exact ones of the JAX package:
 :func:`ladder_refine` finds the root of the piecewise-linear KKT function
 ``h(theta) = sum_i max(|z_i| - theta, 0) - t0 - theta`` by optional
-bracketing rounds (one ``ladder_stats`` kernel pass over B = 128 rungs
-each) and a monotone closed-form polish run to its floating-point fixpoint.
+bracketing rounds (one pass over |z| for all B = 128 rungs each) and a
+monotone closed-form polish run to its floating-point fixpoint.
 See the JAX module's docstring for the exactness argument.
 
-Data-dependent loops on the device. The polish and the S^kappa quantile
-search run inside the 120-step FISTA loop, so a host check per step would
-stall the card hundreds of times per outer iteration. Their state stays in
-tensors; they run in chunks of ``CHUNK[device]`` masked steps (``torch.where``
-freezes a finished loop) and the host reads ``done`` once per chunk. This
-is exact: a frozen loop keeps the values the JAX ``while_loop`` exits
-with, and steps are counted against the same cap (:data:`NEWTON_CAP`).
+On the card. A CUDA vector with the default reductions (``ops is
+DEFAULT_OPS``) and B = 128 rungs is projected in ONE launch of
+``csrc/ladder_proj.cu`` (``kernels.bisect_proj.l1_epigraph_proj`` /
+``skappa_support``, through the registry): the rounds, the polish or the
+pivot search and the output run on the device with no host read, while
+``bisect_proj.plan`` says one launch holds n. Past that, and for injected
+reductions (the hook of a distributed engine), the composed path below
+runs: ``ladder_stats`` kernel rounds and PyTorch ops.
+
+Data-dependent loops of the composed path. The polish and the S^kappa
+quantile search run inside the 120-step FISTA loop, so a host check per
+step would stall the card hundreds of times per outer iteration. Their
+state stays in tensors; they run in chunks of ``CHUNK[device]`` masked
+steps (``torch.where`` freezes a finished loop) and the host reads ``done``
+once per chunk. This is exact: a frozen loop keeps the values the JAX
+``while_loop`` exits with, and steps are counted against the same cap
+(:data:`NEWTON_CAP`).
 
 The ``*_sort`` functions are the sort-based test oracles.
 """
@@ -26,6 +36,10 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..kernels import bisect_proj
+from ..kernels.ops import (l1_epigraph_proj_auto, ladder_stats_auto,
+                           skappa_support_auto)
 
 LADDER_B = 128     # rungs per bracketing round (one (2, B) stats pass each)
 NEWTON_CAP = 64    # hard cap on polish / search steps
@@ -52,11 +66,6 @@ class LadderOps(NamedTuple):
     band_fn: Callable
 
 
-def _stats_kernel(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
-    from ..kernels.ops import ladder_stats_auto
-    return ladder_stats_auto(az, thetas)
-
-
 def point_stats(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     """(2, k) [sum max(az - theta, 0); count(az > theta)] for a few rungs,
     one fused reduction per rung."""
@@ -76,7 +85,7 @@ def band_stats(az: torch.Tensor, lo: torch.Tensor,
 
 
 DEFAULT_OPS = LadderOps(sum_fn=torch.sum, max_fn=torch.max,
-                        stats_fn=_stats_kernel, point_fn=point_stats,
+                        stats_fn=ladder_stats_auto, point_fn=point_stats,
                         band_fn=band_stats)
 
 
@@ -85,6 +94,16 @@ def default_rounds(device: torch.device) -> int:
     evaluates all B rungs), 0 on the CPU (see repro_torch.runtime)."""
     from .. import runtime
     return runtime.ladder_rounds(device.type)
+
+
+def _one_launch(z: torch.Tensor, ops: LadderOps, B: int) -> bool:
+    """Whether a projection of ``z`` is one launch of
+    ``csrc/ladder_proj.cu``: an f32 CUDA vector, the default reductions,
+    B = 128 rungs, n within ``bisect_proj.plan``'s one-launch range."""
+    return (ops is DEFAULT_OPS and B == LADDER_B
+            and z.device.type == "cuda" and z.dtype == torch.float32
+            and z.ndim == 1 and z.shape[0] >= 1
+            and bisect_proj.plan(z.shape[0]).one_launch)
 
 
 def _bracket_rounds(lo, hi, rounds, B, crossing_fn):
@@ -181,6 +200,10 @@ def project_l1_epigraph(z0: torch.Tensor, t0, *, ops: LadderOps = DEFAULT_OPS,
                         newton_cap: int = NEWTON_CAP):
     """Exact Euclidean projection onto ``{(z, t): ||z||_1 <= t}``
     (sort-free; apex and inside cases as in the JAX package)."""
+    if rounds is None:
+        rounds = default_rounds(z0.device)
+    if _one_launch(z0, ops, B):
+        return l1_epigraph_proj_auto(z0, t0, rounds=rounds, cap=newton_cap)
     t0 = torch.as_tensor(t0, dtype=z0.dtype, device=z0.device)
     az = torch.abs(z0)
     abs_sum = ops.sum_fn(az)
@@ -241,11 +264,14 @@ def support_skappa_ladder(z: torch.Tensor, kappa, *,
                           cap: int = NEWTON_CAP):
     """Exact sort-free ``max_{s in S^kappa} z^T s`` and an argmax
     (``repro.core.bilinear.support_skappa_ladder``)."""
+    if rounds is None:
+        rounds = default_rounds(z.device)
+    if _one_launch(z, ops, B) and not (torch.is_tensor(kappa)
+                                       and kappa.device.type != "cpu"):
+        return skappa_support_auto(z, kappa, rounds=rounds, cap=cap)
     az = torch.abs(z)
     dt = az.dtype
     kap = torch.as_tensor(kappa, dtype=dt, device=z.device)
-    if rounds is None:
-        rounds = default_rounds(z.device)
     hi0 = ops.max_fn(az)
     st0 = ops.point_fn(az, torch.zeros(1, dtype=dt, device=z.device)).to(dt)
     c0 = st0[1, 0]

@@ -33,9 +33,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ladder_stats", "gram", "matvec", "block_matvec",
+SOURCES = ("ladder_stats", "ladder_proj", "gram", "matvec", "block_matvec",
            "flash_attention")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# flags of one source beyond the common ones: the projections keep every
+# f32 operation of their plain versions as its own rounding (no a*b+c
+# contracted into one FMA)
+SOURCE_FLAGS = {"ladder_proj": ("-fmad=false",)}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -46,8 +50,9 @@ F = ctypes.c_float
 # number of CUDA kernels its C entry point issued — two for ladder_stats
 # (partial and reduce passes), for block_rmatvec over more than one row
 # slice and for rmatvec when a second kernel sums its row slices
-# (kernels/matvec.py, plan), one otherwise (flash_attention: one) — and
-# nowhere else (read through repro_torch.kernels.ops).
+# (kernels/matvec.py, plan), one otherwise (flash_attention and the two
+# one-launch projections: one) — and nowhere else (read through
+# repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -70,13 +75,15 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source content."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    source content and flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(
+        SOURCE_FLAGS.get(name, ())).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:
     return [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            *SOURCE_FLAGS.get(name, ()),
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),
             str(CSRC / f"{name}.cu")]
 

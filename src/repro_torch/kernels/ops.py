@@ -11,6 +11,8 @@ gram               csrc/gram.cu                plain ``a^T a``
 matvec / rmatvec   csrc/matvec.cu              plain ``a @ x`` / ``a^T y``
 normal_matvec      matvec + rmatvec kernels    plain composition
 ladder_stats       csrc/ladder_stats.cu        plain broadcast
+l1_epigraph_proj   csrc/ladder_proj.cu         plain projection (f64 sums)
+skappa_support     csrc/ladder_proj.cu         plain support (f64 sums)
 block_matvec /     csrc/block_matvec.cu        plain products per block
 block_rmatvec
 flash_attention    csrc/flash_attention.cu     plain softmax attention
@@ -22,7 +24,8 @@ JAX package (``repro/kernels/ops.py:54-63``).
 
 :func:`launch_counts` reads how many CUDA kernels each wrapper launched
 since :func:`reset_launch_counts`: device launches, so a two-pass
-``ladder_stats`` call counts 2 (the CPU rows count nothing).
+``ladder_stats`` call counts 2, a one-launch projection 1 (the CPU rows
+count nothing).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from .. import runtime
 from . import build, ref
-from .bisect_proj import ladder_stats
+from .bisect_proj import l1_epigraph_proj, ladder_stats, skappa_support
 from .block_matvec import block_matvec, block_rmatvec
 from .flash_attention import check_flat, flash_attention_flat
 from .gram import gram, gram_xy
@@ -39,25 +42,28 @@ from .matvec import matvec, normal_matvec, rmatvec
 __all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
            "block_rmatvec_auto", "flash_attention", "flash_attention_auto",
            "flash_attention_flat", "gram", "gram_auto", "gram_xy",
-           "ladder_stats",
+           "l1_epigraph_proj", "l1_epigraph_proj_auto", "ladder_stats",
            "ladder_stats_auto", "launch_counts", "matvec", "matvec_auto",
            "normal_matvec", "normal_matvec_auto", "reset_launch_counts",
-           "rmatvec", "rmatvec_auto"]
+           "rmatvec", "rmatvec_auto", "skappa_support",
+           "skappa_support_auto"]
 
-KERNELS = ("ladder_stats", "gram", "matvec", "rmatvec", "block_matvec",
-           "block_rmatvec", "flash_attention")
+KERNELS = ("ladder_stats", "l1_epigraph_proj", "skappa_support", "gram",
+           "matvec", "rmatvec", "block_matvec", "block_rmatvec",
+           "flash_attention")
 
 
 def _out(x: torch.Tensor, like: torch.Tensor, out_dtype) -> torch.Tensor:
     return x.to(out_dtype if out_dtype is not None else like.dtype)
 
 
-for _dev, _gram, _mv, _rmv, _nmv, _ls, _bmv, _brmv in (
+for _dev, _gram, _mv, _rmv, _nmv, _ls, _l1, _sk, _bmv, _brmv in (
         ("cuda", gram, matvec, rmatvec, normal_matvec, ladder_stats,
-         block_matvec, block_rmatvec),
+         l1_epigraph_proj, skappa_support, block_matvec, block_rmatvec),
         ("cpu", ref.gram_ref, ref.matvec_ref, ref.rmatvec_ref,
-         ref.normal_matvec_ref, ref.ladder_stats_ref, ref.block_matvec_ref,
-         ref.block_rmatvec_ref)):
+         ref.normal_matvec_ref, ref.ladder_stats_ref,
+         ref.l1_epigraph_proj_ref, ref.skappa_support_ref,
+         ref.block_matvec_ref, ref.block_rmatvec_ref)):
     runtime.register_kernel(
         "gram", _dev,
         lambda a, out_dtype=None, _f=_gram: _out(_f(a), a, out_dtype))
@@ -69,6 +75,8 @@ for _dev, _gram, _mv, _rmv, _nmv, _ls, _bmv, _brmv in (
         lambda a, y, out_dtype=None, _f=_rmv: _out(_f(a, y), a, out_dtype))
     runtime.register_kernel("normal_matvec", _dev, _nmv)
     runtime.register_kernel("ladder_stats", _dev, _ls)
+    runtime.register_kernel("l1_epigraph_proj", _dev, _l1)
+    runtime.register_kernel("skappa_support", _dev, _sk)
     runtime.register_kernel(
         "block_matvec", _dev,
         lambda a, x, M, out_dtype=None, _f=_bmv: _out(_f(a, x, M), a,
@@ -135,6 +143,22 @@ def block_rmatvec_auto(a: torch.Tensor, y_blocks: torch.Tensor, M: int,
 def ladder_stats_auto(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     """(2, B) ladder statistics of az against the rungs ``thetas``."""
     return runtime.kernel("ladder_stats", az.device.type)(az, thetas)
+
+
+def l1_epigraph_proj_auto(z0: torch.Tensor, t0, *, rounds: int,
+                          cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact l1-epigraph projection (z, t) of (z0, t0), one launch on
+    the card."""
+    return runtime.kernel("l1_epigraph_proj", z0.device.type)(
+        z0, t0, rounds=rounds, cap=cap)
+
+
+def skappa_support_auto(z: torch.Tensor, kappa, *, rounds: int,
+                        cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(u_max, s_star) of the S^kappa support function, one launch on the
+    card."""
+    return runtime.kernel("skappa_support", z.device.type)(
+        z, kappa, rounds=rounds, cap=cap)
 
 
 def flash_attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

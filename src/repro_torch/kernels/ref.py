@@ -34,6 +34,112 @@ def ladder_stats_ref(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
                         (diff > 0).to(f32).sum(0)])
 
 
+LADDER_RUNGS = 128   # B of the projections' bracketing rounds
+LADDER_CAP = 64      # cap on polish / search steps
+
+
+def _sum_once(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """A projection's sum of f32 terms: accumulated in f64 and rounded to
+    f32 once, so the order of the terms does not matter."""
+    x = x.double()
+    return (x.sum() if dim is None else x.sum(dim)).float()
+
+
+def _bracket(az, lo, hi, rounds, crossing):
+    """``rounds`` bracketing rounds of [lo, hi] over the rungs
+    lo + (hi - lo) * b / B, b = 1..B; ``crossing(th)`` is the number of
+    leading rungs on the h > 0 / count > kappa side."""
+    B = LADDER_RUNGS
+    ar = torch.arange(1, B + 1, dtype=f32, device=az.device)
+    for _ in range(rounds):
+        th = lo + (hi - lo) * ar / B
+        idx = int(crossing(th))
+        lo, hi = (lo if idx == 0 else th[idx - 1],
+                  hi if idx == B else th[idx])
+    return lo, hi
+
+
+def l1_epigraph_proj_ref(z0: torch.Tensor, t0, *, rounds: int = 2,
+                         cap: int = LADDER_CAP, stats: bool = False):
+    """Projection of (z0, t0) onto {(z, t): ||z||_1 <= t} -- the plain
+    version of ``csrc/ladder_proj.cu``'s ``l1_proj_kernel``: the composed
+    ``bilinear.project_l1_epigraph`` at ``rounds`` rounds, with every sum
+    (sum |z0|, the rungs', the polish's) in f64 rounded once. The rounds
+    and the polish run only where theta is used (neither inside nor apex:
+    theta is 0 there). With ``stats`` theta and the polish steps taken
+    follow."""
+    z0 = z0.to(f32)
+    t0 = torch.as_tensor(t0, dtype=f32, device=z0.device)
+    az = z0.abs()
+    hi0 = az.max()
+    inside = bool(_sum_once(az) <= t0)
+    apex = bool((-t0 - hi0) > 0)
+    theta = torch.zeros((), dtype=f32, device=z0.device)
+    k = 0
+    if not inside and not apex:
+        def crossing(th):
+            d = az[:, None] - th[None, :]
+            return torch.sum((_sum_once(torch.clamp_min(d, 0.0), 0) - t0
+                              - th) > 0)
+        th, _ = _bracket(az, torch.zeros_like(hi0), hi0, rounds, crossing)
+        while True:      # the monotone closed-form polish to its fixpoint
+            prev = th
+            d = az - th
+            hv = _sum_once(torch.clamp_min(d, 0.0)) - t0 - th
+            th = torch.maximum(th + hv / ((d > 0).sum().to(f32) + 1.0), th)
+            k += 1
+            if not (bool(th > prev) and k < cap):
+                break
+        theta = th
+    if apex and not inside:
+        z, t = torch.zeros_like(z0), torch.clamp_min(t0, 0.0)
+    else:
+        z, t = torch.sign(z0) * torch.clamp_min(az - theta, 0.0), t0 + theta
+    return (z, t, theta, k) if stats else (z, t)
+
+
+def skappa_support_ref(z: torch.Tensor, kappa, *, rounds: int = 2,
+                       cap: int = LADDER_CAP, stats: bool = False):
+    """(max over S^kappa of z^T s, an argmax s*) -- the plain version of
+    ``csrc/ladder_proj.cu``'s ``skappa_kernel``: the composed
+    ``bilinear.support_skappa_ladder`` at ``rounds`` rounds, with the band
+    sum and u_max in f64 rounded once. s* depends on counts alone. With
+    ``stats`` the search steps taken follow."""
+    z = z.to(f32)
+    az = z.abs()
+    kap = torch.as_tensor(kappa, dtype=f32, device=z.device)
+    zero = torch.zeros((), dtype=f32, device=z.device)
+    c0 = (az > 0).sum().to(f32)
+    tau, c_tau, ceq, k = zero, c0, zero, 0
+    if not bool(c0 <= kap):              # else fewer than kappa nonzeros
+        def crossing(th):
+            return torch.sum(ladder_stats_ref(az, th)[1] > kap)
+        lo, hi = _bracket(az, zero, az.max(), rounds, crossing)
+        up, down = torch.full_like(zero, math.inf), torch.full_like(
+            zero, -math.inf)
+        tau, c_tau, done = hi, zero, False
+        while not done and k < cap:      # the mean-pivot search
+            band = (az > lo) & (az <= hi)
+            a = (_sum_once(torch.where(band, az, 0.0))
+                 / torch.clamp_min(band.sum().to(f32), 1.0))
+            a = torch.minimum(torch.maximum(a, torch.nextafter(lo, up)), hi)
+            am, ap = torch.nextafter(a, down), torch.nextafter(a, up)
+            cm, ca, cp = ((az > x).sum().to(f32) for x in (am, a, ap))
+            done1 = bool((cm > kap) & (kap >= ca))   # crossing in (am, a]
+            done2 = bool((ca > kap) & (kap >= cp))   # crossing in (a, ap]
+            done = done1 or done2
+            tau, c_tau, ceq = (ap, cp, ca - cp) if done2 else (a, ca, cm - ca)
+            if not done:
+                lo, hi = (a, hi) if bool(ca > kap) else (lo, am)
+            k += 1
+    leftover = torch.minimum(torch.clamp_min(kap - c_tau, 0.0),
+                             torch.clamp_min(ceq, 0.0))
+    bnd_w = leftover / ceq if bool(ceq > 0) else zero
+    w = (az > tau).to(f32) + bnd_w * ((az == tau) & (tau > 0)).to(f32)
+    out = (_sum_once(az * w), torch.sign(z) * w)
+    return (*out, k) if stats else out
+
+
 def _vec_as_mat(a: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, bool]:
     """``v`` with a trailing right-hand-side axis (and whether it had none):
     a 1-D operand of a 2-D ``a``, or a 2-D operand of a 3-D ``a``."""

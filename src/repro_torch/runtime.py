@@ -13,8 +13,9 @@ the rest of the port never string-compares device names:
   PyTorch version). Dispatch looks the row up by the tensor's device type.
   There is no ``"default"`` row, so a CUDA tensor can never reach a plain
   version.
-* **Ladder rounds** — :func:`ladder_rounds` gives 2 bracketing rounds where
-  the one-pass ``ladder_stats`` kernel exists (the card) and 0 on the CPU.
+* **Ladder rounds** — :func:`ladder_rounds` gives 2 bracketing rounds on
+  the card (the one-launch projections evaluate all B rungs of a round in
+  one pass over |z|) and 0 on the CPU.
 * **Precision policy** — :class:`PrecisionPolicy` and its presets, as in the
   JAX package. This port certifies ``"fp32"`` only; the solver front-end
   rejects the other presets with :class:`CapabilityError`.
@@ -104,7 +105,7 @@ def kernel_table() -> dict[str, dict[str, Callable]]:
 
 
 # Bracketing rounds for the ladder projection: the card evaluates all
-# B = 128 rungs in one kernel pass; on the CPU the (n, B) broadcast costs
+# B = 128 rungs in one pass over |z|; on the CPU the (n, B) broadcast costs
 # more than the polish steps it would save (same table as repro.runtime).
 _LADDER_ROUNDS = {"cuda": 2, "cpu": 0}
 

@@ -13,6 +13,7 @@ rounding of its output against the f32 computation.
 import pytest
 import torch
 
+from repro_torch.core import bicadmm, bilinear
 from repro_torch.kernels import (bisect_proj, block_matvec, flash_attention,
                                  gram, matvec, ops, ref)
 
@@ -39,6 +40,170 @@ def test_cuda_ladder_stats(cuda_gen, n, B):
     want = ref.ladder_stats_ref(az, th)
     _close(got[0], want[0], float(az.sum()))
     assert torch.equal(got[1], want[1])
+
+
+# The one-launch projections (csrc/ladder_proj.cu) against their plain
+# versions and the sort oracles, through bilinear's dispatch: at MAX_N + 1
+# the dispatch takes the ladder_stats rounds and the composed polish. The
+# counts are exact, so s* is equal bit for bit; theta, z, t and u_max are
+# held to rtol 1e-5 and an atol of 1e-6 x max |z| (the f32 fixpoints of
+# two summation orders lie ulps apart); the sort oracle runs in f64.
+PROJ_N = (1, 127, 4_000, 10_000, 12_000, bisect_proj.MAX_N,
+          bisect_proj.MAX_N + 1)
+
+
+def _proj_close(got, want, scale):
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-5,
+                               atol=1e-6 * scale)
+
+
+def _ties(gen, n, reps):
+    """n entries drawn from about n / reps values, each repeated reps times."""
+    vals = torch.randn(max(1, n // reps), device="cuda", generator=gen)
+    vals = vals.repeat_interleave(reps)
+    return torch.cat([vals] * -(-n // vals.shape[0]))[:n].contiguous()
+
+
+def _l1_cases(gen, n):
+    z = torch.randn(n, device="cuda", generator=gen)
+    l1 = float(z.abs().sum())
+    ties = _ties(gen, n, 50)
+    return {"random": (z, 0.3 * l1), "t0=0": (z, 0.0),
+            "inside": (z, l1 * 1.01 + 1.0),
+            "apex": (z, -2.0 * float(z.abs().max()) - 1.0),
+            "ties": (ties, 0.2 * float(ties.abs().sum())),
+            "zeros": (torch.zeros(n, device="cuda"), 0.5),
+            "tiny": (z * 1e-30, 1e-31)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PROJ_N)
+def test_cuda_l1_epigraph_proj_agrees(cuda_gen, n):
+    for name, (z0, t0) in _l1_cases(cuda_gen, n).items():
+        t0 = torch.tensor(t0, dtype=torch.float32, device="cuda")
+        z, t = bilinear.project_l1_epigraph(z0, t0)
+        scale = float(z0.abs().max())
+        wz, wt, wth, _ = ref.l1_epigraph_proj_ref(z0, t0, stats=True)
+        sz, st = bilinear.project_l1_epigraph_sort(z0.double(),
+                                                   t0.double())
+        for wz_, wt_ in ((wz, wt), (sz, st)):
+            _proj_close(z, wz_, scale)
+            _proj_close(t, wt_, scale)
+        if n <= bisect_proj.MAX_N:           # theta, from the kernel itself
+            _, _, theta, _ = bisect_proj.l1_epigraph_proj(z0, t0, stats=True)
+            _proj_close(theta, wth, scale)
+            if float(sz.abs().sum()) > 0:    # the f64 oracle's theta
+                _proj_close(theta, st - t0.double(), scale)
+        assert float(z.abs().double().sum()) <= float(t) * (1 + 1e-5) + \
+            1e-6 * scale, name                                     # feasible
+
+
+def _skappa_cases(gen, n):
+    z = torch.randn(n, device="cuda", generator=gen)
+    ties = _ties(gen, n, 40)
+    sparse = torch.where(torch.rand(n, device="cuda", generator=gen) < 0.1,
+                         z, 0.0)
+    return {"random": (z, n / 5), "fractional": (z, n / 5 + 0.5),
+            "ties": (ties, n / 3 + 0.25), "kappa>=nnz": (sparse, n / 5),
+            "kappa>=n": (z, n + 3.0), "kappa=0.5": (z, 0.5),
+            "zeros": (torch.zeros(n, device="cuda"), 2.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PROJ_N)
+def test_cuda_skappa_support_agrees(cuda_gen, n):
+    for name, (z, kappa) in _skappa_cases(cuda_gen, n).items():
+        u, s = bilinear.support_skappa_ladder(z, kappa)
+        wu, ws = ref.skappa_support_ref(z, kappa)
+        assert torch.equal(s, ws), name
+        scale = float(z.abs().max())
+        _proj_close(u, wu, scale)
+        su, _ = bilinear.support_skappa_sort(z.double(), kappa)
+        _proj_close(u, su, scale)
+        kap32 = float(torch.tensor(kappa, dtype=torch.float32))
+        assert float(s.abs().double().sum()) <= kap32 * (1 + 1e-6), name
+        assert float(s.abs().max()) <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
+def test_cuda_projections_every_cluster_size(cuda_gen, ctas):
+    """Each cluster size agrees with the plain versions (the plan picks
+    one by n; the others must hold too)."""
+    for n in (ctas, 4_000, 12_000):
+        z = torch.randn(n, device="cuda", generator=cuda_gen)
+        t0 = torch.tensor(0.25 * float(z.abs().sum()), device="cuda")
+        got = bisect_proj.l1_epigraph_proj(z, t0, ctas=ctas, stats=True)
+        want = ref.l1_epigraph_proj_ref(z, t0, stats=True)
+        scale = float(z.abs().max())
+        for g, w in zip(got[:3], want[:3]):      # z, t, theta
+            _proj_close(g, w, scale)
+        u, s = bisect_proj.skappa_support(z, n / 4 + 0.5, ctas=ctas)
+        wu, ws = ref.skappa_support_ref(z, n / 4 + 0.5)
+        assert torch.equal(s, ws)
+        _proj_close(u, wu, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_projections_launch_once(cuda_gen):
+    """A projection at the Woodbury fit's n = 10,000 is one device kernel
+    (build.LAUNCHES and the profiler); past MAX_N the rounds go to
+    ladder_stats, two launches a round."""
+    from torch.profiler import ProfilerActivity, profile
+    z = torch.randn(10_000, device="cuda", generator=cuda_gen)
+    t0 = torch.tensor(5.0, device="cuda")
+    bilinear.project_l1_epigraph(z, t0)          # built and loaded
+    bilinear.support_skappa_ladder(z, 2_000.0)
+    torch.cuda.synchronize()
+    for fn in (lambda: bilinear.project_l1_epigraph(z, t0),
+               lambda: bilinear.support_skappa_ladder(z, 2_000.0)):
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.events()
+                   if str(ev.device_type).endswith("CUDA")]
+        assert len(kernels) == 1, [ev.name for ev in kernels]
+        counts = ops.launch_counts()
+        assert counts["l1_epigraph_proj"] + counts["skappa_support"] == 1
+        assert counts["ladder_stats"] == 0
+    big = torch.randn(bisect_proj.MAX_N + 1, device="cuda",
+                      generator=cuda_gen)
+    ops.reset_launch_counts()
+    bilinear.project_l1_epigraph(big, t0)
+    counts = ops.launch_counts()
+    assert counts["ladder_stats"] == 4 and counts["l1_epigraph_proj"] == 0
+    with pytest.raises(ValueError):
+        bisect_proj.l1_epigraph_proj(big, t0)      # past the one launch
+    with pytest.raises(ValueError):
+        bisect_proj.skappa_support(z.double(), 3.0)
+    with pytest.raises(RuntimeError):
+        bisect_proj.l1_epigraph_proj(z, t0, ctas=3)    # no such cluster
+
+
+@pytest.mark.cuda
+def test_cuda_zt_and_s_updates_make_no_host_sync(cuda_gen):
+    """One (7b) update (121 projections) and one (7c) update at the
+    Woodbury fit's shape, d = 10,000, read nothing back to the host."""
+    d = 10_000
+    z0 = torch.randn(d, device="cuda", generator=cuda_gen)
+    w = torch.randn(d, device="cuda", generator=cuda_gen)
+    s = torch.rand(d, device="cuda", generator=cuda_gen) * 2 - 1
+    t0 = torch.tensor(3.0, device="cuda")
+    v = torch.tensor(0.1, device="cuda")
+    bicadmm._zt_update(z0, t0, w, s, v, 8.0, 4.0, 2.0, 2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        z, t = bicadmm._zt_update(z0, t0, w, s, v, 8.0, 4.0, 2.0, 120)
+        s_new = bilinear.s_update(z, t, v, 2_000)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(t))
+    assert bool(torch.isfinite(s_new).all())
+    assert int((s_new != 0).sum()) <= 2_001
 
 
 @pytest.mark.cuda
@@ -227,7 +392,8 @@ def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
     matvec.matvec(a, torch.ones(2, 40, device="cuda"))
     matvec.matvec(wide, torch.ones(8, 10_000, 3, device="cuda"))
     gram.gram(a)
-    assert ops.launch_counts() == {"ladder_stats": 2, "gram": 1,
+    assert ops.launch_counts() == {"ladder_stats": 2, "l1_epigraph_proj": 0,
+                                   "skappa_support": 0, "gram": 1,
                                    "matvec": 2, "rmatvec": 4,
                                    "block_matvec": 0, "block_rmatvec": 0,
                                    "flash_attention": 0}
