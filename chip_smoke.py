@@ -22,7 +22,9 @@ Phases, each printing its own line with its wall time:
               kernel's launch latency.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
               past the one-launch limit, where the bracketing rounds run on
-              the two-pass ladder_stats kernel.
+              the two-pass ladder_stats kernel; ladder_stats is held
+              against its plain version (and timed) at this n with the
+              first round's 128 rungs, and at an odd B.
 4. woodbury — the paper's Fig. 2 largest point at full width (N = 8 nodes,
               m = 800 rows each, n = 10,000 features, kappa = 2,000) through
               ``SparseLinearRegression.fit`` on the card; the x-update must
@@ -284,6 +286,36 @@ def device_table(prof) -> dict:
                 dev_us = getattr(ev, "self_cuda_time_total", 0.0)
             table[ev.key] = {"device_ms": dev_us / 1e3, "calls": ev.count}
     return table
+
+
+def parity_fits() -> list:
+    """The card-vs-CPU parity fits (phase 8), as ``(report key, what,
+    estimator class, its keywords, As, bs)`` with numpy data from seed 1:
+    Woodbury at n = 2,500, and the feature split (M = 4, ragged last block
+    nb = 63) at n = 250, squared and logistic. ``repro_torch`` must be
+    importable."""
+    from repro_torch import api
+    from repro_torch.data import (SyntheticSpec, make_sparse_classification,
+                                  make_sparse_regression)
+    small = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
+    split = SyntheticSpec(2, 200, 250, sparsity_level=0.95, noise=1e-3)
+    fits = []
+    for key, what, make, spec, cls, kw in (
+            ("parity", "woodbury", make_sparse_regression, small,
+             api.SparseLinearRegression,
+             dict(rho_c=4.0, x_solver="woodbury")),
+            ("parity_split_squared", "squared, feature split M=4",
+             make_sparse_regression, split, api.SparseLinearRegression,
+             dict(rho_c=1.0, n_feature_blocks=4)),
+            ("parity_split_logistic", "logistic, feature split M=4",
+             make_sparse_classification, split, api.SparseLogisticRegression,
+             dict(rho_c=1.0, n_feature_blocks=4))):
+        As, bs, _ = make(1, spec)
+        fits.append((key, f"N={spec.n_nodes} m={spec.m_per_node} "
+                          f"n={spec.n_features} kappa={spec.kappa} {what}",
+                     cls, dict(kappa=spec.kappa, gamma=10.0, tol=1e-4,
+                               max_iter=300, **kw), As, bs))
+    return fits
 
 
 def lm_phase(torch, dev, report) -> dict:
@@ -687,19 +719,6 @@ def main() -> int:
         rows.setdefault(name, row)      # the first row is the path's shape
         report.setdefault("kernel_checks", []).append(row)
 
-    # ladder_stats: one bracketing round of a projection at n = 10,000
-    for nn, B in ((10_000, 128), (10_001, 7)):
-        az = torch.rand(nn, device=dev, generator=g)
-        th = torch.sort(torch.rand(B, device=dev, generator=g)).values
-        want = ref.ladder_stats_ref(az, th)
-        got = bisect_proj.ladder_stats(az, th)
-        require(torch.equal(got[1], want[1]), "ladder_stats counts differ")
-        kernel_row("ladder_stats", f"ladder_stats n={nn} B={B}",
-                   lambda az=az, th=th: bisect_proj.ladder_stats(az, th),
-                   lambda az=az, th=th: ref.ladder_stats_ref(az, th), None,
-                   (got[0], want[0], float(az.sum())),
-                   4 * (nn + B) + 8 * B, 4 * nn * B)
-
     # the one-launch projections at the path's widths (woodbury d = 10,000
     # first, then fig3 / classify logistic 4,000 and classify softmax
     # 12,000), held to their plain versions and the f64 sort oracles. The
@@ -988,6 +1007,31 @@ def main() -> int:
     zb = torch.randn(nn, device=dev, generator=g)
     tb = (0.5 * zb.abs().sum()).reshape(())
     kb = nn / 5
+    # ladder_stats at the shape this path gives it: |zb| against the first
+    # round's 128 rungs lo + (hi - lo) * b / B over [0, max |zb|] (the row
+    # whose time the kernels line reports); then an odd B at a partial
+    # chunk. Counts exactly, sums at rtol / atol x sum |z|.
+    azb = zb.abs()
+    B = bisect_proj.RUNGS
+    ar = torch.arange(1, B + 1, dtype=torch.float32, device=dev)
+    lo = torch.zeros((), device=dev)
+    for az, th in ((azb, lo + (azb.max() - lo) * ar / B),
+                   (torch.rand(10_001, device=dev, generator=g),
+                    torch.sort(torch.rand(7, device=dev,
+                                          generator=g)).values)):
+        want = ref.ladder_stats_ref(az, th)
+        got = bisect_proj.ladder_stats(az, th)
+        require(torch.equal(got[1], want[1]),
+                f"ladder_stats n={az.shape[0]} B={th.shape[0]}: counts "
+                "differ")
+        kernel_row("ladder_stats",
+                   f"ladder_stats n={az.shape[0]} B={th.shape[0]}",
+                   lambda az=az, th=th: bisect_proj.ladder_stats(az, th),
+                   lambda az=az, th=th: ref.ladder_stats_ref(az, th), None,
+                   (got[0], want[0], float(az.sum())),
+                   4 * (az.shape[0] + th.shape[0]) + 8 * th.shape[0],
+                   4 * az.shape[0] * th.shape[0])
+    del azb, az, th, got, want
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     z_l, t_l = bilinear.project_l1_epigraph(zb, tb)
@@ -1216,72 +1260,29 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. the card against the port's own CPU fit ---------------------------
-    t0 = time.perf_counter()
-    small = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
-    As_s, bs_s, _ = make_sparse_regression(1, small)
-    kw = dict(kappa=small.kappa, gamma=10.0, rho_c=4.0, x_solver="woodbury",
-              tol=1e-4, max_iter=300)
-    on_card = api.SparseLinearRegression(**kw).fit(As_s, bs_s).result_
-    t_card = time.perf_counter() - t0
-    on_cpu = api.SparseLinearRegression(device="cpu", **kw).fit(
-        As_s, bs_s).result_
-    require(int(on_card.status) == int(on_cpu.status),
-            f"parity: status {int(on_card.status)} on the card, "
-            f"{int(on_cpu.status)} on the CPU")
-    require(torch.equal(on_card.support.cpu(), on_cpu.support),
-            "parity: supports differ")
-    coef_err = float((on_card.coef.cpu() - on_cpu.coef).abs().max())
-    require(torch.allclose(on_card.coef.cpu(), on_cpu.coef, rtol=1e-3,
-                           atol=1e-3), f"parity: coef differs by {coef_err}")
-    d_iter = abs(int(on_card.iters) - int(on_cpu.iters))
-    require(d_iter <= 2, f"parity: iterations {int(on_card.iters)} vs "
-                         f"{int(on_cpu.iters)}")
-    report["parity"] = {"iters_card": int(on_card.iters),
-                        "iters_cpu": int(on_cpu.iters),
-                        "status": SolveStatus(int(on_card.status)).name,
-                        "coef_max_abs_diff": coef_err,
-                        "card_fit_s": t_card}
-    phase("parity", t0, f"N={small.n_nodes} m={small.m_per_node} "
-                        f"n={small.n_features} kappa={small.kappa} woodbury: "
-                        f"card {int(on_card.iters)} iters vs CPU "
-                        f"{int(on_cpu.iters)}, same status "
-                        f"{SolveStatus(int(on_card.status)).name} and "
-                        f"support, coef max abs diff {coef_err:.2e}")
-
-    # the feature split, ragged last block (n = 250, M = 4: nb = 63)
-    split = SyntheticSpec(2, 200, 250, sparsity_level=0.95, noise=1e-3)
-    for loss_name, make, cls in (
-            ("squared", make_sparse_regression, api.SparseLinearRegression),
-            ("logistic", make_sparse_classification,
-             api.SparseLogisticRegression)):
+    for key, what, cls, kw, As_p, bs_p in parity_fits():
         t0 = time.perf_counter()
-        As_p, bs_p, _ = make(1, split)
-        kw = dict(kappa=split.kappa, gamma=10.0, rho_c=1.0, tol=1e-4,
-                  max_iter=300, n_feature_blocks=M3)
         on_card = cls(**kw).fit(As_p, bs_p).result_
+        t_card = time.perf_counter() - t0
         on_cpu = cls(device="cpu", **kw).fit(As_p, bs_p).result_
-        what = f"parity feature split {loss_name}"
         require(int(on_card.status) == int(on_cpu.status),
-                f"{what}: status {int(on_card.status)} on the card, "
+                f"{key}: status {int(on_card.status)} on the card, "
                 f"{int(on_cpu.status)} on the CPU")
         require(torch.equal(on_card.support.cpu(), on_cpu.support),
-                f"{what}: supports differ")
+                f"{key}: supports differ")
         coef_err = float((on_card.coef.cpu() - on_cpu.coef).abs().max())
         require(torch.allclose(on_card.coef.cpu(), on_cpu.coef, rtol=1e-3,
                                atol=1e-3),
-                f"{what}: coef differs by {coef_err}")
+                f"{key}: coef differs by {coef_err}")
         require(abs(int(on_card.iters) - int(on_cpu.iters)) <= 2,
-                f"{what}: iterations {int(on_card.iters)} vs "
+                f"{key}: iterations {int(on_card.iters)} vs "
                 f"{int(on_cpu.iters)}")
-        report[f"parity_split_{loss_name}"] = {
+        report[key] = {
             "iters_card": int(on_card.iters), "iters_cpu": int(on_cpu.iters),
             "status": SolveStatus(int(on_card.status)).name,
-            "coef_max_abs_diff": coef_err}
-        phase("parity", t0, f"N={split.n_nodes} m={split.m_per_node} "
-                            f"n={split.n_features} kappa={split.kappa} "
-                            f"{loss_name}, feature split M={M3}: card "
-                            f"{int(on_card.iters)} iters vs CPU "
-                            f"{int(on_cpu.iters)}, same status "
+            "coef_max_abs_diff": coef_err, "card_fit_s": t_card}
+        phase("parity", t0, f"{what}: card {int(on_card.iters)} iters vs "
+                            f"CPU {int(on_cpu.iters)}, same status "
                             f"{SolveStatus(int(on_card.status)).name} and "
                             f"support, coef max abs diff {coef_err:.2e}")
 

@@ -14,17 +14,22 @@
 // What bounds it on an H100: at the solver's n = 1,000 to 12,000 one call
 // reads 4-48 KB and does (2 rounds x 128 rungs + a few polish steps) x n
 // compare-adds, a few Mflop: the card could finish in well under a
-// microsecond. What it costs is latency: one launch, then a chain of
-// dependent reductions (one per round and per polish or search step).
-// The design keeps that chain on chip:
+// microsecond. What it costs is one launch, then a chain of dependent
+// reductions (one per round and per polish or search step), and the rung
+// passes: each (entry, rung) term of an l1 round is converted to f64 for
+// its sum, and sm_90 converts 16 a clock per SM (clock64 stamps: the
+// passes are ~40 % of a call at n = 10,000 on 8 CTAs, the chain of
+// barriers most of one at n = 1,000; PERF.md section 6). The design keeps
+// that chain on chip:
 //
 // * |z| is read once into shared memory and stays there; the state (lo,
 //   hi, theta, the step counter, done) lives in registers, the same in
 //   every thread.
 // * A reduction is a warp-shuffle tree, then the 32 warps' partials in
 //   warp order, then the CTAs' partials in rank order: with C > 1 CTAs in
-//   one thread-block cluster, every CTA reads every CTA's partial through
-//   distributed shared memory after one cluster barrier, so each CTA
+//   one thread-block cluster, thread 0 of every CTA reads every CTA's
+//   partial through distributed shared memory after one cluster barrier
+//   and hands the total to its CTA through shared memory, so each CTA
 //   holds the same bits and takes the same branches. No float atomics, no
 //   launch or host read inside the loops.
 // * A bracketing round: thread t owns rung t % 128 over one eighth of the
@@ -36,12 +41,15 @@
 // a*b+c is contracted into one rounding). Counts are int32, exact. Every
 // sum -- sum |z0|, each rung's sum max(|z| - th_b, 0), the polish's sum
 // max(|z| - theta, 0), the S^kappa band sum and u_max -- adds f32 terms
-// in f64 and is rounded to f32 once, so it does not depend on the order:
-// the result is the same at every cluster size, and the plain version
-// (kernels/ref.py) does the same. (An f32 sum in a fixed tree moved with
-// the cluster size, and with it the card-vs-CPU parity fits' stopping
-// iteration; PERF.md section 6.) s* depends on counts alone and equals the
-// plain version's bit for bit.
+// in f64 and is rounded to f32 once, so it is independent of the order
+// except in rare f32 ties (the f64 sum is exact only while the terms'
+// exponent spread plus log2 n fits in f64's 29 spare bits; past that the
+// f64 rounding can flip the f32 result when it straddles an f32 boundary).
+// So the result is, but for such ties, the same at every cluster size, and
+// the plain version (kernels/ref.py) sums the same way. (An f32 sum in a
+// fixed tree moved with the cluster size, and with it the card-vs-CPU
+// parity fits' stopping iteration; PERF.md section 6.) s* depends on
+// counts alone and equals the plain version's bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,6 +64,35 @@ constexpr int kRungs = 128;                  // B, one rung a thread
 constexpr int kGroups = kThreads / kRungs;   // |z| split eight ways a round
 constexpr int kMaxPerCta = 51200;            // |z| entries a CTA holds
 constexpr int kMaxCtas = 8;                  // the portable cluster size
+
+// Phase stamps, in a measurement build only (-DLADDER_PROJ_TRACE, built by
+// tools/ladder_proj_probe.py --trace): thread 0 of CTA 0 records clock64()
+// and a code at each point below, and ladder_proj_trace() copies the last
+// call's stamps out. The codes' names are in the probe.
+enum Stamp {
+  kStart, kLoaded,
+  kReduceEnter, kReduceCta, kReduceBarrier, kReduceRead,
+  kRoundEnter, kRoundRungs, kRoundPass, kRoundGroups, kRoundBarrier,
+  kRoundCross,
+  kOutput, kEnd
+};
+#ifdef LADDER_PROJ_TRACE
+constexpr int kTraceMax = 4096;
+__device__ long long g_trace_clock[kTraceMax];
+__device__ int g_trace_code[kTraceMax];
+__device__ int g_trace_n;
+__device__ __forceinline__ void stamp(Stamp code) {
+  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  const int i = code == kStart ? 0 : g_trace_n;
+  if (i < kTraceMax) {
+    g_trace_clock[i] = clock64();
+    g_trace_code[i] = (int)code;
+  }
+  g_trace_n = i + 1;
+}
+#else
+__device__ __forceinline__ void stamp(Stamp) {}
+#endif
 
 // One CTA's (and then the cluster's) partial of a reduction.
 struct Part {
@@ -73,6 +110,7 @@ struct Shared {
   int cross[kRungs / 32];
   Part wpart[kWarps];
   Part slot[2];                     // this CTA's partial (double-buffered)
+  Part total[2];                    // the cluster's total (double-buffered)
 };
 
 // torch.maximum / torch.max: a NaN wins.
@@ -134,17 +172,30 @@ __device__ __forceinline__ void add(Part& a, const Part& b) {
 template <int C>
 __device__ Part reduce(Part p, Shared& sh, int& buf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  stamp(kReduceEnter);
   p = warp_reduce(p);
   if (lane == 0) sh.wpart[warp] = p;
   __syncthreads();
+  stamp(kReduceCta);
   if (warp == 0) {
     Part q = warp_reduce(sh.wpart[lane]);
     if (lane == 0) sh.slot[buf] = q;
   }
   cluster_sync<C>();
-  Part tot = *at_rank<C>(&sh.slot[buf], 0);
+  stamp(kReduceBarrier);
+  if constexpr (C > 1) {
+    // one thread reads the C partials (1,024 readers of each made this the
+    // larger part of a reduction at 8 CTAs; PERF.md section 6)
+    if (threadIdx.x == 0) {
+      Part tot = *at_rank<C>(&sh.slot[buf], 0);
 #pragma unroll
-  for (int r = 1; r < C; ++r) add(tot, *at_rank<C>(&sh.slot[buf], r));
+      for (int r = 1; r < C; ++r) add(tot, *at_rank<C>(&sh.slot[buf], r));
+      sh.total[buf] = tot;
+    }
+    __syncthreads();
+  }
+  const Part tot = C > 1 ? sh.total[buf] : sh.slot[buf];
+  stamp(kReduceRead);
   buf ^= 1;      // the next reduction writes the other slot
   return tot;
 }
@@ -158,11 +209,13 @@ template <int C, bool kL1>
 __device__ void ladder_round(const float* zs, int len, float target,
                              float& lo, float& hi, Shared& sh, int& rbuf) {
   const int tid = threadIdx.x, b = tid % kRungs, g = tid / kRungs;
+  stamp(kRoundEnter);
   __syncthreads();                 // the last round's readers of th are done
   if (tid < kRungs) {
     sh.th[tid] = lo + (hi - lo) * (float)(tid + 1) / (float)kRungs;
   }
   __syncthreads();
+  stamp(kRoundRungs);
   const int per = (((len + kGroups - 1) / kGroups) + 3) & ~3;
   const int i0 = min(len, g * per), i1 = min(len, i0 + per);
   const float th = sh.th[b];
@@ -190,6 +243,7 @@ __device__ void ladder_round(const float* zs, int len, float target,
       c += d > 0.f;
     }
   }
+  stamp(kRoundPass);
   sh.gsum[g][b] = s;
   sh.gcnt[g][b] = c;
   __syncthreads();
@@ -204,7 +258,9 @@ __device__ void ladder_round(const float* zs, int len, float target,
     sh.rsum[rbuf][tid] = ss;
     sh.rcnt[rbuf][tid] = cc;
   }
+  stamp(kRoundGroups);
   cluster_sync<C>();
+  stamp(kRoundBarrier);
   if (tid < kRungs) {
     double ss = 0.0;
     int cc = 0;
@@ -222,6 +278,7 @@ __device__ void ladder_round(const float* zs, int len, float target,
   int idx = 0;
 #pragma unroll
   for (int w = 0; w < kRungs / 32; ++w) idx += sh.cross[w];
+  stamp(kRoundCross);
   const float lo_n = idx == 0 ? lo : sh.th[idx - 1];
   const float hi_n = idx == kRungs ? hi : sh.th[idx];
   lo = lo_n;
@@ -271,8 +328,10 @@ l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
   extern __shared__ float4 smem4[];
   float* zs = reinterpret_cast<float*>(smem4);
   __shared__ Shared sh;
+  stamp(kStart);
   const int rank = cta_rank<C>();
   const int len = load_slice(z0, zs, n, chunk, rank);
+  stamp(kLoaded);
   const float t0 = *t0p;
   int buf = 0, rbuf = 0;
 
@@ -317,12 +376,14 @@ l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
     const float v = zs[i];
     out[i] = to_apex ? 0.f : sgn(v) * clamp0(fabsf(v) - theta);
   }
+  stamp(kOutput);
   if (rank == 0 && threadIdx.x == 0) {
     *t = to_apex ? clamp0(t0) : t0 + theta;
     if (theta_out != nullptr) *theta_out = theta;
     if (steps != nullptr) *steps = k;
   }
   if constexpr (C > 1) cg::this_cluster().sync();  // no CTA leaves early
+  stamp(kEnd);
 }
 
 template <int C>
@@ -334,8 +395,10 @@ skappa_kernel(const float* __restrict__ zin, float kap,
   extern __shared__ float4 smem4[];
   float* zs = reinterpret_cast<float*>(smem4);
   __shared__ Shared sh;
+  stamp(kStart);
   const int rank = cta_rank<C>();
   const int len = load_slice(zin, zs, n, chunk, rank);
+  stamp(kLoaded);
   int buf = 0, rbuf = 0;
 
   // max |z| and c0 = count(|z| > 0)
@@ -409,12 +472,14 @@ skappa_kernel(const float* __restrict__ zin, float kap,
     out[i] = sgn(v) * w;
     u.sum += (double)(x * w);
   }
+  stamp(kOutput);
   u = reduce<C>(u, sh, buf);
   if (rank == 0 && threadIdx.x == 0) {
     *u_max = (float)u.sum;
     if (steps != nullptr) *steps = k;
   }
   if constexpr (C > 1) cg::this_cluster().sync();  // no CTA leaves early
+  stamp(kEnd);
 }
 
 __global__ void empty_kernel() {}
@@ -507,6 +572,27 @@ extern "C" int skappa_support_f32(const float* z, float kappa, float* s_star,
   return launch_skappa(ctas, chunk, static_cast<cudaStream_t>(stream), z,
                        kappa, s_star, u_max, steps, n, chunk, rounds, cap);
 }
+
+#ifdef LADDER_PROJ_TRACE
+// The last call's stamps (at most max): clock64() values and Stamp codes.
+// Returns their number, or -1 on a CUDA error.
+extern "C" int ladder_proj_trace(long long* clocks, int* codes, int max) {
+  int n = 0;
+  if (cudaDeviceSynchronize() != cudaSuccess ||
+      cudaMemcpyFromSymbol(&n, g_trace_n, sizeof(int)) != cudaSuccess) {
+    return -1;
+  }
+  n = n < max ? n : max;
+  n = n < kTraceMax ? n : kTraceMax;
+  if (cudaMemcpyFromSymbol(clocks, g_trace_clock, n * sizeof(long long)) !=
+          cudaSuccess ||
+      cudaMemcpyFromSymbol(codes, g_trace_code, n * sizeof(int)) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+#endif
 
 // An empty kernel: the launch latency the projections sit on.
 extern "C" int ladder_proj_empty(void* stream) {

@@ -53,9 +53,9 @@ MAX_CTAS = 8            # kMaxCtas: the largest (portable) cluster
 MAX_N = MAX_PER_CTA * MAX_CTAS   # 409,600: the largest one-launch projection
 # The cluster size by n: the smallest n at which 4 and 8 CTAs are taken
 # (below 1,000 one CTA). Measured by chip_smoke.py's cluster sweep on an
-# H100: 1 CTA is fastest at n = 250, 4 at n = 1,000 and 2,500, 8 from
-# n = 4,000; 2 CTAs never were (PERF.md section 6).
-CLUSTER_FROM = ((4, 1_000), (8, 4_000))
+# H100: 1 CTA is fastest at n = 250 and 500, 4 about as fast as any at
+# n = 1,000, 8 from n = 2,500; 2 CTAs never were (PERF.md section 6).
+CLUSTER_FROM = ((4, 1_000), (8, 2_500))
 
 
 class Plan(NamedTuple):

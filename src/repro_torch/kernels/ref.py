@@ -40,7 +40,9 @@ LADDER_CAP = 64      # cap on polish / search steps
 
 def _sum_once(x: torch.Tensor, dim=None) -> torch.Tensor:
     """A projection's sum of f32 terms: accumulated in f64 and rounded to
-    f32 once, so the order of the terms does not matter."""
+    f32 once, so the order of the terms does not matter except in rare f32
+    ties (the f64 sum is exact only while the terms' exponent spread plus
+    log2 n fits in f64's 29 spare bits)."""
     x = x.double()
     return (x.sum() if dim is None else x.sum(dim)).float()
 

@@ -8,6 +8,7 @@ coef within 1e-3, iterations within 2; predictions within 1e-3 and R^2
 within 1e-4.
 """
 import ast
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -181,6 +182,31 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_parity_fits_are_the_three_banded_fits():
+    """chip_smoke.parity_fits (phase 8, and the probe's --parity): Woodbury
+    at n = 2,500 and the feature split at n = 250, squared and logistic,
+    numpy data from seed 1, tol 1e-4 within 300 iterations."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    fits = smoke.parity_fits()
+    assert [f[0] for f in fits] == ["parity", "parity_split_squared",
+                                    "parity_split_logistic"]
+    assert [f[2] for f in fits] == [api.SparseLinearRegression,
+                                    api.SparseLinearRegression,
+                                    api.SparseLogisticRegression]
+    assert [f[4].shape for f in fits] == [(2, 200, 2_500), (2, 200, 250),
+                                          (2, 200, 250)]
+    assert fits[0][3]["x_solver"] == "woodbury"
+    assert all(f[3]["n_feature_blocks"] == 4 for f in fits[1:])
+    assert all(f[3]["tol"] == 1e-4 and f[3]["max_iter"] == 300
+               for f in fits)
+    spec = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
+    np.testing.assert_array_equal(fits[0][4],
+                                  make_sparse_regression(1, spec)[0])
 
 
 def test_chip_smoke_fails_without_a_card_or_without_the_repo(tmp_path):

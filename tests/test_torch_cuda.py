@@ -32,7 +32,8 @@ def _close(got, want, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B", [(10_000, 128), (10_001, 7), (3, 200)])
+@pytest.mark.parametrize("n,B", [(10_000, 128), (10_001, 7), (3, 200),
+                                 (bisect_proj.MAX_N + 1, 128)])
 def test_cuda_ladder_stats(cuda_gen, n, B):
     az = torch.rand(n, device="cuda", generator=cuda_gen)
     th = torch.rand(B, device="cuda", generator=cuda_gen)

@@ -17,6 +17,7 @@ counts alone. The card tests (tests/test_torch_cuda.py) hold the kernels
 to the same bounds against these plain versions.
 """
 import functools
+import importlib.util
 import math
 import re
 from pathlib import Path
@@ -184,6 +185,19 @@ def test_constants_mirror_the_source(name, value):
     assert _constant(name) == value
     assert bisect_proj.RUNGS == tbl.LADDER_B == ref.LADDER_RUNGS
     assert ref.LADDER_CAP == tbl.NEWTON_CAP
+
+
+def test_probe_labels_every_stamp_of_the_source():
+    """tools/ladder_proj_probe.py --trace names the source's Stamp codes
+    (a -DLADDER_PROJ_TRACE build's phases) in their order."""
+    body = re.search(r"enum Stamp \{([^}]*)\}", SOURCE.read_text()).group(1)
+    codes = [c.strip() for c in body.split(",") if c.strip()]
+    path = SOURCE.parents[3] / "tools" / "ladder_proj_probe.py"
+    spec = importlib.util.spec_from_file_location("ladder_proj_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    assert codes[0] == "kStart" and codes[-1] == "kEnd"
+    assert len(probe.STAMPS) == len(codes)
 
 
 @pytest.mark.parametrize("ctas,n_from", bisect_proj.CLUSTER_FROM)

@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
-"""Fit cells with a given tree's ``repro_torch`` on one NVIDIA GPU: time
-per outer iteration, launch counts and a profiled 2-iteration window; or
-hold ``csrc/ladder_proj.cu`` against another version of it.
+"""Measurements of ``csrc/ladder_proj.cu`` on one NVIDIA GPU that
+``chip_smoke.py`` does not make: bit identity against another version of
+the kernel, a per-phase breakdown of one call, and the parity fits at each
+cluster size.
 
-    python3 tools/ladder_proj_probe.py [--src DIR] [--label NAME]
-                                       [--cells woodbury,dense,...]
-                                       [--out PATH.json]
     python3 tools/ladder_proj_probe.py --against OTHER.cu
+    python3 tools/ladder_proj_probe.py --trace [SOURCE.cu ...]
     python3 tools/ladder_proj_probe.py --parity
 
 ``--against`` builds OTHER.cu with this tree's flags, checks that both
@@ -19,73 +18,80 @@ iterations follow every rounding of the projections, so a redesign that
 is meant to keep them shows bit identity here first
 (``git show <commit>:src/repro_torch/csrc/ladder_proj.cu > build/old.cu``).
 
-``--parity`` runs ``chip_smoke.py``'s three parity fits (Woodbury at
-n = 2,500; the feature split, squared and logistic, at n = 250) on the
-card with the projections at 1, 2, 4 and 8 CTAs in turn, and prints their
-iterations and status: with order-free sums they do not depend on the
-cluster size (``chip_smoke.py`` holds them against the CPU's).
+``--trace`` builds each SOURCE.cu (by default this tree's) with
+``-DLADDER_PROJ_TRACE``: thread 0 of CTA 0 then stamps ``clock64()`` at
+each phase of a call (the source's ``Stamp`` codes). For both projections
+at n = 1,000, 4,000, 10,000 and 12,000 (the plan's cluster size) it prints
+the SM cycles spent reaching each kind of stamp, the median of 20 calls,
+and the whole call's cycles beside the same call's device time by
+CUDA-graph replay of the uninstrumented kernel.
 
-``--src`` is the ``src`` directory whose ``repro_torch`` is imported (by
-default this checkout's), so an earlier tree unpacked beside this one
-(``git archive <commit> | tar -x -C DIR``) is measured by the same code.
-Compare two trees only within one process order on one card: earlier,
-current, current, earlier.
+``--parity`` runs ``chip_smoke.py``'s three parity fits (``parity_fits``)
+on the card with the projections forced to 1, 2, 4 and 8 CTAs in turn
+(the registry's ``"cuda"`` rows with ``ctas`` bound), and prints their
+iterations and status; ``chip_smoke.py`` holds the plan's run against the
+CPU's.
 
-The cells are ``chip_smoke.py``'s fit phases, at the same data (numpy,
-seed 0) and settings: woodbury (Fig. 2, N = 8, m = 800, n = 10,000,
-kappa = 2,000, 60 iterations), dense (n = 1,000, kappa = 200), fig3
-(Fig. 3, m = 25,000, n = 4,000, kappa = 800, M = 4) and the logistic and
-3-class softmax classifiers (m cut to 5,000, 30 iterations). Each fit
-runs once after its set-up; then two more outer iterations from its state
-(no polish), once with the profiler off (the window's wall time) and once
-with it on (device busy time, device ops, host syncs). Needs a card; it
-imports neither ``jax`` nor ``repro``.
+Needs a card; it imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
 import argparse
-import json
+import ctypes
 import os
+import statistics
+import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ("woodbury", "dense", "fig3", "classify_logistic",
-         "classify_softmax")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+# csrc/ladder_proj.cu's Stamp codes, in order: each names what the thread
+# did since the stamp before it
+STAMPS = ("start", "load the CTA's slice of z into shared memory",
+          "own pass over the slice before a reduction",
+          "reduction: warp shuffles, the CTA's warps (__syncthreads)",
+          "reduction: warp 0's sum, the cluster barrier",
+          "reduction: read the CTAs' partials (DSMEM)",
+          "before a round",
+          "round: form the rungs (two __syncthreads)",
+          "round: own share of the rung pass",
+          "round: the eight groups' sums (__syncthreads)",
+          "round: the cluster barrier",
+          "round: the CTAs' rung sums, the crossing vote (__syncthreads)",
+          "output pass (z or s*)", "the last cluster barrier")
+TRACE_N = (1_000, 4_000, 10_000, 12_000)
 
 
-def against(torch, other: str) -> int:
-    """Bit identity and time of this tree's ``csrc/ladder_proj.cu`` against
-    ``other`` (module docstring)."""
-    import ctypes
-    import statistics
-    import subprocess
+def load(torch, src: str, name: str, *defines: str):
+    """Build ``src`` with this tree's flags (and ``defines``) and bind it."""
+    from repro_torch.kernels import build
+    out = build.BUILD_DIR / f"probe_{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-shared", *build.SOURCE_FLAGS["ladder_proj"], *defines,
+                    "-Xcompiler", "-fPIC", "-o", str(out), src], check=True)
+    lib = ctypes.CDLL(str(out))
+    P, I, F = build.P, build.I, build.F
+    lib.l1_epigraph_proj_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+    lib.skappa_support_f32.argtypes = [P, F, P, P, P, I, I, I, I, P]
+    if defines:
+        lib.ladder_proj_trace.argtypes = [P, P, I]
+    return lib
 
-    from repro_torch.kernels import bisect_proj, build
 
-    def load(src: str, name: str):
-        out = build.BUILD_DIR / f"probe_{name}.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
-                        "-shared", *build.SOURCE_FLAGS["ladder_proj"],
-                        "-Xcompiler", "-fPIC", "-o", str(out), src],
-                       check=True)
-        lib = ctypes.CDLL(str(out))
-        P, I, F = build.P, build.I, build.F
-        lib.l1_epigraph_proj_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
-        lib.skappa_support_f32.argtypes = [P, F, P, P, P, I, I, I, I, P]
-        return lib
+def calls(torch):
+    """l1(lib, z, t0, ctas) and sk(lib, z, kappa, ctas) through a library's
+    C entry points, every output (the step counts too) returned."""
+    from repro_torch.kernels import build
 
-    libs = {"other": load(other, "other"),
-            "current": load(str(build.CSRC / "ladder_proj.cu"), "current")}
-    dev = torch.device("cuda")
-
-    def empty(*like):
+    def empty(dev, *like):
         return tuple(torch.empty((), dtype=d, device=dev) for d in like)
 
     def l1(lib, z, t0, ctas):
         zo = torch.empty_like(z)
-        t, th, k = empty(torch.float32, torch.float32, torch.int32)
+        t, th, k = empty(z.device, torch.float32, torch.float32, torch.int32)
         build.check(lib.l1_epigraph_proj_f32(
             z.data_ptr(), t0.data_ptr(), zo.data_ptr(), t.data_ptr(),
             th.data_ptr(), k.data_ptr(), z.shape[0], ctas, 2, 64,
@@ -94,34 +100,49 @@ def against(torch, other: str) -> int:
 
     def sk(lib, z, kappa, ctas):
         s = torch.empty_like(z)
-        u, k = empty(torch.float32, torch.int32)
+        u, k = empty(z.device, torch.float32, torch.int32)
         build.check(lib.skappa_support_f32(
             z.data_ptr(), kappa, s.data_ptr(), u.data_ptr(), k.data_ptr(),
             z.shape[0], ctas, 2, 64, build.stream(z)), "skappa")
         return u, s, k
 
-    def graph_ms(fn, reps=20, inner=10):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(inner):
-                fn()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times) / inner
+    return l1, sk
 
+
+def graph_ms(torch, fn, reps=20, inner=10):
+    """Median device ms of one ``fn()`` by CUDA-graph replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times) / inner
+
+
+def against(torch, other: str) -> int:
+    """Bit identity and time of this tree's ``csrc/ladder_proj.cu`` against
+    ``other`` (module docstring)."""
+    from repro_torch.kernels import bisect_proj, build
+
+    libs = {"other": load(torch, other, "other"),
+            "current": load(torch, str(build.CSRC / "ladder_proj.cu"),
+                            "current")}
+    l1, sk = calls(torch)
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     same = total = 0
     for n in (1, 7, 250, 1_000, 2_500, 4_000, 10_000, 12_000, 100_000,
@@ -148,7 +169,7 @@ def against(torch, other: str) -> int:
         t0 = (0.5 * z.abs().sum()).reshape(())
         for kind, fn in (("l1", lambda lib: l1(lib, z, t0, ctas)),
                          ("skappa", lambda lib: sk(lib, z, n / 5, ctas))):
-            times = [(name, graph_ms(lambda: fn(libs[name])))
+            times = [(name, graph_ms(torch, lambda: fn(libs[name])))
                      for name in ("other", "current", "current", "other")]
             print(f"{kind} n={n} ({ctas} CTAs): " + ", ".join(
                 f"{name} {ms:.4f}" for name, ms in times) + " ms",
@@ -156,166 +177,100 @@ def against(torch, other: str) -> int:
     return 0 if same == total else 1
 
 
+def trace(torch, sources: list[str]) -> int:
+    """Per-phase SM cycles of one call (module docstring)."""
+    from repro_torch.kernels import bisect_proj, build
+
+    l1, sk = calls(torch)
+    dev = torch.device("cuda")
+    max_mhz = os.popen("nvidia-smi --query-gpu=clocks.max.sm "
+                       "--format=csv,noheader,nounits").read().strip()
+    print(f"max SM clock {max_mhz} MHz", flush=True)
+    clocks = (ctypes.c_longlong * 4096)()
+    codes = (ctypes.c_int * 4096)()
+    for i, src in enumerate(sources or [str(build.CSRC / "ladder_proj.cu")]):
+        lib = load(torch, src, f"trace{i}", "-DLADDER_PROJ_TRACE")
+        plain = load(torch, src, f"untraced{i}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for n in TRACE_N:
+            ctas = bisect_proj.plan(n).ctas
+            z = torch.randn(n, device=dev, generator=gen)
+            t0 = (0.5 * z.abs().sum()).reshape(())
+            for kind, fn in (("l1", lambda lib: l1(lib, z, t0, ctas)),
+                             ("skappa",
+                              lambda lib: sk(lib, z, n / 5, ctas))):
+                per_code, whole, counts = [], [], None
+                for _ in range(20):
+                    fn(lib)
+                    m = lib.ladder_proj_trace(clocks, codes, 4096)
+                    if m < 2:
+                        raise RuntimeError(f"trace: {m} stamps")
+                    cyc = [0] * len(STAMPS)
+                    cnt = [0] * len(STAMPS)
+                    for j in range(1, m):
+                        cyc[codes[j]] += clocks[j] - clocks[j - 1]
+                        cnt[codes[j]] += 1
+                    per_code.append(cyc)
+                    whole.append(clocks[m - 1] - clocks[0])
+                    counts = cnt
+                med = [statistics.median(c[j] for c in per_code)
+                       for j in range(len(STAMPS))]
+                ms = graph_ms(torch, lambda: fn(plain))
+                print(f"[{os.path.basename(src)}] {kind} n={n} ({ctas} "
+                      f"CTAs): {statistics.median(whole):.0f} cycles from "
+                      f"the first stamp to the last; {ms * 1e3:.2f} us by "
+                      "graph replay (uninstrumented)", flush=True)
+                for j in sorted(range(1, len(STAMPS)), key=lambda j: -med[j]):
+                    if counts[j]:
+                        print(f"    {med[j]:8.0f} cycles in {counts[j]:3d} x "
+                              f"{STAMPS[j]}", flush=True)
+    return 0
+
+
 def parity(torch) -> int:
     """The parity fits' iterations at each cluster size (module
     docstring)."""
-    from repro_torch import api
+    import functools
+
+    import chip_smoke
+    from repro_torch import runtime
     from repro_torch.core.results import SolveStatus
-    from repro_torch.data import (SyntheticSpec, make_sparse_classification,
-                                  make_sparse_regression)
     from repro_torch.kernels import bisect_proj
 
-    small = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
-    split = SyntheticSpec(2, 200, 250, sparsity_level=0.95, noise=1e-3)
-    fits = (("woodbury", make_sparse_regression, small,
-             api.SparseLinearRegression, dict(rho_c=4.0,
-                                              x_solver="woodbury")),
-            ("split squared", make_sparse_regression, split,
-             api.SparseLinearRegression, dict(rho_c=1.0,
-                                              n_feature_blocks=4)),
-            ("split logistic", make_sparse_classification, split,
-             api.SparseLogisticRegression, dict(rho_c=1.0,
-                                                n_feature_blocks=4)))
-    plan = bisect_proj.plan
+    rows = runtime.kernel_table()
     try:
         for ctas in (1, 2, 4, 8):
-            bisect_proj.plan = lambda n, c=ctas: bisect_proj.Plan(True, c)
+            for name in ("l1_epigraph_proj", "skappa_support"):
+                runtime.register_kernel(name, "cuda", functools.partial(
+                    getattr(bisect_proj, name), ctas=ctas))
             out = []
-            for name, make, spec, cls, kw in fits:
-                As, bs, _ = make(1, spec)
-                res = cls(kappa=spec.kappa, gamma=10.0, tol=1e-4,
-                          max_iter=300, **kw).fit(As, bs).result_
-                out.append(f"{name} {int(res.iters)} "
+            for key, _, cls, kw, As, bs in chip_smoke.parity_fits():
+                res = cls(**kw).fit(As, bs).result_
+                out.append(f"{key} {int(res.iters)} "
                            f"{SolveStatus(int(res.status)).name}")
             print(f"parity at {ctas} CTAs: " + ", ".join(out), flush=True)
     finally:
-        bisect_proj.plan = plan
+        for name in ("l1_epigraph_proj", "skappa_support"):
+            runtime.register_kernel(name, "cuda", rows[name]["cuda"])
     return 0
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--src", default=os.path.join(ROOT, "src"))
-    parser.add_argument("--label", default="current")
-    parser.add_argument("--cells", default=",".join(CELLS))
-    parser.add_argument("--out")
-    parser.add_argument("--against", metavar="OTHER.cu")
-    parser.add_argument("--parity", action="store_true")
+    mode = parser.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--against", metavar="OTHER.cu")
+    mode.add_argument("--trace", nargs="*", metavar="SOURCE.cu")
+    mode.add_argument("--parity", action="store_true")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.abspath(args.src))
     if args.against:
         return against(torch, args.against)
-    if args.parity:
-        return parity(torch)
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch import api
-    from repro_torch.data import (SyntheticSpec, make_sparse_classification,
-                                  make_sparse_regression, make_sparse_softmax)
-    from repro_torch.kernels import ops
-
-    dev = torch.device("cuda")
-    squared = dict(gamma=10.0, rho_c=4.0)
-    cells = {
-        "woodbury": (make_sparse_regression,
-                     SyntheticSpec(8, 800, 10_000, sparsity_level=0.8),
-                     api.SparseLinearRegression, dict(squared, max_iter=60)),
-        "dense": (make_sparse_regression,
-                  SyntheticSpec(8, 800, 1_000, sparsity_level=0.8),
-                  api.SparseLinearRegression, dict(squared, max_iter=60)),
-        "fig3": (make_sparse_regression,
-                 SyntheticSpec(8, 25_000, 4_000, sparsity_level=0.8),
-                 api.SparseLinearRegression,
-                 dict(squared, max_iter=60, n_feature_blocks=4)),
-        "classify_logistic": (make_sparse_classification,
-                              SyntheticSpec(8, 5_000, 4_000),
-                              api.SparseLogisticRegression,
-                              dict(gamma=10.0, rho_c=1.0, max_iter=30,
-                                   n_feature_blocks=4)),
-        "classify_softmax": (make_sparse_softmax,
-                             SyntheticSpec(8, 5_000, 4_000, n_classes=3),
-                             api.SparseSoftmaxRegression,
-                             dict(gamma=10.0, rho_c=1.0, max_iter=30,
-                                  n_feature_blocks=4, n_classes=3)),
-    }
-    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
-                   "--format=csv,noheader").read().strip()
-    out = {"label": args.label, "src": args.src, "card": smi, "cells": {}}
-    print(f"[{args.label}] {smi}; src {args.src}", flush=True)
-    for name in args.cells.split(","):
-        make, spec, cls, kw = cells[name]
-        As_np, bs_np, x_true = make(0, spec)
-        kappa = (spec.kappa if cls is api.SparseLinearRegression
-                 else int((x_true != 0).sum()))
-        As = torch.as_tensor(As_np, device=dev)
-        bs = torch.as_tensor(bs_np, device=dev)
-        del As_np
-        est = cls(kappa=kappa, tol=0.0, **kw)
-        est._adapter.solver._setup(As, bs)             # set-up outside
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        est.fit(As, bs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        iters = int(est.result_.iters)
-        counts = {k: v for k, v in ops.launch_counts().items() if v}
-        # two more outer iterations from the fit's state, no polish
-        prof_kw = {k: v for k, v in kw.items() if k != "max_iter"}
-        prof_est = cls(kappa=kappa, tol=0.0, max_iter=2, polish=False,
-                       **prof_kw)
-        state = est.result_.state
-        prof_est.fit(As, bs, state=state)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prof_est.fit(As, bs, state=state)
-        torch.cuda.synchronize()
-        window_off = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            prof_est.fit(As, bs, state=state)
-            torch.cuda.synchronize()
-            window_on = time.perf_counter() - t0
-        busy, n_ops, syncs = 0.0, 0, 0
-        for ev in prof.key_averages():
-            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                dev_us = getattr(ev, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-                busy += dev_us / 1e3
-                n_ops += ev.count
-            elif ev.key == "aten::_local_scalar_dense":
-                syncs += ev.count
-        row = {"iters": iters, "fit_s": wall,
-               "ms_per_outer_iter": wall / max(iters, 1) * 1e3,
-               "launches": counts, "window_ms_profiler_off": window_off * 1e3,
-               "window_ms_profiler_on": window_on * 1e3,
-               "device_busy_ms": busy, "device_ops": n_ops,
-               "host_syncs": syncs,
-               "idle_share": (1 - busy / (window_off * 1e3)
-                              if busy > 0 else None)}
-        out["cells"][name] = row
-        idle = ("not measured" if row["idle_share"] is None
-                else f"{row['idle_share']:.3f}")
-        print(f"[{args.label}] {name}: {iters} iters, "
-              f"{row['ms_per_outer_iter']:.2f} ms/outer iter, launches "
-              f"{counts}; 2-iteration window {window_off * 1e3:.1f} ms "
-              f"(profiler on {window_on * 1e3:.1f}), device busy "
-              f"{busy:.1f} ms in {n_ops} ops, {syncs} host syncs, idle "
-              f"share {idle}", flush=True)
-        del As, bs, est, prof_est, state
-        torch.cuda.empty_cache()
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-    return 0
+    if args.trace is not None:
+        return trace(torch, args.trace)
+    return parity(torch)
 
 
 if __name__ == "__main__":
