@@ -19,7 +19,11 @@ Phases, each printing its own line with its wall time:
               is printed beside them. The one-launch projections are also
               timed at each cluster size (1, 2, 4, 8 CTAs) at the path's
               widths and at 0, 1 and 2 bracketing rounds, beside an empty
-              kernel's launch latency.
+              kernel's launch latency. normal_matvec is timed at the
+              Woodbury polish's (6,400, 10,000), the PCG x-update's
+              (8, 25,000, 4,000) and that fit's polish (200,000, 4,000),
+              beside the composition of the matvec and rmatvec kernels
+              and two torch.matmul calls; two calls must agree bit for bit.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
               past the one-launch limit, where the bracketing rounds run on
               the two-pass ladder_stats kernel; ladder_stats is held
@@ -37,11 +41,22 @@ Phases, each printing its own line with its wall time:
               kernels and ``gram`` must launch, and the fit's peak device
               memory above its start must stay under a quarter of A's
               3.2 GB — no padded or blocked copy of A.
+   pcg      — the same point and data through the PCG x-update (the
+              paper's ``x_solver="auto"`` there, no feature split, polish
+              on): ``normal_matvec`` every CG step. Prints ms per outer
+              iteration and the PCG x-update's share, CG steps per outer
+              iteration, normal_matvec calls and launches per fit and the
+              peak memory (under a quarter of A). The fit runs in turns
+              with the kernel and with the solver's normal_matvec bound to
+              the composition of the matvec and rmatvec kernels (kernel,
+              composition, composition, kernel), then a profile window of
+              2 outer iterations with each.
 7. classify — logistic and 3-class softmax regression at n = 4,000 through
               the feature split and the Newton-CG polish (rows cut to
               m = 5,000 per node on N = 8 to bound the run's time).
 8. parity   — reduced fits on the card against the port's own CPU fits:
-              Woodbury, and the feature split (squared and logistic).
+              Woodbury, the feature split (squared and logistic), and the
+              Woodbury fit's data through the PCG x-update.
 9. lm       — the dense LM's serving path at full width and depth:
               qwen3-8b (36 layers, 8.19e9 parameters drawn on the card
               from seed 0, 16.4 GB in bf16), 4 prompts of 2,048 tokens
@@ -106,6 +121,10 @@ PTXAS_MATVEC = {"matvec_kernel": ("0,4,1,0", "1,2,3,1"),
                 "rmatvec_team_kernel": ("4,1", "4,3"),
                 "rmatvec_slices_kernel": ("4,1", "4,3"),
                 "sum_slices": ("",)}
+# csrc/normal_matvec.cu's: the stream kernel <bulk, vpt, rows> at
+# n = 10,000 (Woodbury polish), 4,000 (Fig. 3 PCG) and 2,500 (PCG parity)
+PTXAS_NORMAL = {"normal_stream_kernel": ("1,5,1", "1,2,2", "1,2,4"),
+                "normal_sum_kernel": ("",)}
 
 REPLACES = {
     "ladder_stats": "src/repro/kernels/bisect_proj.py:42",
@@ -115,6 +134,7 @@ REPLACES = {
     "gram": "src/repro/kernels/gram.py:35",
     "matvec": "src/repro/kernels/matvec.py:95",
     "rmatvec": "src/repro/kernels/matvec.py:135",
+    "normal_matvec": "src/repro/kernels/matvec.py:175",
     "block_matvec": "src/repro/kernels/ops.py:115",
     "block_rmatvec": "src/repro/kernels/ops.py:126",
     "flash_attention": "src/repro/kernels/flash_attention.py:30",
@@ -126,12 +146,13 @@ SOURCES = {
     "gram": "src/repro_torch/csrc/gram.cu",
     "matvec": "src/repro_torch/csrc/matvec.cu",
     "rmatvec": "src/repro_torch/csrc/matvec.cu",
+    "normal_matvec": "src/repro_torch/csrc/normal_matvec.cu",
     "block_matvec": "src/repro_torch/csrc/block_matvec.cu",
     "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 PROJ_KERNELS = ("l1_epigraph_proj", "skappa_support")
-MAIN_KERNELS = (*PROJ_KERNELS, "gram", "matvec", "rmatvec")
+MAIN_KERNELS = (*PROJ_KERNELS, "gram", "matvec", "rmatvec", "normal_matvec")
 BLOCK_KERNELS = ("block_matvec", "block_rmatvec")
 # the projections against their plain versions and the f64 sort oracles:
 # theta, z, t and u_max at rtol 1e-5 and an atol of 1e-6 x max |z|; s*
@@ -243,14 +264,16 @@ def ptxas_ladder_proj(log: str) -> list[str]:
             + f"; spill stores {spills.get(k, 0)} B" for k, v in regs.items()]
 
 
-def ptxas_matvec(log: str) -> list[str]:
-    """One line per kernel template of csrc/matvec.cu from its ptxas
-    report: instantiations, register range, spill stores, and the registers
-    of the instantiations on the solver path (PTXAS_MATVEC)."""
+def ptxas_matvec(log: str, source: str = "matvec",
+                 families: dict = PTXAS_MATVEC) -> list[str]:
+    """One line per kernel template of a source (by default csrc/matvec.cu)
+    from its ptxas report: instantiations, register range, spill stores,
+    and the registers of the instantiations on the solver path
+    (``families``)."""
     fams, entry = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            mt = re.search(r"\d+(" + "|".join(sorted(PTXAS_MATVEC,
+            mt = re.search(r"\d+(" + "|".join(sorted(families,
                                                        key=len)[::-1])
                            + r")(?:I((?:L[ib]\d+E)+)E)?", ln)
             entry = mt and (mt.group(1), ",".join(
@@ -267,9 +290,9 @@ def ptxas_matvec(log: str) -> list[str]:
     for name, fam in fams.items():
         regs, spill = fam["regs"], fam["spill"]
         path = ", ".join(f"<{k}> {regs[k]}" if k else str(regs[k])
-                         for k in PTXAS_MATVEC[name] if k in regs)
+                         for k in families[name] if k in regs)
         spilled = ", ".join(f"<{k}> {v} B" for k, v in spill.items())
-        lines.append(f"matvec: {name} x{len(regs)}: "
+        lines.append(f"{source}: {name} x{len(regs)}: "
                      f"{min(regs.values())}-{max(regs.values())} registers, "
                      f"spill stores {spilled or 'none'}; on the path "
                      f"{path} registers")
@@ -291,9 +314,10 @@ def device_table(prof) -> dict:
 def parity_fits() -> list:
     """The card-vs-CPU parity fits (phase 8), as ``(report key, what,
     estimator class, its keywords, As, bs)`` with numpy data from seed 1:
-    Woodbury at n = 2,500, and the feature split (M = 4, ragged last block
-    nb = 63) at n = 250, squared and logistic. ``repro_torch`` must be
-    importable."""
+    Woodbury at n = 2,500, the feature split (M = 4, ragged last block
+    nb = 63) at n = 250, squared and logistic, and the Woodbury fit's data
+    through the PCG x-update (normal_matvec every CG step). ``repro_torch``
+    must be importable."""
     from repro_torch import api
     from repro_torch.data import (SyntheticSpec, make_sparse_classification,
                                   make_sparse_regression)
@@ -309,7 +333,9 @@ def parity_fits() -> list:
              dict(rho_c=1.0, n_feature_blocks=4)),
             ("parity_split_logistic", "logistic, feature split M=4",
              make_sparse_classification, split, api.SparseLogisticRegression,
-             dict(rho_c=1.0, n_feature_blocks=4))):
+             dict(rho_c=1.0, n_feature_blocks=4)),
+            ("parity_pcg", "pcg", make_sparse_regression, small,
+             api.SparseLinearRegression, dict(rho_c=4.0, x_solver="pcg"))):
         As, bs, _ = make(1, spec)
         fits.append((key, f"N={spec.n_nodes} m={spec.m_per_node} "
                           f"n={spec.n_features} kappa={spec.kappa} {what}",
@@ -635,7 +661,7 @@ def main() -> int:
     from repro_torch.data import (SyntheticSpec, make_sparse_classification,
                                   make_sparse_regression, make_sparse_softmax)
     from repro_torch import runtime
-    from repro_torch.core import bicadmm, bilinear
+    from repro_torch.core import bicadmm, bilinear, prox
     from repro_torch.kernels import (bisect_proj, block_matvec, build,
                                      flash_attention, gram, matvec, ops, ref)
 
@@ -666,7 +692,9 @@ def main() -> int:
     for line in (*ptxas_summary(info),
                  *ptxas_ladder_proj(info.get("ladder_proj", {}).get("log",
                                                                     "")),
-                 *ptxas_matvec(info.get("matvec", {}).get("log", ""))):
+                 *ptxas_matvec(info.get("matvec", {}).get("log", "")),
+                 *ptxas_matvec(info.get("normal_matvec", {}).get("log", ""),
+                               "normal_matvec", PTXAS_NORMAL)):
         print("  " + line, flush=True)
 
     # data of the two Fig. 2 points and the Fig. 3 point (numpy, seed 0) --
@@ -685,6 +713,13 @@ def main() -> int:
     phase("data", t0, f"As {tuple(As_w.shape)}, {tuple(As_n.shape)} and "
                       f"{tuple(A3.shape)} f32 on the card")
 
+    def composed_normal(a, p, shift):
+        """normal_matvec as the matvec and rmatvec kernels composed (the
+        port's product before csrc/normal_matvec.cu): a yardstick and the
+        pcg phase's A/B, never called by the port."""
+        g_ = matvec.rmatvec(a, matvec.matvec(a, p).to(a.dtype))
+        return (g_ + shift * p.to(torch.float32)).to(a.dtype)
+
     # 3. kernels against their plain versions ------------------------------
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(0)
@@ -694,9 +729,11 @@ def main() -> int:
 
     def kernel_row(name, label, fn, plain, library, got_want_scale,
                    nbytes, flops, peak=PEAK_F32_FLOPS, tol=None,
-                   plain_eager=False):
+                   plain_eager=False, yardsticks=None):
         """``plain_eager``: the plain version reads the host inside its
-        loops, so it is timed eagerly (no CUDA graph can hold it)."""
+        loops, so it is timed eagerly (no CUDA graph can hold it).
+        ``yardsticks``: {label: fn} of other ways to the same result, each
+        timed like the kernel (reported, not used by the port)."""
         err = check_close(torch, label, *got_want_scale,
                           **({} if tol is None else
                              dict(rtol=tol[0], atol=tol[1])))
@@ -709,13 +746,17 @@ def main() -> int:
                "bound_ms": bnd, "bound_by": by,
                "library_ms": (None if library is None
                               else graph_ms(torch, library)),
-               "call_ms": cuda_ms(torch, fn)}
+               "call_ms": cuda_ms(torch, fn),
+               "yardsticks_ms": {k: graph_ms(torch, f)
+                                 for k, f in (yardsticks or {}).items()}}
         lib_ms = row["library_ms"]
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        yard_txt = "".join(f", {k} {v:.4f} ms"
+                           for k, v in row["yardsticks_ms"].items())
         print(f"  {label}: kernel {row['ms']:.4f} ms (eager call "
               f"{row['call_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
-              f"library {lib_txt}, bound {bnd:.4f} ms ({by}), max abs err "
-              f"{err:.3e}", flush=True)
+              f"library {lib_txt}{yard_txt}, bound {bnd:.4f} ms ({by}), "
+              f"max abs err {err:.3e}", flush=True)
         rows.setdefault(name, row)      # the first row is the path's shape
         report.setdefault("kernel_checks", []).append(row)
 
@@ -880,27 +921,53 @@ def main() -> int:
                        (got, want, scale),
                        4 * (na * mm * nn + na * nn * K + na * mm * K),
                        2 * na * mm * nn * K)
-    # normal_matvec (the PCG polish's product) = the two kernels composed
-    p = torch.randn(n, device=dev, generator=g)
-    shift = torch.rand(n, device=dev, generator=g) + 1e-3
-    got = matvec.normal_matvec(A_all, p, shift)
-    want = ref.normal_matvec_ref(A_all, p, shift)
-    scale = float((A_all.abs().mT @ (A_all.abs() @ p.abs())).max())
-    err = check_close(torch, "normal_matvec", got, want, scale)
-    nm = {"ms": graph_ms(torch,
-                         lambda: matvec.normal_matvec(A_all, p, shift)),
-          "call_ms": cuda_ms(torch,
-                             lambda: matvec.normal_matvec(A_all, p, shift)),
-          "plain_ms": graph_ms(torch, lambda: ref.normal_matvec_ref(
-              A_all, p, shift)),
-          "bound_ms": bound(4 * (A_all.numel() + 3 * n),
-                            4 * A_all.numel() + 3 * n)[0],
-          "max_abs_err": err}
-    print(f"  normal_matvec {tuple(A_all.shape)} (matvec + rmatvec): "
-          f"{nm['ms']:.4f} ms (eager call {nm['call_ms']:.4f} ms), plain "
-          f"{nm['plain_ms']:.4f} ms, bound {nm['bound_ms']:.4f} ms (bytes), "
-          f"max abs err {err:.3e}", flush=True)
-    report["normal_matvec"] = nm
+    # normal_matvec, (A^T A + diag(shift)) p reading A once: the Woodbury
+    # polish's stacked (6,400, 10,000) with its vector shift (the row the
+    # kernels line reports), the Fig. 3 PCG x-update's (8, 25,000, 4,000)
+    # with its scalar shift, and that fit's stacked polish (200,000, 4,000).
+    # Yardsticks (no one PyTorch call computes it): the composition of the
+    # matvec and rmatvec kernels, and two torch.matmul calls. The bound
+    # reads A, p and the shift once and writes the output; 4 flop an entry
+    # of A.
+    plans = {}
+    for Aa, vec_shift in ((A_all, True), (A3, False),
+                          (A3.view(-1, A3.shape[-1]), True)):
+        nn = Aa.shape[-1]
+        Na = Aa.shape[0] if Aa.ndim == 3 else 1
+        p = torch.randn(Aa.shape[:-2] + (nn,), device=dev, generator=g)
+        shift = (torch.rand(nn, device=dev, generator=g) + 1e-3
+                 if vec_shift else 4.1)
+        label = (f"normal_matvec {tuple(Aa.shape)} "
+                 f"{'vector' if vec_shift else 'scalar'} shift")
+        got = matvec.normal_matvec(Aa, p, shift)
+        require(torch.equal(got, matvec.normal_matvec(Aa, p, shift)),
+                f"{label}: two calls differ")
+        want = ref.normal_matvec_ref(Aa, p, shift)
+        aa = Aa.abs()
+        mags = torch.matmul(aa.mT, torch.matmul(aa, p.abs()[..., None]))
+        del aa
+        scale = float((mags[..., 0] + torch.as_tensor(shift).abs().to(dev)
+                       * p.abs()).max())
+        del mags
+        plans[label] = matvec.normal_plan(
+            Na, Aa.shape[-2], nn, None, Aa.data_ptr() % 16 == 0,
+            matvec.sm_count(dev))._asdict()
+        kernel_row("normal_matvec", label,
+                   lambda Aa=Aa, p=p, s=shift: matvec.normal_matvec(Aa, p, s),
+                   lambda Aa=Aa, p=p, s=shift: ref.normal_matvec_ref(Aa, p,
+                                                                     s),
+                   None, (got, want, scale),
+                   4 * (Aa.numel() + 2 * p.numel() + (nn if vec_shift
+                                                      else 0)),
+                   4 * Aa.numel() + 2 * p.numel(),
+                   yardsticks={
+                       "composed": lambda Aa=Aa, p=p, s=shift:
+                           composed_normal(Aa, p, s),
+                       "two matmul": lambda Aa=Aa, p=p: torch.matmul(
+                           Aa.mT, torch.matmul(Aa, p[..., None]))})
+        del got, want
+    report["normal_matvec_plans"] = plans
+    torch.cuda.empty_cache()
 
     # block_matvec / block_rmatvec: the Fig. 3 point with M = 4 blocks (the
     # first rows are the path's shape), and a ragged shape whose last block
@@ -1136,32 +1203,19 @@ def main() -> int:
         return est
 
     # 4. the main path at full width ---------------------------------------
-    # normal_matvec (the PCG polish's product) launches matvec and rmatvec;
-    # its own calls and launches are counted around the solver's binding
-    normal = {"calls": 0, "launches": 0}
-    normal_auto = bicadmm.normal_matvec_auto
-
-    def counted_normal(a, p, shift):
-        before = ops.launch_counts()
-        out = normal_auto(a, p, shift)
-        after = ops.launch_counts()
-        normal["calls"] += 1
-        normal["launches"] += sum(after[k] - before[k]
-                                  for k in ("matvec", "rmatvec"))
-        return out
-
-    bicadmm.normal_matvec_auto = counted_normal
-    try:
-        est = fit_phase("woodbury", A, torch.as_tensor(bs_w, device=dev),
-                        xt_w, wide.kappa, "woodbury", MAIN_KERNELS,
-                        setup=True)
-    finally:
-        bicadmm.normal_matvec_auto = normal_auto
+    est = fit_phase("woodbury", A, torch.as_tensor(bs_w, device=dev), xt_w,
+                    wide.kappa, "woodbury", MAIN_KERNELS, setup=True)
     main_counts = report["woodbury"]["launches"]
-    report["woodbury"]["normal_matvec"] = normal
+    # normal_matvec runs in the PCG polish, on the stacked (N m, n) A
+    per_call = matvec.normal_plan(1, N * m, n, None, A.data_ptr() % 16 == 0,
+                                  matvec.sm_count(dev)).launches
+    report["woodbury"]["normal_matvec"] = {
+        "launches": main_counts["normal_matvec"],
+        "calls": main_counts["normal_matvec"] / per_call}
     print(f"  normal_matvec in the woodbury fit (PCG polish): "
-          f"{normal['calls']} calls, {normal['launches']} of the matvec and "
-          "rmatvec launches", flush=True)
+          f"{main_counts['normal_matvec'] // per_call} calls, "
+          f"{main_counts['normal_matvec']} launches ({per_call} a call)",
+          flush=True)
 
     def profile_phase(name, est_kw, As, bs, state):
         """Where the time goes: two more outer iterations (no polish) from
@@ -1235,7 +1289,111 @@ def main() -> int:
     profile_phase("profile_fig3", dict(kappa=fig3.kappa, gamma=10.0,
                                        rho_c=4.0, n_feature_blocks=M3),
                   A3, b3, est3.result_.state)
-    del A3, b3, est3
+    del est3
+
+    # 6b. the same point and data through the PCG x-update -----------------
+    # (Fig. 3's x_solver="auto", no feature split, polish on). The CG steps
+    # and the wall time (host clock, synchronised) of each pcg call are
+    # taken around the solver's prox.pcg; the fit runs with the kernel, then
+    # with the solver's normal_matvec bound to the composition, in turns
+    # (kernel, composition, composition, kernel).
+    cg_steps = {"x-update": [], "polish": []}
+    cg_secs = {"x-update": 0.0, "polish": 0.0}
+    plain_pcg = prox.pcg
+    bound_normal = (prox.normal_matvec_auto, bicadmm.normal_matvec_auto)
+
+    def counted_pcg(mv, rhs, x0, precond, iters, tol):
+        calls = [0]
+
+        def counted(v):
+            calls[0] += 1
+            return mv(v)
+        t_cg = time.perf_counter()
+        out = plain_pcg(counted, rhs, x0, precond, iters, tol)
+        torch.cuda.synchronize()
+        kind_ = "polish" if rhs.ndim == 1 else "x-update"
+        cg_secs[kind_] += time.perf_counter() - t_cg
+        cg_steps[kind_].append(calls[0] - 1)
+        return out
+
+    def bind_normal(fn):
+        prox.normal_matvec_auto = bicadmm.normal_matvec_auto = fn
+
+    def pcg_est():
+        return api.SparseLinearRegression(kappa=fig3.kappa, gamma=10.0,
+                                          rho_c=4.0, max_iter=60, tol=0.0)
+
+    pcg_runs = {}
+    kernel_needs = (*PROJ_KERNELS, "rmatvec", "normal_matvec")
+    composed_needs = (*PROJ_KERNELS, "matvec", "rmatvec")
+    prox.pcg = counted_pcg
+    try:
+        for name, fn, needed in (
+                ("pcg", bound_normal[0], kernel_needs),
+                ("pcg_composed", composed_normal, composed_needs),
+                ("pcg_composed_2", composed_normal, composed_needs),
+                ("pcg_2", bound_normal[0], kernel_needs)):
+            bind_normal(fn)
+            for v in cg_steps.values():
+                v.clear()
+            cg_secs.update(dict.fromkeys(cg_secs, 0.0))
+            est_p = fit_phase(name, A3, b3, xt_3, fig3.kappa, "pcg", needed,
+                              est=pcg_est(), setup=True,
+                              cut=" (polish on)")
+            rep_p = report[name]
+            iters = max(rep_p["iters"], 1)
+            calls = sum(s_ + 1 for v in cg_steps.values() for s_ in v)
+            rep_p["cg_steps"] = {k: list(v) for k, v in cg_steps.items()}
+            rep_p["cg_steps_per_outer_iter"] = (sum(cg_steps["x-update"])
+                                                / iters)
+            rep_p["pcg_s"] = dict(cg_secs)
+            rep_p["normal_matvec_calls"] = calls
+            pcg_runs[name] = est_p
+            print(f"  {name}: {rep_p['s_per_outer_iter'] * 1e3:.2f} ms per "
+                  f"outer iteration, of which the PCG x-update "
+                  f"{cg_secs['x-update'] / iters * 1e3:.2f} ms; CG steps "
+                  f"per outer iteration "
+                  f"{rep_p['cg_steps_per_outer_iter']:.2f}; polish "
+                  f"{sum(cg_steps['polish'])} CG steps in "
+                  f"{cg_secs['polish'] * 1e3:.2f} ms; normal_matvec calls "
+                  f"{calls}, launches "
+                  f"{rep_p['launches']['normal_matvec']}", flush=True)
+    finally:
+        prox.pcg = plain_pcg
+        bind_normal(bound_normal[0])
+    pcg_counts = report["pcg"]["launches"]
+    # every call on this path has two launches (normal_plan at (8, 25,000,
+    # 4,000) and (200,000, 4,000)); the composed run launches none
+    require(pcg_counts["normal_matvec"]
+            == 2 * report["pcg"]["normal_matvec_calls"],
+            f"pcg: {pcg_counts['normal_matvec']} normal_matvec launches for "
+            f"{report['pcg']['normal_matvec_calls']} calls, not 2 a call")
+    for name in ("pcg_composed", "pcg_composed_2"):
+        require(report[name]["launches"]["normal_matvec"] == 0,
+                f"{name}: the composition launched normal_matvec")
+    for name in pcg_runs:
+        peak = report[name]["peak_bytes_above_start"]
+        require(peak < 0.25 * a_bytes,
+                f"{name}: the fit's peak device memory above its start, "
+                f"{peak / 1e9:.3f} GB, is not under a quarter of A's "
+                f"{a_bytes / 1e9:.2f} GB: a copy of A was made")
+    ms = {k: report[k]["s_per_outer_iter"] * 1e3 for k in pcg_runs}
+    xu = {k: report[k]["pcg_s"]["x-update"] / max(report[k]["iters"], 1)
+          * 1e3 for k in pcg_runs}
+    print("  pcg A/B, ms per outer iteration (of which the PCG x-update): "
+          + "; ".join(f"{k} {ms[k]:.2f} ({xu[k]:.2f})" for k in pcg_runs),
+          flush=True)
+    # where the time goes, with the kernel and with the composition
+    for name, fn in (("profile_pcg", bound_normal[0]),
+                     ("profile_pcg_composed", composed_normal)):
+        bind_normal(fn)
+        try:
+            profile_phase(name, dict(kappa=fig3.kappa, gamma=10.0,
+                                     rho_c=4.0),
+                          A3, b3, pcg_runs["pcg"].result_.state)
+        finally:
+            bind_normal(bound_normal[0])
+    del A3, b3, pcg_runs, est_p
     torch.cuda.empty_cache()
 
     # 7. classification through the feature split (rows cut to m = 5,000) --
@@ -1291,16 +1449,18 @@ def main() -> int:
     lm_parity_phase(torch, dev, report)
 
     # launches: each kernel's count from the full-width path that runs it
-    # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit, the qwen3-8b
-    # prefill and decode, the projections past the one-launch limit)
+    # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit, the Fig. 3
+    # PCG fit, the qwen3-8b prefill and decode, the projections past the
+    # one-launch limit)
     kernels = []
     for name in ops.KERNELS:
         row = dict(rows[name])
-        row.pop("shape")
-        row.pop("call_ms")
+        for key in ("shape", "call_ms", "yardsticks_ms"):
+            row.pop(key)
         counts = (lm_counts if name == "flash_attention" else
                   block_counts if name in BLOCK_KERNELS else
-                  large_counts if name == "ladder_stats" else main_counts)
+                  large_counts if name == "ladder_stats" else
+                  pcg_counts if name == "normal_matvec" else main_counts)
         row["launches"] = counts[name]
         kernels.append(row)
     report["kernels"] = kernels

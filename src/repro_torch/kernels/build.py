@@ -33,8 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ladder_stats", "ladder_proj", "gram", "matvec", "block_matvec",
-           "flash_attention")
+SOURCES = ("ladder_stats", "ladder_proj", "gram", "matvec", "normal_matvec",
+           "block_matvec", "flash_attention")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # flags of one source beyond the common ones: the projections keep every
 # f32 operation of their plain versions as its own rounding (no a*b+c
@@ -49,9 +49,10 @@ F = ctypes.c_float
 # Device kernel launches per kernel: a wrapper adds, where it launches, the
 # number of CUDA kernels its C entry point issued — two for ladder_stats
 # (partial and reduce passes), for block_rmatvec over more than one row
-# slice and for rmatvec when a second kernel sums its row slices
-# (kernels/matvec.py, plan), one otherwise (flash_attention and the two
-# one-launch projections: one) — and nowhere else (read through
+# slice, for rmatvec when a second kernel sums its row slices
+# (kernels/matvec.py, plan) and for normal_matvec when a second kernel adds
+# its CTAs' partials (normal_plan), one otherwise (flash_attention and the
+# two one-launch projections: one) — and nowhere else (read through
 # repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -11,19 +11,27 @@ On CUDA tensors they launch ``csrc/matvec.cu``; on CPU tensors they are the
 plain versions. What the kernels are given — the load path, one launch or
 row slices summed by a second, the grid — is decided by :func:`plan`, a
 pure function of the operands' shapes and alignment and the card's SM
-count. ``normal_matvec`` is the composition of the two, with the
-intermediate cast of ``w`` to ``a.dtype`` that the JAX package makes
-(``repro/kernels/matvec.py:186``).
+count.
+
+``normal_matvec(a, p, shift)`` is (a^T a + diag(shift)) p, with the
+intermediate cast of ``w = a p`` to ``a.dtype`` that the JAX package makes
+(``repro/kernels/matvec.py:186``). On CUDA tensors it launches
+``csrc/normal_matvec.cu``, which reads ``a`` once; :func:`normal_plan`
+picks its tiles, ring, CTAs per node and launches (one, or two with the
+CTAs' partials added in order by a second kernel). A ``p`` with a
+right-hand-side axis, or ``n`` past ``NM_MAX_N``, takes the composition of
+the ``matvec`` and ``rmatvec`` kernels instead (the plan says so).
 """
 from __future__ import annotations
 
 import functools
+import numbers
 from typing import NamedTuple
 
 import torch
 
 from . import build
-from .ref import matvec_ref, rmatvec_ref
+from .ref import matvec_ref, normal_matvec_ref, rmatvec_ref
 
 # Mirrors of csrc/matvec.cu's constants (tests/test_torch_matvec.py reads
 # them from the source).
@@ -36,11 +44,32 @@ MIN_BLOCKS = 2         # kMinBlocks: resident blocks an SM (one wave)
 ROWS_PER_WARP_K1, ROWS_PER_WARP = 4, 2
 MATVEC_PATHS = ("vec1", "veck", "scalar")   # the C entry's path numbers
 
+# Mirrors of csrc/normal_matvec.cu's constants (read from the source by
+# tests/test_torch_normal_matvec.py).
+NM_THREADS = 512        # kThreads: threads of a stream CTA
+NM_MAX_VPT = 8          # kMaxVpt: float4 column chunks a thread owns
+NM_MAX_ROWS = 4         # kMaxRows: rows of a tile
+NM_MAX_TILE_VECS = 8    # kMaxTileVecs: most rows x vpt (no spills)
+NM_MAX_STAGES = 8       # kMaxStages: stages of the ring
+NM_RING_BYTES = 204_800  # kRingBytes: shared memory of the ring
+NM_MAX_N = 4 * NM_THREADS * NM_MAX_VPT   # widest row the kernel takes
+# the plan's own choices: about 40 KB a stage (rows of 1, 2 or 4), and at
+# least 8 tiles a CTA, so the CTAs' partials stay small beside A
+NM_STAGE_BYTES = 40_960
+NM_MIN_TILES = 8
+NM_PATHS = ("scalar", "bulk")   # the C entry's bulk flag
+
 _SIGNATURES = {
     "matvec_f32": [build.P, build.P, build.P, build.I, build.I, build.I,
                    build.I, build.I, build.I, build.P],
     "rmatvec_f32": [build.P, build.P, build.P, build.P, build.I, build.I,
                     build.I, build.I, build.I, build.I, build.I, build.P],
+}
+_NM_SIGNATURES = {
+    "normal_matvec_f32": [build.P, build.P, build.P, build.F, build.I,
+                          build.P, build.P, build.I, build.I, build.I,
+                          build.I, build.I, build.I, build.I, build.I,
+                          build.P],
 }
 
 
@@ -101,6 +130,56 @@ def plan(adjoint: bool, N: int, m: int, n: int, K: int, a_aligned: bool,
                 path == "veck" and K <= MAX_K and not v_aligned)
 
 
+class NormalPlan(NamedTuple):
+    """How one ``normal_matvec`` is launched.
+
+    ``route``: ``"fused"`` (csrc/normal_matvec.cu, A read once) or
+    ``"composed"`` (the matvec and rmatvec kernels, then the shifted axpy
+    in PyTorch: a ``p`` with a right-hand-side axis, or n past NM_MAX_N).
+    ``path``: ``"bulk"`` (one cp.async.bulk a tile: n % 4 == 0 and A
+    16-byte aligned) or ``"scalar"`` (4-byte cp.asyncs). ``vpt``: float4
+    column chunks a thread owns; ``rows``: rows of a tile; ``stages``: of
+    the ring; ``ctas``: CTAs a node (0 when m == 0). ``launches``: device
+    kernels of ``normal_matvec`` a call — 2 (the stream kernel writes the
+    CTAs' partials, a second kernel adds them in CTA order and applies the
+    shift), 1 (one CTA a node, which finishes the output itself; or m == 0:
+    the second kernel alone, A unread), 0 (an empty output, or the
+    composition, whose launches count as ``matvec`` and ``rmatvec``)."""
+    route: str
+    path: str
+    vpt: int
+    rows: int
+    stages: int
+    ctas: int
+    launches: int
+
+
+def normal_plan(N: int, m: int, n: int, K: int | None, a_aligned: bool,
+                sm_count: int) -> NormalPlan:
+    """The launch of (a^T a + diag(shift)) p for a of shape (N, m, n) and
+    p of shape (N, n) (``K`` None) or (N, n, K); ``a_aligned``: whether a
+    starts 16-byte aligned. Each node's rows are split into at most
+    ``sm_count // N`` CTAs (one a multiprocessor: the ring fills its shared
+    memory), each with at least NM_MIN_TILES tiles."""
+    path = "bulk" if n % 4 == 0 and a_aligned else "scalar"
+    n4 = -(-n // 4)
+    if K is not None or n > NM_MAX_N:
+        return NormalPlan("composed", path, 0, 0, 0, 0, 0)
+    if N == 0 or n == 0:
+        return NormalPlan("fused", path, 0, 0, 0, 0, 0)
+    vpt = -(-n4 // NM_THREADS)
+    row_bytes = 16 * n4
+    rows = next(r for r in (4, 2, 1)
+                if r == 1 or r * row_bytes <= NM_STAGE_BYTES)
+    stages = min(NM_MAX_STAGES, NM_RING_BYTES // (rows * row_bytes))
+    if m == 0:
+        return NormalPlan("fused", path, vpt, rows, stages, 0, 1)
+    tiles = -(-m // rows)
+    ctas = max(1, min(sm_count // N, tiles // NM_MIN_TILES))
+    return NormalPlan("fused", path, vpt, rows, stages, ctas,
+                      1 if ctas == 1 else 2)
+
+
 def matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """w = a @ x in f32 (shapes in the module docstring)."""
     if a.device.type == "cpu":
@@ -121,11 +200,14 @@ def rmatvec(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def normal_matvec(a: torch.Tensor, p: torch.Tensor, shift) -> torch.Tensor:
     """(A^T A + diag(shift)) p: w = A p, cast to a.dtype, then A^T w plus
-    the shifted axpy, cast to a.dtype. ``shift`` is a scalar or an (n,)
-    vector (broadcast over a leading node axis)."""
-    w = matvec(a, p)
-    g = rmatvec(a, w.to(a.dtype))
-    return (g + shift * p.to(torch.float32)).to(a.dtype)
+    the shifted axpy, cast to a.dtype. ``a`` (m, n) with ``p`` (n,), or
+    (N, m, n) with ``p`` (N, n); ``shift`` a Python scalar, a 0-d tensor
+    or an (n,) vector (broadcast over the nodes)."""
+    if a.device.type == "cpu":
+        return normal_matvec_ref(a, p, shift)
+    if a.device.type != "cuda":
+        raise ValueError(f"normal_matvec: no kernel for device {a.device}")
+    return _launch_normal(a, p, shift)
 
 
 @functools.cache
@@ -192,3 +274,90 @@ def _launch(a: torch.Tensor, v: torch.Tensor, *, adjoint: bool) -> torch.Tensor:
     if a.ndim == 2:
         out = out[0]
     return out[..., 0] if one else out
+
+
+class NormalArgs(NamedTuple):
+    """What ``normal_matvec`` hands its C entry besides the pointers of a,
+    p and the outputs: the (N, m, n) view of a, p's right-hand-side width
+    (None for a vector a node) and the shift as (pointer, value, kind) —
+    kind 0 a value (a Python scalar or a 0-d CPU tensor), 1 a 0-d tensor
+    on a's device (read there: no host sync), 2 an (n,) vector on a's
+    device."""
+    N: int
+    m: int
+    n: int
+    K: int | None
+    shift_ptr: int
+    shift_val: float
+    shift_kind: int
+
+
+def normal_args(a: torch.Tensor, p: torch.Tensor, shift) -> NormalArgs:
+    """Check what the kernel takes — float32 operands, a contiguous
+    (m, n) or (N, m, n) a (never copied), p (n,) / (N, n) or with a
+    right-hand-side axis, a float32 shift that is a scalar, 0-d or (n,) —
+    and raise ValueError on anything else. Reads metadata only."""
+    name = "normal_matvec"
+    if a.ndim not in (2, 3):
+        raise ValueError(f"{name}: a must be (m, n) or (N, m, n), got "
+                         f"{tuple(a.shape)}")
+    if a.dtype != torch.float32 or p.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes float32 operands, got "
+                         f"{a.dtype}, {p.dtype}")
+    if not a.is_contiguous():
+        raise ValueError(f"{name}: a must be contiguous (row-major); the "
+                         "wrapper does not copy the data matrix")
+    lead = a.shape[:-2]
+    N, m, n = (lead[0] if lead else 1), a.shape[-2], a.shape[-1]
+    if (p.ndim not in (a.ndim - 1, a.ndim)
+            or tuple(p.shape[:a.ndim - 1]) != (*lead, n)):
+        raise ValueError(f"{name}: p of shape {tuple(p.shape)} does not fit "
+                         f"a of shape {tuple(a.shape)}")
+    if max(m, n) >= 2 ** 31 or N * n >= 2 ** 31:
+        raise ValueError(f"{name}: sizes must fit int32")
+    K = p.shape[-1] if p.ndim == a.ndim else None
+    if isinstance(shift, numbers.Real) and not isinstance(shift, bool):
+        return NormalArgs(N, m, n, K, 0, float(shift), 0)
+    if not isinstance(shift, torch.Tensor):
+        raise ValueError(f"{name}: shift must be a scalar or a tensor, got "
+                         f"{type(shift).__name__}")
+    if shift.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes a float32 shift, got "
+                         f"{shift.dtype}")
+    if shift.ndim == 0 and shift.device.type == "cpu":
+        return NormalArgs(N, m, n, K, 0, float(shift), 0)
+    if shift.device != a.device:
+        raise ValueError(f"{name}: shift on {shift.device}, a on "
+                         f"{a.device}")
+    if shift.ndim == 0:
+        return NormalArgs(N, m, n, K, shift.data_ptr(), 0.0, 1)
+    if tuple(shift.shape) != (n,) or not shift.is_contiguous():
+        raise ValueError(f"{name}: shift of shape {tuple(shift.shape)} is "
+                         f"neither 0-d nor a contiguous ({n},) vector")
+    return NormalArgs(N, m, n, K, shift.data_ptr(), 0.0, 2)
+
+
+def _launch_normal(a: torch.Tensor, p: torch.Tensor, shift) -> torch.Tensor:
+    name = "normal_matvec"
+    args = normal_args(a, p, shift)
+    build.require_cuda(name, a, p)
+    N, m, n = args.N, args.m, args.n
+    pl = normal_plan(N, m, n, args.K, a.data_ptr() % 16 == 0,
+                     sm_count(a.device))
+    if pl.route == "composed":
+        g = rmatvec(a, matvec(a, p).to(a.dtype))
+        return (g + shift * p.to(torch.float32)).to(a.dtype)
+    out = torch.empty((N, n), dtype=torch.float32, device=a.device)
+    if pl.launches:
+        pc = p.contiguous()        # the small operand only, never a
+        part = torch.empty((N, pl.ctas, n) if pl.launches == 2 else (0,),
+                           dtype=torch.float32, device=a.device)
+        lib = build.library(name, _NM_SIGNATURES)
+        rc = lib.normal_matvec_f32(
+            a.data_ptr(), pc.data_ptr(), args.shift_ptr, args.shift_val,
+            args.shift_kind, part.data_ptr(), out.data_ptr(), N, m, n,
+            NM_PATHS.index(pl.path), pl.vpt, pl.rows, pl.stages, pl.ctas,
+            build.stream(a))
+        build.check(rc, name)
+        build.LAUNCHES[name] += pl.launches
+    return out if a.ndim == 3 else out[0]

@@ -9,7 +9,7 @@ kernel             cuda row                    cpu row
 =================  ==========================  =============================
 gram               csrc/gram.cu                plain ``a^T a``
 matvec / rmatvec   csrc/matvec.cu              plain ``a @ x`` / ``a^T y``
-normal_matvec      matvec + rmatvec kernels    plain composition
+normal_matvec      csrc/normal_matvec.cu       plain composition
 ladder_stats       csrc/ladder_stats.cu        plain broadcast
 l1_epigraph_proj   csrc/ladder_proj.cu         plain projection (f64 sums)
 skappa_support     csrc/ladder_proj.cu         plain support (f64 sums)
@@ -24,8 +24,9 @@ JAX package (``repro/kernels/ops.py:54-63``).
 
 :func:`launch_counts` reads how many CUDA kernels each wrapper launched
 since :func:`reset_launch_counts`: device launches, so a two-pass
-``ladder_stats`` call counts 2, a one-launch projection 1 (the CPU rows
-count nothing).
+``ladder_stats`` call counts 2, a one-launch projection 1, a
+``normal_matvec`` call 1 or 2 (``matvec.normal_plan``; the CPU rows count
+nothing).
 """
 from __future__ import annotations
 
@@ -49,8 +50,8 @@ __all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
            "skappa_support_auto"]
 
 KERNELS = ("ladder_stats", "l1_epigraph_proj", "skappa_support", "gram",
-           "matvec", "rmatvec", "block_matvec", "block_rmatvec",
-           "flash_attention")
+           "matvec", "rmatvec", "normal_matvec", "block_matvec",
+           "block_rmatvec", "flash_attention")
 
 
 def _out(x: torch.Tensor, like: torch.Tensor, out_dtype) -> torch.Tensor:

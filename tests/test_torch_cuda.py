@@ -396,9 +396,178 @@ def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
     assert ops.launch_counts() == {"ladder_stats": 2, "l1_epigraph_proj": 0,
                                    "skappa_support": 0, "gram": 1,
                                    "matvec": 2, "rmatvec": 4,
-                                   "block_matvec": 0, "block_rmatvec": 0,
-                                   "flash_attention": 0}
+                                   "normal_matvec": 0, "block_matvec": 0,
+                                   "block_rmatvec": 0, "flash_attention": 0}
 
+
+
+# csrc/normal_matvec.cu: (A^T A + diag(shift)) p reading A once. The plain
+# version is the composition in f32; the kernel sums in another (fixed)
+# order, so the bound is rtol 1e-4 and an atol of 1e-5 per unit of the
+# summed magnitudes |A|^T (|A| |p|) + |shift| |p|.
+def _normal_scale(a, p, shift):
+    ab, pb = (a, p) if a.ndim == 3 else (a[None], p[None])
+    s = torch.as_tensor(shift, device=a.device).abs()
+    mags = torch.matmul(ab.abs().mT, torch.matmul(ab.abs(), pb.abs()[..., None]))
+    return float((mags[..., 0] + s * pb.abs()).max())
+
+
+def _normal_check(a, p, shift):
+    """The kernel against its plain version; two calls bit for bit; the
+    plan's launches counted; the output's shape and dtype."""
+    ops.reset_launch_counts()
+    got = matvec.normal_matvec(a, p, shift)
+    again = matvec.normal_matvec(a, p, shift)
+    counts = ops.launch_counts()
+    N = a.shape[0] if a.ndim == 3 else 1
+    pl = matvec.normal_plan(N, a.shape[-2], a.shape[-1], None,
+                            a.data_ptr() % 16 == 0, matvec.sm_count(a.device))
+    assert pl.route == "fused"
+    assert counts["normal_matvec"] == 2 * pl.launches
+    assert counts["matvec"] == counts["rmatvec"] == 0
+    assert got.shape == p.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    want = ref.normal_matvec_ref(a, p, shift)
+    torch.testing.assert_close(got, want, rtol=RTOL,
+                               atol=1e-5 * _normal_scale(a, p, shift))
+    return pl
+
+
+def _shifts(gen, n):
+    return {"float": 0.75,
+            "0-d": torch.tensor(1.25, device="cuda"),
+            "vector": torch.rand(n, device="cuda", generator=gen) + 1e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,path,launches", [
+    ((6_400, 10_000), "bulk", 2),      # the Woodbury fit's stacked polish
+    ((2, 200, 2_500), "bulk", 2),      # the PCG parity fit's x-update
+    ((400, 2_500), "bulk", 2),         # and its stacked polish
+    ((3, 301, 4_001), "scalar", 2),    # n % 4 == 1: padded stage rows
+    ((2, 517, 4_002), "scalar", 2),    # n % 4 == 2
+    ((1, 999, 1_003), "scalar", 2),    # N = 1, n % 4 == 3
+    ((1, 5, 3), "scalar", 1),          # one CTA: it writes the output
+    ((150, 40, 64), "bulk", 1),        # more nodes than CTAs a node
+    ((70, 16_384), "bulk", 2),         # the widest row: vpt 8, 3 stages
+    ((2, 33, 12_288), "bulk", 2),      # 48 KB rows: 1-row tiles, 4 stages
+])
+def test_cuda_normal_matvec_agrees(cuda_gen, shape, path, launches):
+    a = torch.randn(shape, device="cuda", generator=cuda_gen)
+    p = torch.randn(shape[:-2] + shape[-1:], device="cuda",
+                    generator=cuda_gen)
+    for shift in _shifts(cuda_gen, shape[-1]).values():
+        pl = _normal_check(a, p, shift)
+        assert (pl.path, pl.launches) == (path, launches)
+
+
+@pytest.mark.cuda
+def test_cuda_normal_matvec_at_the_fig3_shapes(cuda_gen):
+    """The PCG x-update's (8, 25,000, 4,000) with a scalar shift, and its
+    stacked polish (200,000, 4,000) with a vector shift: A is 3.2 GB."""
+    a = torch.randn(8, 25_000, 4_000, device="cuda", generator=cuda_gen)
+    p = torch.randn(8, 4_000, device="cuda", generator=cuda_gen)
+    assert _normal_check(a, p, 4.1).ctas == 16
+    flat = a.view(-1, 4_000)
+    shift = torch.rand(4_000, device="cuda", generator=cuda_gen) + 1e-3
+    assert _normal_check(flat, p[0], shift).ctas == matvec.sm_count(a.device)
+
+
+@pytest.mark.cuda
+def test_cuda_normal_matvec_unaligned_a_and_empty_axes(cuda_gen):
+    """A starting one float past 16 bytes takes the scalar path; m = 0 is
+    shift * p from the second kernel alone (A unread); n = 0 and N = 0
+    launch nothing."""
+    a = _misaligned(torch.randn(2, 300, 1_000, device="cuda",
+                                generator=cuda_gen))
+    p = torch.randn(2, 1_000, device="cuda", generator=cuda_gen)
+    for shift in _shifts(cuda_gen, 1_000).values():
+        assert _normal_check(a, p, shift).path == "scalar"
+    shift = torch.rand(7, device="cuda", generator=cuda_gen)
+    p = torch.randn(3, 7, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
+    got = matvec.normal_matvec(torch.empty(3, 0, 7, device="cuda"), p, shift)
+    assert ops.launch_counts()["normal_matvec"] == 1
+    assert torch.equal(got, shift * p)
+    for a0, p0 in ((torch.empty(3, 5, 0, device="cuda"),
+                    torch.empty(3, 0, device="cuda")),
+                   (torch.empty(0, 5, 7, device="cuda"),
+                    torch.empty(0, 7, device="cuda"))):
+        got = matvec.normal_matvec(a0, p0, 1.0)
+        assert got.shape == p0.shape
+    assert ops.launch_counts()["normal_matvec"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_normal_matvec_composes_with_a_right_hand_side_axis(cuda_gen):
+    """A p with a K axis (no caller passes one) takes the matvec and
+    rmatvec kernels, as the plan says."""
+    a = torch.randn(2, 300, 256, device="cuda", generator=cuda_gen)
+    p = torch.randn(2, 256, 3, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
+    got = matvec.normal_matvec(a, p, 0.5)
+    counts = ops.launch_counts()
+    assert counts["normal_matvec"] == 0 and counts["matvec"] == 1
+    _close(got, ref.normal_matvec_ref(a, p, 0.5), 300 * 256)
+
+
+@pytest.mark.cuda
+def test_cuda_normal_matvec_makes_no_host_sync(cuda_gen):
+    """A 0-d CUDA shift is read on the device: the call reads nothing back
+    to the host."""
+    a = torch.randn(8, 800, 4_000, device="cuda", generator=cuda_gen)
+    p = torch.randn(8, 4_000, device="cuda", generator=cuda_gen)
+    shift = torch.tensor(2.5, device="cuda")
+    want = matvec.normal_matvec(a, p, shift)        # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = matvec.normal_matvec(a, p, shift)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert torch.equal(want, matvec.normal_matvec(a, p, 2.5))
+
+
+@pytest.mark.cuda
+def test_cuda_normal_matvec_refuses(cuda_gen):
+    a = torch.randn(3, 40, 64, device="cuda", generator=cuda_gen)
+    p = torch.randn(3, 64, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
+    for args in ((a.double(), p.double(), 1.0),          # not f32
+                 (a.mT.contiguous().mT, p, 1.0),         # not row-major
+                 (a, p[:, :63], 1.0),                    # p does not fit
+                 (a, p, torch.ones(63, device="cuda")),  # shift does not
+                 (a, p, torch.ones(3, 64, device="cuda")),
+                 (a, p, torch.ones(64, device="cuda").double())):
+        with pytest.raises(ValueError):
+            matvec.normal_matvec(*args)
+    assert ops.launch_counts()["normal_matvec"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_pcg_fit_agrees_with_the_cpu_fit(cuda_gen):
+    """chip_smoke's fourth parity fit: the Woodbury parity data through the
+    PCG x-update (normal_matvec every CG step), card against the port's
+    CPU fit: the same status and support, coef within 1e-3, iterations
+    within 2."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.data import SyntheticSpec, make_sparse_regression
+    spec = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
+    As, bs, _ = make_sparse_regression(1, spec)
+    kw = dict(kappa=spec.kappa, gamma=10.0, rho_c=4.0, tol=1e-4,
+              max_iter=300, x_solver="pcg")
+    ops.reset_launch_counts()
+    card = api.SparseLinearRegression(**kw).fit(As, bs).result_
+    assert ops.launch_counts()["normal_matvec"] > 0
+    cpu = api.SparseLinearRegression(device="cpu", **kw).fit(As, bs).result_
+    assert int(card.status) == int(cpu.status)
+    assert torch.equal(card.support.cpu(), cpu.support)
+    np.testing.assert_allclose(card.coef.cpu().numpy(), cpu.coef.numpy(),
+                               rtol=1e-3, atol=1e-3)
+    assert abs(int(card.iters) - int(cpu.iters)) <= 2
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

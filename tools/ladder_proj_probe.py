@@ -26,7 +26,7 @@ the SM cycles spent reaching each kind of stamp, the median of 20 calls,
 and the whole call's cycles beside the same call's device time by
 CUDA-graph replay of the uninstrumented kernel.
 
-``--parity`` runs ``chip_smoke.py``'s three parity fits (``parity_fits``)
+``--parity`` runs ``chip_smoke.py``'s parity fits (``parity_fits``)
 on the card with the projections forced to 1, 2, 4 and 8 CTAs in turn
 (the registry's ``"cuda"`` rows with ``ctas`` bound), and prints their
 iterations and status; ``chip_smoke.py`` holds the plan's run against the
