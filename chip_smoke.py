@@ -24,6 +24,11 @@ Phases, each printing its own line with its wall time:
               (8, 25,000, 4,000) and that fit's polish (200,000, 4,000),
               beside the composition of the matvec and rmatvec kernels
               and two torch.matmul calls; two calls must agree bit for bit.
+              The bf16 / fp16 instantiations of matvec, rmatvec and
+              normal_matvec (and gram's widening loads) are held and timed
+              the same way at the reduced-precision cells' shapes, beside
+              their bound with 2-byte A and torch.matmul on the half-width
+              operands, plus an odd-n view one element past 16 bytes.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
               past the one-launch limit, where the bracketing rounds run on
               the two-pass ladder_stats kernel; ladder_stats is held
@@ -33,8 +38,13 @@ Phases, each printing its own line with its wall time:
               m = 800 rows each, n = 10,000 features, kappa = 2,000) through
               ``SparseLinearRegression.fit`` on the card; the x-update must
               take the Woodbury backend and its four kernels must launch.
+   woodbury_bf16 — the same point with A and b cast to bf16 on the card
+              before the clock (``precision="bf16"``): the bf16 gram,
+              matvec, rmatvec and normal_matvec instantiations must launch
+              and no f32 one.
 5. dense    — Fig. 2's smallest point (n = 1,000, kappa = 200) through the
               dense factorization and the dense polish.
+   dense_fp16 — the same point in fp16 (``precision="fp16"``).
 6. fig3     — the paper's Fig. 3 smallest point at full width (N = 8,
               m = 25,000, n = 4,000, kappa = 800) through the feature-split
               sub-solver (M = 4 blocks, 15 inner iterations): the block
@@ -51,12 +61,19 @@ Phases, each printing its own line with its wall time:
               the composition of the matvec and rmatvec kernels (kernel,
               composition, composition, kernel), then a profile window of
               2 outer iterations with each.
+   pcg_bf16 — the same fit with A (1.6 GB) and b cast to bf16 on the card
+              before the clock: normal_matvec_bf16 every CG step; peak
+              memory above the start under a quarter of the bf16 A.
 7. classify — logistic and 3-class softmax regression at n = 4,000 through
               the feature split and the Newton-CG polish (rows cut to
               m = 5,000 per node on N = 8 to bound the run's time).
+   classify_bf16 — the same two fits in bf16 through the Newton-CG prox
+              (the feature split is not ported under bf16).
 8. parity   — reduced fits on the card against the port's own CPU fits:
-              Woodbury, the feature split (squared and logistic), and the
-              Woodbury fit's data through the PCG x-update.
+              Woodbury, the feature split (squared and logistic), the
+              Woodbury fit's data through the PCG x-update, and that data
+              in bf16 through Woodbury and in fp16 through PCG and
+              Woodbury.
 9. lm       — the dense LM's serving path at full width and depth:
               qwen3-8b (36 layers, 8.19e9 parameters drawn on the card
               from seed 0, 16.4 GB in bf16), 4 prompts of 2,048 tokens
@@ -115,16 +132,24 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_wgmma_kernel")
 # build phase prints
 PTXAS_SHOWN = ("flash_wgmma_kernel", "gram_xy_kernel")
 # csrc/matvec.cu's kernel templates, summed over their instantiations, and
-# the template arguments of those the solver path runs: matvec <path, rows
-# per warp, KC, X as float4s> at K = 1 and 3, rmatvec <columns a lane, KC>
-PTXAS_MATVEC = {"matvec_kernel": ("0,4,1,0", "1,2,3,1"),
-                "rmatvec_team_kernel": ("4,1", "4,3"),
-                "rmatvec_slices_kernel": ("4,1", "4,3"),
+# the template arguments of those the solver path runs: matvec <type of A,
+# path, rows per warp, KC, X as float4s> at K = 1 and 3, rmatvec <type,
+# columns a lane, KC>, in f32 and bf16
+PTXAS_MATVEC = {"matvec_kernel": ("f32:0,4,1,0", "f32:1,2,3,1",
+                                  "bf16:0,4,1,0", "bf16:1,2,3,1"),
+                "rmatvec_team_kernel": ("f32:4,1", "f32:4,3", "bf16:4,1"),
+                "rmatvec_slices_kernel": ("f32:4,1", "f32:4,3", "bf16:4,1",
+                                          "bf16:4,3"),
                 "sum_slices": ("",)}
-# csrc/normal_matvec.cu's: the stream kernel <bulk, vpt, rows> at
+# csrc/normal_matvec.cu's: the stream kernel <type, bulk, vpt, rows> at
 # n = 10,000 (Woodbury polish), 4,000 (Fig. 3 PCG) and 2,500 (PCG parity)
-PTXAS_NORMAL = {"normal_stream_kernel": ("1,5,1", "1,2,2", "1,2,4"),
+# in f32; 4,000 (pcg_bf16) and 2,500 (the fp16 PCG parity fit) half-width
+PTXAS_NORMAL = {"normal_stream_kernel": ("f32:1,5,1", "f32:1,2,2",
+                                         "f32:1,2,4", "bf16:1,1,4",
+                                         "f16:0,1,4"),
                 "normal_sum_kernel": ("",)}
+# the element type of a mangled template argument list
+MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 REPLACES = {
     "ladder_stats": "src/repro/kernels/bisect_proj.py:42",
@@ -151,6 +176,14 @@ SOURCES = {
     "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
+# the bf16 / fp16 instantiations, each a row of the kernels line
+HALF_TYPES = ("bf16", "f16")
+HALF_KERNELS = tuple(f"{k}_{t}" for k in ("gram", "matvec", "rmatvec",
+                                          "normal_matvec")
+                     for t in HALF_TYPES)
+for _name in HALF_KERNELS:
+    _base = _name.rsplit("_", 1)[0]
+    REPLACES[_name], SOURCES[_name] = REPLACES[_base], SOURCES[_base]
 PROJ_KERNELS = ("l1_epigraph_proj", "skappa_support")
 MAIN_KERNELS = (*PROJ_KERNELS, "gram", "matvec", "rmatvec", "normal_matvec")
 BLOCK_KERNELS = ("block_matvec", "block_rmatvec")
@@ -275,9 +308,12 @@ def ptxas_matvec(log: str, source: str = "matvec",
         if "Compiling entry function" in ln:
             mt = re.search(r"\d+(" + "|".join(sorted(families,
                                                        key=len)[::-1])
-                           + r")(?:I((?:L[ib]\d+E)+)E)?", ln)
-            entry = mt and (mt.group(1), ",".join(
-                re.findall(r"L[ib](\d+)E", mt.group(2) or "")))
+                           + r")(?:I(f|13__nv_bfloat16|6__half)?"
+                             r"((?:L[ib]\d+E)*)E)?", ln)
+            args = mt and ",".join(re.findall(r"L[ib](\d+)E",
+                                              mt.group(3) or ""))
+            typ = mt and MANGLED_TYPES.get(mt.group(2))
+            entry = mt and (mt.group(1), f"{typ}:{args}" if typ else args)
         elif entry:
             fam = fams.setdefault(entry[0], {"regs": {}, "spill": {}})
             used = re.search(r"Used (\d+) registers", ln)
@@ -315,8 +351,10 @@ def parity_fits() -> list:
     """The card-vs-CPU parity fits (phase 8), as ``(report key, what,
     estimator class, its keywords, As, bs)`` with numpy data from seed 1:
     Woodbury at n = 2,500, the feature split (M = 4, ragged last block
-    nb = 63) at n = 250, squared and logistic, and the Woodbury fit's data
-    through the PCG x-update (normal_matvec every CG step). ``repro_torch``
+    nb = 63) at n = 250, squared and logistic, the Woodbury fit's data
+    through the PCG x-update (normal_matvec every CG step), and that data
+    cast to bf16 through Woodbury and to fp16 through PCG and Woodbury (the
+    engine casts it, on the card and on the CPU alike). ``repro_torch``
     must be importable."""
     from repro_torch import api
     from repro_torch.data import (SyntheticSpec, make_sparse_classification,
@@ -335,7 +373,16 @@ def parity_fits() -> list:
              make_sparse_classification, split, api.SparseLogisticRegression,
              dict(rho_c=1.0, n_feature_blocks=4)),
             ("parity_pcg", "pcg", make_sparse_regression, small,
-             api.SparseLinearRegression, dict(rho_c=4.0, x_solver="pcg"))):
+             api.SparseLinearRegression, dict(rho_c=4.0, x_solver="pcg")),
+            ("parity_woodbury_bf16", "woodbury bf16", make_sparse_regression,
+             small, api.SparseLinearRegression,
+             dict(rho_c=4.0, x_solver="woodbury", precision="bf16")),
+            ("parity_pcg_fp16", "pcg fp16", make_sparse_regression, small,
+             api.SparseLinearRegression,
+             dict(rho_c=4.0, x_solver="pcg", precision="fp16")),
+            ("parity_woodbury_fp16", "woodbury fp16", make_sparse_regression,
+             small, api.SparseLinearRegression,
+             dict(rho_c=4.0, x_solver="woodbury", precision="fp16"))):
         As, bs, _ = make(1, spec)
         fits.append((key, f"N={spec.n_nodes} m={spec.m_per_node} "
                           f"n={spec.n_features} kappa={spec.kappa} {what}",
@@ -717,8 +764,7 @@ def main() -> int:
         """normal_matvec as the matvec and rmatvec kernels composed (the
         port's product before csrc/normal_matvec.cu): a yardstick and the
         pcg phase's A/B, never called by the port."""
-        g_ = matvec.rmatvec(a, matvec.matvec(a, p).to(a.dtype))
-        return (g_ + shift * p.to(torch.float32)).to(a.dtype)
+        return matvec.rmatvec(a, matvec.matvec(a, p)) + shift * p
 
     # 3. kernels against their plain versions ------------------------------
     t0 = time.perf_counter()
@@ -969,6 +1015,117 @@ def main() -> int:
     report["normal_matvec_plans"] = plans
     torch.cuda.empty_cache()
 
+    # the bf16 / fp16 instantiations at the reduced-precision cells' shapes:
+    # matvec / rmatvec at the Woodbury prox's (8, 800, 10,000) K = 1 and the
+    # classify polish's (40,000, 4,000) K = 1 and 3; normal_matvec at the
+    # PCG x-update's (8, 25,000, 4,000) and its polish's (200,000, 4,000);
+    # gram's widening loads at A A^T of (8, 800, 10,000) (bf16) and A^T A
+    # of (8, 800, 1,000). The outputs are f32 (A widened exactly, the sums
+    # in f32), so the f32 bound holds. Bytes count 2 for an element of A;
+    # the library yardstick is torch.matmul on half-width operands.
+    for sfx, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        # odd n, A one element past 16 bytes: the scalar loads, and
+        # normal_matvec through the composed half-width kernels
+        Ao = torch.randn(2 * 3_001 * 1_001 + 1, device=dev,
+                         generator=g).to(dt)[1:].view(2, 3_001, 1_001)
+        require(Ao.data_ptr() % 16 == 2, "odd-n view: not misaligned")
+        mats = [(A.to(dt), (1,)), (A3.view(-1, A3.shape[-1])[:40_000].to(dt),
+                                   (1, 3)), (Ao, (1,))]
+        for Aa, Ks in mats:
+            label_a = f"{tuple(Aa.shape)} {sfx}"
+            lead, (mm, nn) = Aa.shape[:-2], Aa.shape[-2:]
+            na = math.prod(lead)
+            af = Aa.float().abs()
+            for K in Ks:
+                x = torch.randn(*lead, nn, *((K,) if K > 1 else ()),
+                                device=dev, generator=g)
+                y = torch.randn(*lead, mm, *((K,) if K > 1 else ()),
+                                device=dev, generator=g)
+                xk, yk = (x, y) if K > 1 else (x[..., None], y[..., None])
+                nbytes = 2 * na * mm * nn + 4 * (na * nn * K + na * mm * K)
+                got = matvec.matvec(Aa, x)
+                require(got.dtype == torch.float32, "matvec: f32 out")
+                kernel_row(f"matvec_{sfx}", f"matvec {label_a} K={K}",
+                           lambda Aa=Aa, x=x: matvec.matvec(Aa, x),
+                           lambda Aa=Aa, x=x: ref.matvec_ref(Aa, x),
+                           lambda Aa=Aa, xk=xk: torch.matmul(Aa, xk.to(dt)),
+                           (got, ref.matvec_ref(Aa, x),
+                            float((af @ xk.abs()).max())),
+                           nbytes, 2 * na * mm * nn * K)
+                got = matvec.rmatvec(Aa, y)
+                kernel_row(f"rmatvec_{sfx}", f"rmatvec {label_a} K={K}",
+                           lambda Aa=Aa, y=y: matvec.rmatvec(Aa, y),
+                           lambda Aa=Aa, y=y: ref.rmatvec_ref(Aa, y),
+                           lambda Aa=Aa, yk=yk: torch.matmul(Aa.mT,
+                                                             yk.to(dt)),
+                           (got, ref.rmatvec_ref(Aa, y),
+                            float((af.mT @ yk.abs()).max())),
+                           nbytes, 2 * na * mm * nn * K)
+            del af, got
+        A3h = A3.to(dt)
+        for Aa, vec_shift in ((A3h, False), (A3h.view(-1, A3h.shape[-1]),
+                                              True), (Ao, True)):
+            nn = Aa.shape[-1]
+            p = torch.randn(Aa.shape[:-2] + (nn,), device=dev, generator=g)
+            shift = (torch.rand(nn, device=dev, generator=g) + 1e-3
+                     if vec_shift else 4.1)
+            label = (f"normal_matvec {tuple(Aa.shape)} {sfx} "
+                     f"{'vector' if vec_shift else 'scalar'} shift")
+            got = matvec.normal_matvec(Aa, p, shift)
+            require(torch.equal(got, matvec.normal_matvec(Aa, p, shift)),
+                    f"{label}: two calls differ")
+            want = ref.normal_matvec_ref(Aa, p, shift)
+            aa = Aa.float().abs()
+            mags = torch.matmul(aa.mT, torch.matmul(aa, p.abs()[..., None]))
+            del aa
+            scale = float((mags[..., 0] + torch.as_tensor(shift).abs().to(
+                dev) * p.abs()).max())
+            del mags
+            Na = Aa.shape[0] if Aa.ndim == 3 else 1
+            plans[label] = matvec.normal_plan(
+                Na, Aa.shape[-2], nn, None, Aa.data_ptr() % 16 == 0,
+                matvec.sm_count(dev), 2, Aa.data_ptr() % 4 == 0)._asdict()
+            kernel_row(f"normal_matvec_{sfx}", label,
+                       lambda Aa=Aa, p=p, s=shift: matvec.normal_matvec(
+                           Aa, p, s),
+                       lambda Aa=Aa, p=p, s=shift: ref.normal_matvec_ref(
+                           Aa, p, s),
+                       None, (got, want, scale),
+                       2 * Aa.numel() + 4 * (2 * p.numel()
+                                             + (nn if vec_shift else 0)),
+                       4 * Aa.numel() + 2 * p.numel(),
+                       yardsticks={
+                           "composed": lambda Aa=Aa, p=p, s=shift:
+                               composed_normal(Aa, p, s),
+                           "two matmul": lambda Aa=Aa, p=p: torch.matmul(
+                               Aa.mT, torch.matmul(Aa, p.to(dt)[..., None]))})
+            del got, want
+        del A3h, Ao, mats, Aa
+        torch.cuda.empty_cache()
+        # gram's widening loads: A A^T of the bf16 Woodbury set-up, A^T A of
+        # the dense set-up (the fp16 dense cell's too). The products are
+        # exact and summed in f64 on both sides, so the kernel is held to
+        # one f32 rounding of the plain version (rtol 2^-23); the bound
+        # counts the work at the half types' tensor-core rate.
+        grams = [(f"gram A^T A {tuple(An.shape)} {sfx}", An.to(dt))]
+        if sfx == "bf16":
+            grams.insert(0, (f"gram A A^T {tuple(A.shape)} {sfx}",
+                             A.to(dt).mT))
+        for label, X in grams:
+            nb, mm, nx = X.shape
+            got, want = gram.gram(X), ref.gram_ref(X)
+            kernel_row(f"gram_{sfx}", f"{label} (symmetric: nb nx (nx+1) m "
+                                      "flop)",
+                       lambda X=X: gram.gram(X), lambda X=X: ref.gram_ref(X),
+                       lambda X=X: torch.matmul(X.mT, X), (got, want, None),
+                       2 * nb * mm * nx + 4 * nb * nx * nx,
+                       nb * nx * (nx + 1) * mm, peak=PEAK_BF16_FLOPS,
+                       tol=(2.0 ** -23, 0.0))
+            del X, got, want
+        del grams
+        torch.cuda.empty_cache()
+    report["normal_matvec_plans"] = plans
+
     # block_matvec / block_rmatvec: the Fig. 3 point with M = 4 blocks (the
     # first rows are the path's shape), and a ragged shape whose last block
     # is short and whose nb is not a multiple of 4
@@ -1135,12 +1292,15 @@ def main() -> int:
         return 2 * tp / max(float(got.sum() + true.sum()), 1.0)
 
     def fit_phase(name, As, bs, x_true, kappa, backend, needed, est=None,
-                  setup=False, cut=""):
+                  setup=False, cut="", needed_types=()):
         """Fit ``est`` (by default the Fig. 2 SparseLinearRegression) on
         the card with the launch counts set to 0 just before and read just
         after; with ``setup`` the solver's set-up runs first, timed on its
         own. The peak device memory above the start is recorded, and
-        ``cut`` says how the cell was cut to size."""
+        ``cut`` says how the cell was cut to size. ``needed_types``: the
+        instantiations (``"matvec_bf16"``, ...) that must launch; a fit of
+        bf16 / fp16 data must launch no f32 instantiation of gram, matvec,
+        rmatvec or normal_matvec."""
         t_ph = time.perf_counter()
         if est is None:
             est = api.SparseLinearRegression(kappa=kappa, gamma=10.0,
@@ -1149,7 +1309,8 @@ def main() -> int:
         Nn, mm, nn = As.shape
         solver = est._adapter.solver
         kind_ = ("feature split" if solver.cfg.use_feature_split
-                 else solver._x_engine(mm, nn).kind)
+                 else solver._x_engine(mm, nn).kind
+                 if solver.loss.name == "squared" else "newton-cg")
         require(kind_ == backend, f"{name}: x-update took {kind_}, "
                                   f"expected {backend}")
         torch.cuda.synchronize()
@@ -1168,11 +1329,19 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_fit
         counts = ops.launch_counts()
+        by_type = ops.launch_counts_by_type()
         peak = torch.cuda.max_memory_allocated() - mem0
         res = est.result_
         for k_name in needed:
             require(counts[k_name] > 0, f"{name}: kernel {k_name} was not "
                                         "launched on the path")
+        for k_name in needed_types:
+            require(by_type.get(k_name, 0) > 0,
+                    f"{name}: {k_name} was not launched on the path")
+        if solver.cfg.precision.data is not None:
+            f32 = {k: v for k, v in by_type.items() if k.endswith("_f32")}
+            require(not any(f32.values()),
+                    f"{name}: reduced-precision fit launched {f32}")
         require(bool(torch.isfinite(res.z).all())
                 and bool(torch.isfinite(res.coef).all()),
                 f"{name}: non-finite iterates")
@@ -1183,7 +1352,7 @@ def main() -> int:
         f1 = support_f1(est, x_true)
         out = {"x_solver": kind_, "iters": iters, "status": status.name,
                "fit_s": wall, "s_per_outer_iter": wall / max(iters, 1),
-               "launches": counts,
+               "launches": counts, "launches_by_type": by_type,
                "launches_per_outer_iter": {k: v / max(iters, 1)
                                            for k, v in counts.items()},
                "support_f1": f1, est._score_kind: score,
@@ -1196,7 +1365,9 @@ def main() -> int:
                           f"{kind_}: "
                           f"{iters} iters, {status.name}, {setup_txt}fit "
                           f"{wall:.3f} s ({wall / max(iters, 1) * 1e3:.2f} "
-                          f"ms/outer iter), launches {counts}, support F1 "
+                          f"ms/outer iter), launches "
+                          f"{ {k: v for k, v in counts.items() if v} }, by "
+                          f"type {by_type}, support F1 "
                           f"{f1:.4f}, {est._score_kind} {score:.6f}, peak "
                           f"device memory above the start "
                           f"{peak / 1e9:.3f} GB")
@@ -1269,9 +1440,29 @@ def main() -> int:
                   torch.as_tensor(As_w, device=dev),
                   torch.as_tensor(bs_w, device=dev), est.result_.state)
 
+    # 4b. the same point in bf16: A and b cast on the card once, before the
+    # clock, so the fit reads the 2-byte data in place
+    A16 = A.to(torch.bfloat16)
+    b16 = torch.as_tensor(bs_w, device=dev).to(torch.bfloat16)
+    fit_phase("woodbury_bf16", A16, b16, xt_w, wide.kappa, "woodbury",
+              MAIN_KERNELS, est=api.SparseLinearRegression(
+                  kappa=wide.kappa, gamma=10.0, rho_c=4.0, max_iter=60,
+                  tol=0.0, precision="bf16"), setup=True,
+              needed_types=("gram_bf16", "matvec_bf16", "rmatvec_bf16",
+                            "normal_matvec_bf16"))
+    del A16, b16
+
     # 5. the dense regime ---------------------------------------------------
     fit_phase("dense", As_n, bs_n, xt_n, narrow.kappa, "dense",
               (*PROJ_KERNELS, "gram", "rmatvec"))
+    fit_phase("dense_fp16", torch.as_tensor(As_n, device=dev).to(
+                  torch.float16),
+              torch.as_tensor(bs_n, device=dev).to(torch.float16), xt_n,
+              narrow.kappa, "dense", (*PROJ_KERNELS, "gram", "rmatvec"),
+              est=api.SparseLinearRegression(
+                  kappa=narrow.kappa, gamma=10.0, rho_c=4.0, max_iter=60,
+                  tol=0.0, precision="fp16"),
+              needed_types=("gram_f16", "rmatvec_f16"))
 
     # 6. Fig. 3's smallest point through the feature split ------------------
     est3 = fit_phase("fig3", A3, b3, xt_3, fig3.kappa, "feature split",
@@ -1393,7 +1584,44 @@ def main() -> int:
                           A3, b3, pcg_runs["pcg"].result_.state)
         finally:
             bind_normal(bound_normal[0])
-    del A3, b3, pcg_runs, est_p
+    del pcg_runs, est_p
+
+    # 6c. the same fit in bf16: A (1.6 GB) and b cast on the card once,
+    # before the clock; no copy of A, so the peak stays under a quarter of
+    # the bf16 A
+    A3h, b3h = A3.to(torch.bfloat16), b3.to(torch.bfloat16)
+    del A3, b3
+    torch.cuda.empty_cache()
+    cg_steps["x-update"].clear()
+    cg_steps["polish"].clear()
+    cg_secs.update(dict.fromkeys(cg_secs, 0.0))
+    prox.pcg = counted_pcg
+    try:
+        fit_phase("pcg_bf16", A3h, b3h, xt_3, fig3.kappa, "pcg",
+                  kernel_needs, est=api.SparseLinearRegression(
+                      kappa=fig3.kappa, gamma=10.0, rho_c=4.0, max_iter=60,
+                      tol=0.0, precision="bf16"), setup=True,
+                  cut=" (polish on)",
+                  needed_types=("normal_matvec_bf16", "rmatvec_bf16"))
+    finally:
+        prox.pcg = plain_pcg
+    rep_h = report["pcg_bf16"]
+    iters = max(rep_h["iters"], 1)
+    rep_h["cg_steps"] = {k: list(v) for k, v in cg_steps.items()}
+    rep_h["cg_steps_per_outer_iter"] = sum(cg_steps["x-update"]) / iters
+    rep_h["pcg_s"] = dict(cg_secs)
+    a_half = A3h.numel() * A3h.element_size()
+    require(rep_h["peak_bytes_above_start"] < 0.25 * a_half,
+            f"pcg_bf16: the fit's peak device memory above its start, "
+            f"{rep_h['peak_bytes_above_start'] / 1e9:.3f} GB, is not under "
+            f"a quarter of the bf16 A's {a_half / 1e9:.2f} GB")
+    print(f"  pcg_bf16: {rep_h['s_per_outer_iter'] * 1e3:.2f} ms per outer "
+          f"iteration, of which the PCG x-update "
+          f"{cg_secs['x-update'] / iters * 1e3:.2f} ms; CG steps per outer "
+          f"iteration {rep_h['cg_steps_per_outer_iter']:.2f}; polish "
+          f"{sum(cg_steps['polish'])} CG steps in "
+          f"{cg_secs['polish'] * 1e3:.2f} ms", flush=True)
+    del A3h, b3h
     torch.cuda.empty_cache()
 
     # 7. classification through the feature split (rows cut to m = 5,000) --
@@ -1416,12 +1644,38 @@ def main() -> int:
                       "iterations)")
         del As_c, est_c
     torch.cuda.empty_cache()
+    # 7b. the same two fits in bf16 through the Newton-CG prox (the feature
+    # split is not ported under bf16): data cast on the card before the
+    # clock
+    for name, spec_c, make, cls, kw_c in (
+            ("classify_bf16_logistic", SyntheticSpec(8, 5_000, 4_000),
+             make_sparse_classification, api.SparseLogisticRegression, {}),
+            ("classify_bf16_softmax",
+             SyntheticSpec(8, 5_000, 4_000, n_classes=3),
+             make_sparse_softmax, api.SparseSoftmaxRegression,
+             dict(n_classes=3))):
+        As_c, bs_c, xt_c = make(0, spec_c)
+        kappa_c = int((xt_c != 0).sum())
+        est_c = cls(kappa=kappa_c, gamma=10.0, rho_c=1.0, max_iter=30,
+                    tol=0.0, precision="bf16", **kw_c)
+        fit_phase(name, torch.as_tensor(As_c, device=dev).to(torch.bfloat16),
+                  torch.as_tensor(bs_c, device=dev).to(torch.bfloat16),
+                  xt_c.reshape(-1), kappa_c, "newton-cg",
+                  (*PROJ_KERNELS, "matvec", "rmatvec"), est=est_c,
+                  cut=" (rows cut from Fig. 3's 25,000 per node; 30 "
+                      "iterations)",
+                  needed_types=("matvec_bf16", "rmatvec_bf16"))
+        del As_c, est_c
+    torch.cuda.empty_cache()
 
     # 8. the card against the port's own CPU fit ---------------------------
     for key, what, cls, kw, As_p, bs_p in parity_fits():
         t0 = time.perf_counter()
+        ops.reset_launch_counts()
         on_card = cls(**kw).fit(As_p, bs_p).result_
+        torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
+        parity_types = ops.launch_counts_by_type()
         on_cpu = cls(device="cpu", **kw).fit(As_p, bs_p).result_
         require(int(on_card.status) == int(on_cpu.status),
                 f"{key}: status {int(on_card.status)} on the card, "
@@ -1438,7 +1692,8 @@ def main() -> int:
         report[key] = {
             "iters_card": int(on_card.iters), "iters_cpu": int(on_cpu.iters),
             "status": SolveStatus(int(on_card.status)).name,
-            "coef_max_abs_diff": coef_err, "card_fit_s": t_card}
+            "coef_max_abs_diff": coef_err, "card_fit_s": t_card,
+            "launches_by_type": parity_types}
         phase("parity", t0, f"{what}: card {int(on_card.iters)} iters vs "
                             f"CPU {int(on_cpu.iters)}, same status "
                             f"{SolveStatus(int(on_card.status)).name} and "
@@ -1451,17 +1706,33 @@ def main() -> int:
     # launches: each kernel's count from the full-width path that runs it
     # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit, the Fig. 3
     # PCG fit, the qwen3-8b prefill and decode, the projections past the
-    # one-launch limit)
+    # one-launch limit); the bf16 instantiations' from woodbury_bf16 and
+    # pcg_bf16, the fp16 ones' from dense_fp16 and the fp16 parity fits
+    # (no full-width fp16 cell runs matvec or normal_matvec)
+    half_counts = {
+        "gram_bf16": "woodbury_bf16", "matvec_bf16": "woodbury_bf16",
+        "rmatvec_bf16": "woodbury_bf16", "normal_matvec_bf16": "pcg_bf16",
+        "gram_f16": "dense_fp16", "rmatvec_f16": "dense_fp16",
+        "matvec_f16": "parity_woodbury_fp16",
+        "normal_matvec_f16": "parity_pcg_fp16"}
     kernels = []
-    for name in ops.KERNELS:
+    for name in (*ops.KERNELS, *HALF_KERNELS):
         row = dict(rows[name])
         for key in ("shape", "call_ms", "yardsticks_ms"):
             row.pop(key)
-        counts = (lm_counts if name == "flash_attention" else
-                  block_counts if name in BLOCK_KERNELS else
-                  large_counts if name == "ladder_stats" else
-                  pcg_counts if name == "normal_matvec" else main_counts)
-        row["launches"] = counts[name]
+        if name in half_counts:
+            row["launches"] = report[half_counts[name]][
+                "launches_by_type"].get(name, 0)
+            row["launches_in"] = half_counts[name]
+            require(row["launches"] > 0, f"{name}: no launch in "
+                                         f"{half_counts[name]}")
+        else:
+            counts = (lm_counts if name == "flash_attention" else
+                      block_counts if name in BLOCK_KERNELS else
+                      large_counts if name == "ladder_stats" else
+                      pcg_counts if name == "normal_matvec" else
+                      main_counts)
+            row["launches"] = counts[name]
         kernels.append(row)
     report["kernels"] = kernels
     if args.report:

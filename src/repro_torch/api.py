@@ -11,11 +11,14 @@ The paper's four models are here — :class:`SparseLinearRegression`,
 :class:`SparseSoftmaxRegression` — with the direct x-update or the
 feature-split sub-solver (``n_feature_blocks > 1``). Entry points run on the
 card unless the caller asks for the CPU: with ``device=None`` and no CUDA
-device they raise ``RuntimeError``. What the port has not ported raises
-:class:`CapabilityError` up front: the sharded engine and meshes,
-``projection="sort"``, precisions other than ``"fp32"``, per-solve
-``gamma``/``rho_c`` overrides, divergence recovery, and the path, grid,
-fleet, serving and streaming entry points.
+device they raise ``RuntimeError``. ``precision="bf16"`` / ``"fp16"`` fit
+bf16 / fp16 data (or f32 data, which the engine casts once) through the
+dense, Woodbury and PCG x-updates and Newton-CG, with f32 iterates. What the
+port has not ported raises :class:`CapabilityError` up front: the sharded
+engine and meshes, ``projection="sort"``, ``precision="fp64_polish"``, the
+feature split under a reduced precision, per-solve ``gamma``/``rho_c``
+overrides, divergence recovery, and the path, grid, fleet, serving and
+streaming entry points.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from .core.bicadmm import BiCADMM, BiCADMMConfig
 from .core.losses import Loss, get_loss
 from .core.prox import XSOLVERS
 from .core.results import FitResult, SolveStatus
+from .kernels.ops import matvec_auto
 from .runtime import CapabilityError
 
 __all__ = ["CapabilityError", "Capabilities", "FitResult", "SolveStatus",
@@ -131,7 +135,7 @@ class Capabilities:
     fleet: bool = False
     serve: bool = False
     stream: bool = False
-    precisions: tuple = ("float32",)
+    precisions: tuple = ("float32", "bfloat16", "float16")
 
 
 def engine_capabilities(engine: str = "reference") -> Capabilities:
@@ -156,14 +160,24 @@ def _check_options(options: SolverOptions) -> None:
         unported.append("the sharded engine (engine='sharded' / mesh=)")
     if options.projection != "ladder":
         unported.append(f"projection={options.projection!r}")
-    if options.precision != runtime.PRECISION_PRESETS["fp32"]:
-        unported.append(
-            f"precision={runtime.precision_name(options.precision)!r}")
     if options.recovery is not None:
         unported.append("divergence recovery (recovery=)")
     if unported:
         raise CapabilityError("not ported to repro_torch yet: "
                               + "; ".join(unported))
+
+
+def _check_precision(caps: Capabilities, options: SolverOptions) -> None:
+    """Raise :class:`CapabilityError` when the engine does not certify the
+    policy's data dtype (as ``repro.api._check_precision``)."""
+    pol = options.precision
+    data = pol.data if pol.data is not None else "float32"
+    if data not in caps.precisions:
+        raise CapabilityError(
+            f"the {caps.engine!r} engine does not certify data dtype "
+            f"{data!r} (precision policy {runtime.precision_name(pol)!r}); "
+            f"certified dtypes: {caps.precisions} "
+            "(Capabilities.precisions)")
 
 
 def build_config(problem: SparseProblem,
@@ -215,8 +229,11 @@ def validate_data(X: torch.Tensor, y: torch.Tensor) -> None:
                          "clean or impute the targets before fitting")
 
 
-def _stack(X, y, device: torch.device):
-    """(samples, n) or (N, m, n) data on ``device`` in the stacked layout."""
+def _stack(X, y, device: torch.device,
+           precision: runtime.PrecisionPolicy):
+    """(samples, n) or (N, m, n) data on ``device`` in the stacked layout:
+    float32, or already in the precision policy's data dtype (bf16 / fp16
+    data that the engine reads as it is)."""
     X, y = _as_tensor(X, device), _as_tensor(y, device)
     if X.ndim not in (2, 3):
         raise ValueError(f"X must be (samples, n) or (N, m, n); "
@@ -224,9 +241,12 @@ def _stack(X, y, device: torch.device):
     validate_data(X, y)
     if X.ndim == 2:
         X, y = X[None], y.reshape(1, -1)
-    if X.dtype != torch.float32:
-        raise CapabilityError(f"X has dtype {X.dtype}; this slice fits "
-                              "float32 data")
+    data = precision.data_dtype(torch.float32)
+    if X.dtype not in (torch.float32, data):
+        raise CapabilityError(
+            f"X has dtype {X.dtype}; precision "
+            f"{runtime.precision_name(precision)!r} fits float32 data"
+            + ("" if data == torch.float32 else f" or {data} data"))
     # hand back the caller's own tensors where no reshape or cast is needed,
     # so the solver's setup cache (keyed on tensor identity) hits on refits
     if tuple(y.shape) != tuple(X.shape[:2]):
@@ -244,6 +264,7 @@ class _ReferenceAdapter:
     def __init__(self, problem: SparseProblem, options: SolverOptions):
         _check_options(options)
         self.caps = engine_capabilities("reference")
+        _check_precision(self.caps, options)
         self.device = runtime.resolve_device(options.device)
         self.solver = BiCADMM(problem.resolve_loss(),
                               build_config(problem, options))
@@ -267,7 +288,7 @@ def solve(problem: SparseProblem, X, y, *,
     warm-starts from a previous result's ``.state``."""
     options = options if options is not None else SolverOptions()
     adapter = _ReferenceAdapter(problem, options)
-    As, bs = _stack(X, y, adapter.device)
+    As, bs = _stack(X, y, adapter.device, options.precision)
     return adapter.fit(As, bs, state=state)
 
 
@@ -314,7 +335,7 @@ class SparseEstimator:
     def fit(self, X, y, *, state=None) -> "SparseEstimator":
         """Fit on ``(X, y)``; ``state=`` warm-starts from a previous
         result's ``.state``. Returns ``self``."""
-        As, bs = _stack(X, y, self.device)
+        As, bs = _stack(X, y, self.device, self.options.precision)
         res = self._adapter.fit(As, bs, state=state)
         self.result_ = res
         K = self.problem.n_classes
@@ -335,7 +356,11 @@ class SparseEstimator:
         X = _as_tensor(X, self.device)
         if X.ndim == 3:
             X = X.reshape(-1, X.shape[-1])
-        scores = X @ self.result_.coef               # (samples, K)
+        coef = self.result_.coef                     # (n, K), f32
+        # bf16 / fp16 X against the f32 coefficients: the matvec kernel,
+        # which widens X as it reads it (no f32 copy of X), f32 out
+        scores = (X @ coef if X.dtype == coef.dtype
+                  else matvec_auto(X.contiguous(), coef))   # (samples, K)
         return scores[:, 0] if self.problem.n_classes == 1 else scores
 
     def decision_function(self, X) -> torch.Tensor:

@@ -22,8 +22,16 @@ The x-update (7a) takes one of three routes, as in the JAX package: the
 feature-split sub-solver (Algorithm 2, :mod:`.subsolver`) when
 ``n_feature_blocks > 1`` or ``force_feature_split``; else the squared
 loss's factorized engines (:class:`.prox.NodeProxEngine`); else
-:func:`.prox.newton_cg_prox`. Everything runs at float32. The fleet driver,
-``fit_with_history`` and fault injection wait for later slices.
+:func:`.prox.newton_cg_prox`. The fleet driver, ``fit_with_history`` and
+fault injection wait for later slices.
+
+Precision: ``"fp32"``, ``"bf16"`` and ``"fp16"``. Under the reduced presets
+the data is cast once (cached on the tensors' identity, as the JAX
+package's ``_cast``), the kernels read it in place, and the iterates,
+factors and residuals stay in f32 (the policy's state dtype).
+``"fp64_polish"`` and the feature split under a reduced preset raise
+:class:`~repro_torch.runtime.CapabilityError` (ROADMAP Queue 1 step 5;
+the JAX package's own feature split fails under bf16 / fp16).
 """
 from __future__ import annotations
 
@@ -42,6 +50,10 @@ from .subsolver import (SubsolverState, node_prox_feature_split,
 from .. import runtime
 from ..kernels.ops import (gram_auto, matvec_auto, normal_matvec_auto,
                            rmatvec_auto)
+
+
+# the presets this port certifies (fp64_polish waits: ROADMAP Queue 1 step 5)
+CERTIFIED_PRECISIONS = ("fp32", "bf16", "fp16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +82,19 @@ class BiCADMMConfig:
     def __post_init__(self):
         object.__setattr__(self, "precision",
                            runtime.resolve_precision(self.precision))
-        if self.precision != runtime.PRECISION_PRESETS["fp32"]:
+        name = runtime.precision_name(self.precision)
+        if name not in CERTIFIED_PRECISIONS:
             raise runtime.CapabilityError(
-                f"precision {runtime.precision_name(self.precision)!r} is "
-                "not ported to repro_torch yet; this slice certifies 'fp32'")
+                f"precision {name!r} is not ported to repro_torch yet; "
+                f"certified presets: {CERTIFIED_PRECISIONS} ('fp64_polish' "
+                "needs an f64 polish inside csrc/ladder_proj.cu: ROADMAP "
+                "Queue 1 step 5)")
+        if self.precision.data is not None and self.use_feature_split:
+            raise runtime.CapabilityError(
+                f"the feature split under precision {name!r} is not ported: "
+                "the JAX package's own sub-solver fails on bf16 / fp16 data "
+                "(ROADMAP Queue 3); use precision='fp32' with "
+                "n_feature_blocks > 1")
         if self.divergence_tol <= 0:
             raise ValueError("divergence_tol must be positive")
         if self.x_solver not in prox.XSOLVERS:
@@ -168,10 +189,28 @@ class BiCADMM:
         self.loss = (get_loss(loss, n_classes) if isinstance(loss, str)
                      else loss)
         self.cfg = cfg
-        # setup factors keyed on the data tensors' identity, so warm-started
-        # run_from calls factorize once. Entries hold strong references to
+        # the precision policy's cast of the data and the setup factors,
+        # both keyed on the data tensors' identity, so warm-started run_from
+        # calls cast and factorize once. Entries hold strong references to
         # the keyed tensors, which keeps their ids valid while cached.
+        self._cast_cache: dict = {}
         self._setup_cache: dict = {}
+
+    def _cast(self, As, bs):
+        """The policy's data cast (``As``, ``bs`` themselves under fp32 or
+        when they already have the data dtype); the same cast tensors for
+        the same inputs, so the setup cache hits on refits."""
+        pol = self.cfg.precision
+        if pol.data is None:
+            return As, bs
+        key = (id(As), id(bs))
+        hit = self._cast_cache.get(key)
+        if hit is None:
+            if len(self._cast_cache) >= self._SETUP_CACHE_MAX:
+                self._cast_cache.pop(next(iter(self._cast_cache)))
+            hit = (As, bs, pol.cast_data(As), pol.cast_data(bs))
+            self._cast_cache[key] = hit
+        return hit[2], hit[3]
 
     def _x_engine(self, m: int, n: int) -> NodeProxEngine:
         cfg = self.cfg
@@ -261,7 +300,10 @@ class BiCADMM:
         cfg = self.cfg
         N, m, _ = As.shape
         d = n * K
-        kw = dict(dtype=As.dtype, device=As.device)
+        # the iterates stay in the policy's state dtype (f32 under the
+        # reduced presets): only the A-products touch the narrow data
+        kw = dict(dtype=cfg.precision.state_dtype(As.dtype),
+                  device=As.device)
         inner = None
         if cfg.use_feature_split:
             M = cfg.n_feature_blocks
@@ -282,6 +324,7 @@ class BiCADMM:
     # -- drivers ---------------------------------------------------------------
     def init_state(self, As, bs) -> BiCADMMState:
         """A fresh zero state."""
+        As, bs = self._cast(As, bs)
         return self._init_state(As, As.shape[2], self.loss.n_classes)
 
     def _run_while(self, factors, As, bs, params: SolveParams,
@@ -301,6 +344,7 @@ class BiCADMM:
         """Run until the residual tolerances or max_iter, warm-starting
         from ``state`` (counter and residuals reset, iterates kept).
         ``kappa`` overrides the configured budget for this solve."""
+        As, bs = self._cast(As, bs)
         factors, N, n = self._setup(As, bs)
         params = self._make_params(N, kappa=kappa)
         st = self._run_while(factors, As, bs, params,
@@ -336,14 +380,20 @@ class BiCADMM:
         N, m, n = As.shape
         K = loss.n_classes
         sigma = N * params.sigma         # full-problem l2 weight = 1 / gamma
-        pen = torch.where(support, 0.0, 1e8).to(As.dtype)
+        # in the state dtype (f32): 1e8 + sigma is not rounded to the data's
+        pen = torch.where(support, 0.0, 1e8).to(z0.dtype)
         A_all = As.reshape(N * m, n)
         b_all = bs.reshape(-1)
         if loss.name == "squared":
             if n <= prox.DENSE_MAX_N and cfg.x_solver in ("auto", "dense"):
-                H = gram_auto(A_all) + torch.diag(pen + sigma)
-                x = torch.linalg.solve(H, rmatvec_auto(A_all, b_all))
+                acc = cfg.precision.accum_dtype(A_all.dtype)
+                H = (gram_auto(A_all, out_dtype=acc)
+                     + torch.diag((pen + sigma).to(acc)))
+                x = torch.linalg.solve(H, rmatvec_auto(A_all, b_all,
+                                                       out_dtype=acc))
                 return torch.where(support, x, 0.0)
+            # the right-hand side takes no out_dtype, as in the JAX package:
+            # bf16 / fp16 data rounds A^T b to the data dtype
             shift = pen + sigma
             inv = 1.0 / (prox.col_sumsq(A_all) + shift)
             x = prox.pcg(lambda p: normal_matvec_auto(A_all, p, shift),

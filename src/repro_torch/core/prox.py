@@ -24,6 +24,11 @@ the ``matvec`` / ``rmatvec`` kernels.
 Cholesky factorizations and triangular solves go to ``torch.linalg``, as the
 JAX package leaves them to XLA outside any Pallas kernel. The spectral
 (eigh) variants for traced penalties wait for the path-engine slice.
+
+Reduced-precision data (bf16 / fp16 ``A``, the ``"bf16"`` / ``"fp16"``
+presets) is read in place by the kernels; every factor, Gram, A^T b and the
+Jacobi diagonal is built in f32 (:func:`_accum`, as the JAX package's
+``_accum``), and the f32 iterates promote every other product to f32.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Callable
 import torch
 
 from .bilinear import CHUNK
+from .. import runtime
 from ..kernels.ops import (gram_auto, matvec_auto, normal_matvec_auto,
                            rmatvec_auto)
 
@@ -42,8 +48,14 @@ WOODBURY_MAX_M = 8192
 XSOLVERS = ("auto", "dense", "woodbury", "pcg")
 
 
-def _eye(k: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.eye(k, dtype=like.dtype, device=like.device)
+def _accum(dtype: torch.dtype) -> torch.dtype:
+    """Factor / accumulation dtype for ``dtype`` data: f32 for bf16 / fp16,
+    ``dtype`` itself otherwise (so the f32 set-ups are unchanged)."""
+    return torch.float32 if dtype in runtime.REDUCED else dtype
+
+
+def _eye(k: int, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(k, dtype=dtype, device=like.device)
 
 
 def _tri_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -65,8 +77,10 @@ def ridge_setup(A, b, sigma: float, rho_c: float) -> RidgeFactors:
     """Factor once per dataset; the Gram matrix runs through the gram
     kernel on the card."""
     c = sigma + rho_c
-    G = gram_auto(A) + c * _eye(A.shape[-1], A)
-    return RidgeFactors(torch.linalg.cholesky(G), rmatvec_auto(A, b), c)
+    acc = _accum(A.dtype)
+    G = gram_auto(A, out_dtype=acc) + c * _eye(A.shape[-1], acc, A)
+    return RidgeFactors(torch.linalg.cholesky(G),
+                        rmatvec_auto(A, b, out_dtype=acc), c)
 
 
 def ridge_prox_factorized(f: RidgeFactors, q, rho_c) -> torch.Tensor:
@@ -89,8 +103,10 @@ def woodbury_setup(A, b, sigma: float, rho_c: float) -> WoodburyFactors:
     """Factor (A A^T + c I) once; A A^T is the gram kernel on the
     transposed view of A (no copy)."""
     c = sigma + rho_c
-    G = gram_auto(A.mT) + c * _eye(A.shape[-2], A)
-    return WoodburyFactors(A, torch.linalg.cholesky(G), rmatvec_auto(A, b), c)
+    acc = _accum(A.dtype)
+    G = gram_auto(A.mT, out_dtype=acc) + c * _eye(A.shape[-2], acc, A)
+    return WoodburyFactors(A, torch.linalg.cholesky(G),
+                           rmatvec_auto(A, b, out_dtype=acc), c)
 
 
 def woodbury_prox(f: WoodburyFactors, q, rho_c) -> torch.Tensor:
@@ -104,13 +120,15 @@ def woodbury_prox(f: WoodburyFactors, q, rho_c) -> torch.Tensor:
 def col_sumsq(A: torch.Tensor) -> torch.Tensor:
     """Per-column sum of squares — diag(A^T A), the Jacobi preconditioner.
     Summed over chunks of about 2^24 elements of A, so no temporary of A's
-    size is made (A may fill a good part of the card)."""
+    size is made (A may fill a good part of the card). bf16 / fp16 data is
+    summed and emitted in f32 (each chunk widened on its own)."""
+    acc = _accum(A.dtype)
     row_size = math.prod(A.shape[:-2]) * A.shape[-1]
     rows = max(1, 2 ** 24 // max(1, row_size))
-    out = torch.zeros(A.shape[:-2] + A.shape[-1:], dtype=A.dtype,
+    out = torch.zeros(A.shape[:-2] + A.shape[-1:], dtype=acc,
                       device=A.device)
     for i in range(0, A.shape[-2], rows):
-        chunk = A[..., i:i + rows, :]
+        chunk = A[..., i:i + rows, :].to(acc)
         out += torch.einsum("...mn,...mn->...n", chunk, chunk)
     return out
 
@@ -126,7 +144,8 @@ class CGFactors:
 
 
 def cg_setup(A, b, iters: int = 200, tol: float = 1e-6) -> CGFactors:
-    return CGFactors(A, rmatvec_auto(A, b), col_sumsq(A), iters, tol)
+    return CGFactors(A, rmatvec_auto(A, b, out_dtype=_accum(A.dtype)),
+                     col_sumsq(A), iters, tol)
 
 
 def _dot(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-// Tiled Gram product with f32 accumulation, batched over up to two leading
-// axes (nodes; the feature split's blocks), z running over both:
+// Tiled Gram product with f32 accumulation (f64 for bf16 / fp16 operands),
+// batched over up to two leading axes (nodes; the feature split's blocks),
+// z running over both:
 //
 //   out[z, i, j] = sum_k X[z, k, i] * Y[z, k, j]      (X^T Y per entry z)
 //
@@ -33,6 +34,14 @@
 // - A symmetric product (the wrapper passes symmetric = 1 when X and Y are
 //   the same operand) launches only the tiles on and above the diagonal
 //   and writes each off-diagonal tile to both places.
+// - bf16 / fp16 operands (the reduced-precision presets' data): the
+//   products of two widened elements are exact in f32, so each entry is one
+//   f64 fma chain over k, rounded to f32 once: the correctly rounded Gram,
+//   which the plain version (an f64 product) gives too, so the card's and
+//   the CPU's set-ups start from the same bits. The f64 micro-tile takes
+//   one block an SM; the Gram runs once a set-up, and it measured slower
+//   than the f32 path (PERF.md). With f32 sums the bf16 Woodbury
+//   card-vs-CPU parity fit read 125 iterations against the CPU's 121.
 // - Every entry is one fmaf chain over k in ascending order, whatever the
 //   tiling, batching or symmetry (fmaf(a, b, c) = fmaf(b, a, c), so a
 //   mirrored entry is the full product's bit for bit). The reduction is not
@@ -46,20 +55,12 @@
 #include <cstdint>
 #include <type_traits>
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "elem.cuh"
 
 namespace {
 
 constexpr int TM = 128, BK = 16, kThreads = 256, LD = TM + 4;
 constexpr int kPerThread = BK * TM / kThreads;      // slice elements a thread
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
 // The (row, column) tile pair of tile index t: the upper triangle row by row
 // when symmetric (tn x tn tiles), else row-major over tm x tn tiles.
@@ -133,7 +134,18 @@ __device__ __forceinline__ void load_copy16(float (*dst)[LD], const float* src,
   }
 }
 
-__device__ __forceinline__ void fma_slice(float (&acc)[8][8],
+// acc += a b in the accumulator's type: f32 by fmaf; f64 (bf16 / fp16
+// operands) by fma of the exact f32 widenings, so each step rounds once in
+// f64
+__device__ __forceinline__ float fma_acc(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_acc(float a, float b, double c) {
+  return fma(static_cast<double>(a), static_cast<double>(b), c);
+}
+
+template <typename Acc>
+__device__ __forceinline__ void fma_slice(Acc (&acc)[8][8],
                                           const float (*Xs)[LD],
                                           const float (*Ys)[LD], int ty,
                                           int tx) {
@@ -148,7 +160,7 @@ __device__ __forceinline__ void fma_slice(float (&acc)[8][8],
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      for (int c = 0; c < 8; ++c) acc[r][c] = fma_acc(av[r], bv[c], acc[r][c]);
   }
 }
 
@@ -157,8 +169,10 @@ __device__ __forceinline__ int micro(int t, int r) {
   return (r < 4 ? 0 : 64) + 4 * t + (r & 3);
 }
 
-template <typename T, bool COPY16>
-__global__ void __launch_bounds__(kThreads, 2)
+// Acc: float for f32 operands (two blocks an SM); double for bf16 / fp16
+// ones, whose 8 x 8 f64 micro-tile takes the registers of one block an SM
+template <typename T, bool COPY16, typename Acc>
+__global__ void __launch_bounds__(kThreads, sizeof(Acc) == 4 ? 2 : 1)
 gram_xy_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                float* __restrict__ out, int n_inner, int m, int nx, int ny,
                long long sxo, long long sxb, long long sxk, long long sxi,
@@ -175,11 +189,11 @@ gram_xy_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   const T* Yb = Y + zo * syo + zi * syb;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  float acc[8][8];
+  Acc acc[8][8];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < 8; ++c) acc[r][c] = Acc(0);
 
   if constexpr (COPY16) {
     // slice s into buffer b by cp.async, one commit group a slice
@@ -229,7 +243,7 @@ gram_xy_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const int j = j0 + micro(tx, c);
-      if (j < ny) o[(size_t)i * ny + j] = acc[r][c];
+      if (j < ny) o[(size_t)i * ny + j] = static_cast<float>(acc[r][c]);
     }
   }
   if (symmetric && bi != bj) {          // the mirror tile (j, i)
@@ -240,11 +254,18 @@ gram_xy_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const int i = i0 + micro(ty, r);
-        if (i < nx) o[(size_t)j * nx + i] = acc[r][c];
+        if (i < nx) o[(size_t)j * nx + i] = static_cast<float>(acc[r][c]);
       }
     }
   }
 }
+
+// The accumulator of T's operands: f32 for f32 ones, f64 for bf16 / fp16
+// ones (their products are exact in f32, so the f64 sum rounded once is the
+// correctly rounded Gram, whatever the order: the plain version's too).
+template <typename T>
+using Accum = typename std::conditional<std::is_same<T, float>::value, float,
+                                        double>::type;
 
 template <typename T>
 int launch(const void* x, const void* y, float* out, int n_outer,
@@ -268,12 +289,12 @@ int launch(const void* x, const void* y, float* out, int n_outer,
              sxk % 4 == 0 && syk % 4 == 0 && sxo % 4 == 0 && sxb % 4 == 0 &&
              syo % 4 == 0 && syb % 4 == 0 && a16(x) && a16(y);
     if (copy16)
-      gram_xy_kernel<float, true><<<grid, kThreads, 0, st>>>(
+      gram_xy_kernel<float, true, float><<<grid, kThreads, 0, st>>>(
           X, Y, out, n_inner, m, nx, ny, sxo, sxb, sxk, sxi, syo, syb, syk,
           syj, symmetric);
   }
   if (!copy16)
-    gram_xy_kernel<T, false><<<grid, kThreads, 0, st>>>(
+    gram_xy_kernel<T, false, Accum<T>><<<grid, kThreads, 0, st>>>(
         X, Y, out, n_inner, m, nx, ny, sxo, sxb, sxk, sxi, syo, syb, syk,
         syj, symmetric);
   return (int)cudaGetLastError();

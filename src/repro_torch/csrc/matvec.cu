@@ -4,8 +4,9 @@
 //   matvec:  out[z, i, k] = sum_j A[z, i, j] * X[z, j, k]     (A x)
 //   rmatvec: out[z, j, k] = sum_i A[z, i, j] * Y[z, i, k]     (A^T y)
 //
-// A is (N, m, n) row-major f32, never copied; X is (N, n, K), Y is (N, m, K),
-// out f32, all contiguous.
+// A is (N, m, n) row-major, never copied, in f32, bf16 or fp16 (widened to
+// f32 exactly as it loads: csrc/elem.cuh); X is (N, n, K), Y is (N, m, K),
+// out f32, all contiguous and f32 (the wrapper widens a half-width operand).
 //
 // Replaces: src/repro/kernels/matvec.py, _mv_kernel and _rmv_kernel (the
 // TPU kernels) and _mv_kernel_gpu / _rmv_kernel_gpu (their Pallas-Triton
@@ -13,8 +14,8 @@
 // lives in Python.
 //
 // What bounds it on an H100: each product reads A once and does 2 K flops
-// per 4-byte element, so up to K = 8 it is bound by memory: 4 N m n bytes at
-// 3.35 TB/s. On the solver's path A is (8, 800, 10,000) f32, 256 MB, and the
+// per element, so up to K = 8 it is bound by memory: N m n elements of 4 (or
+// 2) bytes at 3.35 TB/s. On the solver's path A is (8, 800, 10,000) f32, 256 MB, and the
 // polish reads the stacked (N m, n) matrix — far beyond the 50 MB L2, so
 // every call streams A from HBM. The design therefore reads A once at any
 // K <= 8, in 16-byte loads with many of them in flight, on a grid that
@@ -22,7 +23,7 @@
 // path, one launch or two, and the grid from the operands' shapes and
 // alignment.
 //
-// Summation order. At K = 1 every output is summed in the order of the
+// Summation order. At K = 1 every f32 output is summed in the order of the
 // first version of these kernels, so the solver's iterates do not move:
 // * matvec, 16-byte path (n % 4 == 0, A and X 16-byte aligned): lane l of
 //   a row's warp takes the float4 columns l, l + 32, ... in order into four
@@ -35,6 +36,12 @@
 //   in slice order from zero (one slice: its partial is the output).
 // At K > 1 the matvec sums each float4's four products into one
 // accumulator (another order); rmatvec's order is that of K = 1.
+// bf16 / fp16 A: the same kernels on E = 8 elements a 16-byte load of A.
+// matvec's 16-byte paths need n % 8 == 0; lane l takes the 8-element chunks
+// l, l + 32, ..., element q of a chunk into accumulator q % 4 (K = 1), or
+// all eight into one (K > 1), with 8 rather than 16 loads of A in flight a
+// lane at K = 1 (X, in f32, takes twice the registers). rmatvec's lane owns
+// 4 columns in one 8-byte load.
 //
 // Design:
 // * matvec: a warp owns R consecutive rows of one node, so each load of X
@@ -58,9 +65,9 @@
 //   above: each measured the faster there); each writes its slice's partial,
 //   and sum_slices adds them in order: two launches. No float atomics; the
 //   order never changes between runs.
-#include <cuda_runtime.h>
-
 #include <type_traits>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -74,16 +81,12 @@ constexpr int kMaxK = 8;          // right-hand sides per pass over A
 
 enum Path { kVec1 = 0, kVecK = 1, kScalar = 2 };
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ float comp(float v, int) { return v; }
-
-// A is read once a call. Its loads are cache-streaming (evict first: A
-// does not push X, Y or the partials out of L1 and L2) where that measured
-// faster, and plain in rmatvec's one-launch kernel, where it did not.
-template <bool kStream, typename T>
-__device__ __forceinline__ T load_a(const T* p) {
+// A is read once a call, as raw bits (Elem<T>). Its loads are
+// cache-streaming (evict first: A does not push X, Y or the partials out of
+// L1 and L2) where that measured faster, and plain in rmatvec's one-launch
+// kernel, where it did not.
+template <bool kStream, typename V>
+__device__ __forceinline__ V load_a(const V* p) {
   if constexpr (kStream) return __ldcs(p);
   else return *p;
 }
@@ -96,60 +99,69 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Steps of 32 columns whose loads one lane issues before it uses them,
-// sized to at most about 64 registers of loads.
-template <int P, int R, int KC>
+// Steps of 32 chunks whose loads one lane issues before it uses them,
+// sized to at most about 64 registers of loads; E elements a 16-byte load.
+template <int P, int R, int KC, int E>
 __host__ __device__ constexpr int mv_unroll() {
-  if (P == kVec1) return 16 / R;   // R U = 16 float4s of A
-  const int regs = P == kVecK ? 4 * R + 4 * KC : R + KC;
+  if (P == kVec1) return (E == 4 ? 16 : 8) / R;   // R U 16-byte loads of A
+  const int regs = P == kVecK ? 4 * R + E * KC : R + KC;
   return regs > 64 ? 1 : (P == kVecK ? 64 : 32) / regs;
 }
 
-// K == 1, 16-byte path: row r of the group, float4 columns lane, lane + 32,
-// ... in order into acc[r][component].
-template <int R>
-__device__ __forceinline__ void mv_vec1(const float* const (&a)[R],
-                                        const float* x, float* o, int n,
-                                        int rows, int lane) {
-  constexpr int U = mv_unroll<kVec1, R, 1>();
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  const float4* a4[R];
+// One chunk of R rows at K == 1: element q into acc[r][q % 4].
+template <typename T, int R, typename V, int XE>
+__device__ __forceinline__ void vec1_chunk(float (&acc)[R][4],
+                                           const V (&av)[R],
+                                           const float4 (&xv)[XE]) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) a4[r] = reinterpret_cast<const float4*>(a[r]);
-  const int n4 = n / 4;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < 4 * XE; ++q)
+      acc[r][q & 3] = fmaf(elem<T>(av[r], q), elem<float>(xv[q / 4], q & 3),
+                           acc[r][q & 3]);
+}
+
+// K == 1, 16-byte path: row r of the group, chunks of E columns lane,
+// lane + 32, ... in order, element q of a chunk into acc[r][q % 4] (f32: the
+// float4's components).
+template <typename T, int R>
+__device__ __forceinline__ void mv_vec1(
+    const typename Elem<T>::S* const (&a)[R], const float* x, float* o,
+    int n, int rows, int lane) {
+  using V = typename Elem<T>::V16;
+  constexpr int E = Elem<T>::kPer16, XE = E / 4;   // float4s of X a chunk
+  constexpr int U = mv_unroll<kVec1, R, 1, E>();
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const V* a4[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) a4[r] = reinterpret_cast<const V*>(a[r]);
+  const int nv = n / E;
   float acc[R][4];
 #pragma unroll
   for (int r = 0; r < R; ++r)
     acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
   int j = lane;
-  for (; j + 32 * (U - 1) < n4; j += 32 * U) {
-    float4 xv[U], av[U][R];
+  for (; j + 32 * (U - 1) < nv; j += 32 * U) {
+    float4 xv[U][XE];
+    V av[U][R];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      xv[u] = x4[j + 32 * u];
+#pragma unroll
+      for (int h = 0; h < XE; ++h) xv[u][h] = x4[(j + 32 * u) * XE + h];
 #pragma unroll
       for (int r = 0; r < R; ++r) av[u][r] = load_a<true>(a4[r] + j + 32 * u);
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc[r][0] = fmaf(av[u][r].x, xv[u].x, acc[r][0]);
-        acc[r][1] = fmaf(av[u][r].y, xv[u].y, acc[r][1]);
-        acc[r][2] = fmaf(av[u][r].z, xv[u].z, acc[r][2]);
-        acc[r][3] = fmaf(av[u][r].w, xv[u].w, acc[r][3]);
-      }
+    for (int u = 0; u < U; ++u) vec1_chunk<T>(acc, av[u], xv[u]);
   }
-  for (; j < n4; j += 32) {
-    const float4 xv = x4[j];
+  for (; j < nv; j += 32) {
+    float4 xv[XE];
+    V av[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 av = load_a<true>(a4[r] + j);
-      acc[r][0] = fmaf(av.x, xv.x, acc[r][0]);
-      acc[r][1] = fmaf(av.y, xv.y, acc[r][1]);
-      acc[r][2] = fmaf(av.z, xv.z, acc[r][2]);
-      acc[r][3] = fmaf(av.w, xv.w, acc[r][3]);
-    }
+    for (int h = 0; h < XE; ++h) xv[h] = x4[j * XE + h];
+#pragma unroll
+    for (int r = 0; r < R; ++r) av[r] = load_a<true>(a4[r] + j);
+    vec1_chunk<T>(acc, av, xv);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -159,37 +171,40 @@ __device__ __forceinline__ void mv_vec1(const float* const (&a)[R],
   }
 }
 
-// K > 1, 16-byte loads of A: float4 column c4 of row r against the 4 rows
-// 4 c4 .. 4 c4 + 3 of X. With XV (K == KC) those rows are 4 KC contiguous
-// floats read as KC float4s; otherwise (K > kMaxK, right-hand sides
-// k0 .. k0 + KC - 1 of a pass) as scalars.
-template <int R, int KC, bool XV>
-__device__ __forceinline__ void mv_veck(const float* const (&a)[R],
-                                        const float* x, float* o, int n,
-                                        int K, int k0, int rows, int lane) {
-  constexpr int U = mv_unroll<kVecK, R, KC>();
+// K > 1, 16-byte loads of A: chunk c of row r (its E columns) against the
+// E rows E c .. E c + E - 1 of X. With XV (K == KC) those rows are E KC
+// contiguous floats read as E KC / 4 float4s; otherwise (K > kMaxK, right-
+// hand sides k0 .. k0 + KC - 1 of a pass) as scalars.
+template <typename T, int R, int KC, bool XV>
+__device__ __forceinline__ void mv_veck(
+    const typename Elem<T>::S* const (&a)[R], const float* x, float* o,
+    int n, int K, int k0, int rows, int lane) {
+  using V = typename Elem<T>::V16;
+  constexpr int E = Elem<T>::kPer16;
+  constexpr int U = mv_unroll<kVecK, R, KC, E>();
   const int kc = min(KC, K - k0);
-  const float4* a4[R];
+  const V* a4[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) a4[r] = reinterpret_cast<const float4*>(a[r]);
-  const int n4 = n / 4;
+  for (int r = 0; r < R; ++r) a4[r] = reinterpret_cast<const V*>(a[r]);
+  const int nv = n / E;
   float acc[R][KC];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int c = 0; c < KC; ++c) acc[r][c] = 0.f;
-  for (int j = lane; j < n4; j += 32 * U) {
-    float4 av[U][R];
-    float xs[U][4 * KC];   // xs[u][q KC + c] = X[4 (j + 32 u) + q, k0 + c]
+  for (int j = lane; j < nv; j += 32 * U) {
+    V av[U][R];
+    float xs[U][E * KC];   // xs[u][q KC + c] = X[E (j + 32 u) + q, k0 + c]
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int jj = min(j + 32 * u, n4 - 1);   // a clamped step is unused
+      const int jj = min(j + 32 * u, nv - 1);   // a clamped step is unused
 #pragma unroll
       for (int r = 0; r < R; ++r) av[u][r] = load_a<true>(a4[r] + jj);
       if constexpr (XV) {
-        const float4* xq = reinterpret_cast<const float4*>(x) + jj * KC;
+        const float4* xq =
+            reinterpret_cast<const float4*>(x) + jj * (E * KC / 4);
 #pragma unroll
-        for (int t = 0; t < KC; ++t) {
+        for (int t = 0; t < E * KC / 4; ++t) {
           const float4 v = xq[t];
           xs[u][4 * t] = v.x;
           xs[u][4 * t + 1] = v.y;
@@ -198,25 +213,24 @@ __device__ __forceinline__ void mv_veck(const float* const (&a)[R],
         }
       } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < E; ++q)
 #pragma unroll
           for (int c = 0; c < KC; ++c)
             xs[u][q * KC + c] =
-                x[(size_t)(4 * jj + q) * K + k0 + min(c, kc - 1)];
+                x[(size_t)(E * jj + q) * K + k0 + min(c, kc - 1)];
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (j + 32 * u >= n4) break;
+      if (j + 32 * u >= nv) break;
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int c = 0; c < KC; ++c) {
           float s = acc[r][c];
-          s = fmaf(av[u][r].x, xs[u][c], s);
-          s = fmaf(av[u][r].y, xs[u][KC + c], s);
-          s = fmaf(av[u][r].z, xs[u][2 * KC + c], s);
-          s = fmaf(av[u][r].w, xs[u][3 * KC + c], s);
+#pragma unroll
+          for (int q = 0; q < E; ++q)
+            s = fmaf(elem<T>(av[u][r], q), xs[u][q * KC + c], s);
           acc[r][c] = s;
         }
     }
@@ -230,13 +244,14 @@ __device__ __forceinline__ void mv_veck(const float* const (&a)[R],
     }
 }
 
-// Scalar path (n % 4 != 0 or an unaligned operand at K = 1): column j of
+// Scalar path (n % E != 0 or an unaligned operand at K = 1): column j of
 // row r, j = lane, lane + 32, ... in order into acc[r][c].
-template <int R, int KC>
-__device__ __forceinline__ void mv_scalar(const float* const (&a)[R],
-                                          const float* x, float* o, int n,
-                                          int K, int k0, int rows, int lane) {
-  constexpr int U = mv_unroll<kScalar, R, KC>();
+template <typename T, int R, int KC>
+__device__ __forceinline__ void mv_scalar(
+    const typename Elem<T>::S* const (&a)[R], const float* x, float* o,
+    int n, int K, int k0, int rows, int lane) {
+  using S = typename Elem<T>::S;
+  constexpr int U = mv_unroll<kScalar, R, KC, Elem<T>::kPer16>();
   const int kc = min(KC, K - k0);
   float acc[R][KC];
 #pragma unroll
@@ -244,7 +259,8 @@ __device__ __forceinline__ void mv_scalar(const float* const (&a)[R],
 #pragma unroll
     for (int c = 0; c < KC; ++c) acc[r][c] = 0.f;
   for (int j = lane; j < n; j += 32 * U) {
-    float av[U][R], xs[U][KC];
+    S av[U][R];
+    float xs[U][KC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int jj = min(j + 32 * u, n - 1);    // a clamped step is unused
@@ -261,7 +277,7 @@ __device__ __forceinline__ void mv_scalar(const float* const (&a)[R],
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int c = 0; c < KC; ++c)
-          acc[r][c] = fmaf(av[u][r], xs[u][c], acc[r][c]);
+          acc[r][c] = fmaf(elem<T>(av[u][r], 0), xs[u][c], acc[r][c]);
     }
   }
 #pragma unroll
@@ -275,31 +291,31 @@ __device__ __forceinline__ void mv_scalar(const float* const (&a)[R],
 
 // One warp per group of R rows of one node, groups = N ceil(m / R); the
 // grid holds every group and the block scheduler balances the SMs.
-template <int P, int R, int KC, bool XV>
+template <typename T, int P, int R, int KC, bool XV>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-matvec_kernel(const float* __restrict__ A, const float* __restrict__ X,
-              float* __restrict__ out, int m, int n, int K,
-              int groups_per_node, int groups) {
+matvec_kernel(const typename Elem<T>::S* __restrict__ A,
+              const float* __restrict__ X, float* __restrict__ out, int m,
+              int n, int K, int groups_per_node, int groups) {
   const int lane = threadIdx.x % 32;
   const int g = blockIdx.x * kWarps + threadIdx.x / 32;
   if (g >= groups) return;
   const int z = g / groups_per_node;
   const int r0 = (g - z * groups_per_node) * R;
   const int rows = min(R, m - r0);
-  const float* a[R];
+  const typename Elem<T>::S* a[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)   // rows past m re-read the last one, unused
     a[r] = A + ((size_t)z * m + r0 + min(r, rows - 1)) * n;
   const float* x = X + (size_t)z * n * K;
   float* o = out + ((size_t)z * m + r0) * K;
   if constexpr (P == kVec1) {
-    mv_vec1<R>(a, x, o, n, rows, lane);
+    mv_vec1<T, R>(a, x, o, n, rows, lane);
   } else {
     for (int k0 = 0; k0 < K; k0 += KC) {
       if constexpr (P == kVecK)
-        mv_veck<R, KC, XV>(a, x, o, n, K, k0, rows, lane);
+        mv_veck<T, R, KC, XV>(a, x, o, n, K, k0, rows, lane);
       else
-        mv_scalar<R, KC>(a, x, o, n, K, k0, rows, lane);
+        mv_scalar<T, R, KC>(a, x, o, n, K, k0, rows, lane);
     }
   }
 }
@@ -312,12 +328,14 @@ __host__ __device__ constexpr int rmv_unroll() {
 
 // acc[q][c] = sum over rows i0 <= i < i1, in order from zero, of
 // A[i, col + q] Y[i, k0 + c]; a points at A[0, col] of the node, y at
-// Y[0, k0]. V = 4 reads the lane's 4 columns as one float4.
-template <int V, int KC, bool kStream>
-__device__ __forceinline__ void slice_partial(const float* a, const float* y,
-                                              int n, int K, int kc, int i0,
-                                              int i1, float (&acc)[V][KC]) {
-  using Vec = typename std::conditional<V == 4, float4, float>::type;
+// Y[0, k0]. V = 4 reads the lane's 4 columns in one load (a float4, or 8
+// bytes of bf16 / fp16).
+template <typename T, int V, int KC, bool kStream>
+__device__ __forceinline__ void slice_partial(
+    const typename Elem<T>::S* a, const float* y, int n, int K, int kc,
+    int i0, int i1, float (&acc)[V][KC]) {
+  using Vec = typename std::conditional<V == 4, typename Elem<T>::V4,
+                                        typename Elem<T>::S>::type;
   constexpr int U = rmv_unroll<V, KC>();
 #pragma unroll
   for (int q = 0; q < V; ++q)
@@ -341,7 +359,7 @@ __device__ __forceinline__ void slice_partial(const float* a, const float* y,
       for (int q = 0; q < V; ++q)
 #pragma unroll
         for (int c = 0; c < KC; ++c)
-          acc[q][c] = fmaf(comp(av[u], q), yv[u][c], acc[q][c]);
+          acc[q][c] = fmaf(elem<T>(av[u], q), yv[u][c], acc[q][c]);
   }
   for (; i < i1; ++i) {
     const Vec av =
@@ -351,7 +369,7 @@ __device__ __forceinline__ void slice_partial(const float* a, const float* y,
       const float yc = y[(size_t)i * K + min(c, kc - 1)];
 #pragma unroll
       for (int q = 0; q < V; ++q)
-        acc[q][c] = fmaf(comp(av, q), yc, acc[q][c]);
+        acc[q][c] = fmaf(elem<T>(av, q), yc, acc[q][c]);
     }
   }
 }
@@ -359,11 +377,11 @@ __device__ __forceinline__ void slice_partial(const float* a, const float* y,
 // slices <= kTeam: one block of 32 * slices threads per (node, chunk of
 // 32 V columns); warp s sums slice s, and the block adds the slices' partials
 // in slice order from zero (one slice: its partial) and writes the output.
-template <int V, int KC>
+template <typename T, int V, int KC>
 __global__ void __launch_bounds__(kTeam * 32)
-rmatvec_team_kernel(const float* __restrict__ A, const float* __restrict__ Y,
-                    float* __restrict__ out, int m, int n, int K,
-                    int chunks) {
+rmatvec_team_kernel(const typename Elem<T>::S* __restrict__ A,
+                    const float* __restrict__ Y, float* __restrict__ out,
+                    int m, int n, int K, int chunks) {
   constexpr int kChunk = 32 * V * KC;        // partials of one warp
   __shared__ float ps[kTeam][kChunk];
   const int lane = threadIdx.x % 32, s = threadIdx.x / 32;
@@ -375,7 +393,7 @@ rmatvec_team_kernel(const float* __restrict__ A, const float* __restrict__ Y,
     const int kc = min(KC, K - k0);
     if (col < n) {
       float acc[V][KC];
-      slice_partial<V, KC, false>(A + (size_t)z * m * n + col,
+      slice_partial<T, V, KC, false>(A + (size_t)z * m * n + col,
                                   Y + (size_t)z * m * K + k0, n, K, kc,
                                   s * kRows, min(m, (s + 1) * kRows), acc);
 #pragma unroll
@@ -401,9 +419,9 @@ rmatvec_team_kernel(const float* __restrict__ A, const float* __restrict__ Y,
 
 // Warps walk (node, slice, chunk) items, chunk fastest; each writes its
 // slice's partial to part (slices, N, n, K).
-template <int V, int KC>
+template <typename T, int V, int KC>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-rmatvec_slices_kernel(const float* __restrict__ A,
+rmatvec_slices_kernel(const typename Elem<T>::S* __restrict__ A,
                       const float* __restrict__ Y, float* __restrict__ part,
                       int N, int m, int n, int K, int chunks, int slices) {
   const int lane = threadIdx.x % 32;
@@ -420,7 +438,7 @@ rmatvec_slices_kernel(const float* __restrict__ A,
     for (int k0 = 0; k0 < K; k0 += KC) {
       const int kc = min(KC, K - k0);
       float acc[V][KC];
-      slice_partial<V, KC, true>(A + (size_t)z * m * n + col,
+      slice_partial<T, V, KC, true>(A + (size_t)z * m * n + col,
                                  Y + (size_t)z * m * K + k0, n, K, kc,
                                  s * kRows, min(m, (s + 1) * kRows), acc);
 #pragma unroll
@@ -482,9 +500,9 @@ cudaError_t with_kc(int kc, F&& f) {
   }
 }
 
-template <int P, int R>
-cudaError_t launch_matvec_r(const float* A, const float* X, float* out,
-                            int N, int m, int n, int K, int grid,
+template <typename T, int P, int R>
+cudaError_t launch_matvec_r(const typename Elem<T>::S* A, const float* X,
+                            float* out, int N, int m, int n, int K, int grid,
                             cudaStream_t st) {
   const int gpn = (m + R - 1) / R;
   if ((long long)grid * kWarps < (long long)N * gpn)
@@ -493,49 +511,55 @@ cudaError_t launch_matvec_r(const float* A, const float* X, float* out,
     constexpr int KC = decltype(kc)::value;
     if constexpr (P == kVecK && KC == kMaxK) {
       if (K > kMaxK) {   // passes of kMaxK, X read as scalars
-        matvec_kernel<P, R, KC, false><<<grid, kWarps * 32, 0, st>>>(
+        matvec_kernel<T, P, R, KC, false><<<grid, kWarps * 32, 0, st>>>(
             A, X, out, m, n, K, gpn, N * gpn);
         return cudaGetLastError();
       }
     }
-    matvec_kernel<P, R, KC, P == kVecK><<<grid, kWarps * 32, 0, st>>>(
+    matvec_kernel<T, P, R, KC, P == kVecK><<<grid, kWarps * 32, 0, st>>>(
         A, X, out, m, n, K, gpn, N * gpn);
     return cudaGetLastError();
   });
 }
 
-template <int P>
-cudaError_t launch_matvec(const float* A, const float* X, float* out, int N,
-                          int m, int n, int K, int grid, cudaStream_t st) {
+template <typename T, int P>
+cudaError_t launch_matvec(const typename Elem<T>::S* A, const float* X,
+                          float* out, int N, int m, int n, int K, int grid,
+                          cudaStream_t st) {
+  if (P != kScalar && n % Elem<T>::kPer16 != 0) return cudaErrorInvalidValue;
   if constexpr (P == kVec1) {
     if (K != 1) return cudaErrorInvalidValue;
-    return launch_matvec_r<P, kRowsPerWarp1>(A, X, out, N, m, n, K, grid, st);
+    return launch_matvec_r<T, P, kRowsPerWarp1>(A, X, out, N, m, n, K, grid,
+                                                st);
   } else if constexpr (P == kVecK) {
     if (K == 1) return cudaErrorInvalidValue;
-    return launch_matvec_r<P, kRowsPerWarpK>(A, X, out, N, m, n, K, grid, st);
+    return launch_matvec_r<T, P, kRowsPerWarpK>(A, X, out, N, m, n, K, grid,
+                                                st);
   } else {
     if (K == 1)
-      return launch_matvec_r<P, kRowsPerWarp1>(A, X, out, N, m, n, K, grid,
-                                               st);
-    return launch_matvec_r<P, kRowsPerWarpK>(A, X, out, N, m, n, K, grid, st);
+      return launch_matvec_r<T, P, kRowsPerWarp1>(A, X, out, N, m, n, K,
+                                                  grid, st);
+    return launch_matvec_r<T, P, kRowsPerWarpK>(A, X, out, N, m, n, K, grid,
+                                                st);
   }
 }
 
-template <int V>
-cudaError_t launch_rmatvec(const float* A, const float* Y, float* part,
-                           float* out, int N, int m, int n, int K, int team,
-                           int grid, cudaStream_t st) {
+template <typename T, int V>
+cudaError_t launch_rmatvec(const typename Elem<T>::S* A, const float* Y,
+                           float* part, float* out, int N, int m, int n,
+                           int K, int team, int grid, cudaStream_t st) {
   const int chunks = (n + 32 * V - 1) / (32 * V);
   const int slices = (m + kRows - 1) / kRows;
-  if (slices == 0 || (team && slices > kTeam)) return cudaErrorInvalidValue;
+  if (slices == 0 || (team && slices > kTeam) || (V == 4 && n % 4 != 0))
+    return cudaErrorInvalidValue;
   return with_kc(K < kMaxK ? K : kMaxK, [&](auto kc) {
     constexpr int KC = decltype(kc)::value;
     if (team) {
-      rmatvec_team_kernel<V, KC><<<N * chunks, 32 * slices, 0, st>>>(
+      rmatvec_team_kernel<T, V, KC><<<N * chunks, 32 * slices, 0, st>>>(
           A, Y, out, m, n, K, chunks);
       return cudaGetLastError();
     }
-    rmatvec_slices_kernel<V, KC><<<grid, kWarps * 32, 0, st>>>(
+    rmatvec_slices_kernel<T, V, KC><<<grid, kWarps * 32, 0, st>>>(
         A, Y, part, N, m, n, K, chunks, slices);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -546,41 +570,64 @@ cudaError_t launch_rmatvec(const float* A, const float* Y, float* part,
   });
 }
 
-}  // namespace
-
-// A (N, m, n) row-major; X (N, n, K); out (N, m, K). path: 0 = 16-byte loads
-// at K == 1 (n % 4 == 0, A and X 16-byte aligned), 1 = 16-byte loads of A at
-// K > 1 (n % 4 == 0, A and X 16-byte aligned), 2 = scalar loads; grid blocks
-// of kWarps warps, at least one warp per group of kRowsPerWarp1 (K = 1) or
-// kRowsPerWarpK (K > 1) rows. One kernel launch. Returns cudaGetLastError().
-extern "C" int matvec_f32(const float* A, const float* X, float* out, int N,
-                          int m, int n, int K, int path, int grid,
-                          void* stream) {
+template <typename T>
+int matvec_entry(const void* A, const float* X, float* out, int N, int m,
+                 int n, int K, int path, int grid, void* stream) {
+  const auto* a = static_cast<const typename Elem<T>::S*>(A);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (path) {
     case kVec1:
-      return (int)launch_matvec<kVec1>(A, X, out, N, m, n, K, grid, st);
+      return (int)launch_matvec<T, kVec1>(a, X, out, N, m, n, K, grid, st);
     case kVecK:
-      return (int)launch_matvec<kVecK>(A, X, out, N, m, n, K, grid, st);
+      return (int)launch_matvec<T, kVecK>(a, X, out, N, m, n, K, grid, st);
     case kScalar:
-      return (int)launch_matvec<kScalar>(A, X, out, N, m, n, K, grid, st);
+      return (int)launch_matvec<T, kScalar>(a, X, out, N, m, n, K, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// A (N, m, n) row-major, m > 0; Y (N, m, K); out (N, n, K). vec = 1: a
-// lane owns 4 columns read as one float4 (n % 4 == 0, A 16-byte aligned).
-// team = 1 (slices = ceil(m / kRows) <= kTeam): one launch, one block per
-// (node, column chunk); grid and part unused. team = 0: part
-// (slices, N, n, K) takes the slices' partials from the first kernel, on
-// grid blocks of kWarps warps, and sum_slices adds them: two launches.
-// Returns cudaGetLastError().
-extern "C" int rmatvec_f32(const float* A, const float* Y, float* part,
-                           float* out, int N, int m, int n, int K, int vec,
-                           int team, int grid, void* stream) {
+template <typename T>
+int rmatvec_entry(const void* A, const float* Y, float* part, float* out,
+                  int N, int m, int n, int K, int vec, int team, int grid,
+                  void* stream) {
+  const auto* a = static_cast<const typename Elem<T>::S*>(A);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(vec ? launch_rmatvec<4>(A, Y, part, out, N, m, n, K, team,
-                                       grid, st)
-                   : launch_rmatvec<1>(A, Y, part, out, N, m, n, K, team,
-                                       grid, st));
+  return (int)(vec ? launch_rmatvec<T, 4>(a, Y, part, out, N, m, n, K, team,
+                                          grid, st)
+                   : launch_rmatvec<T, 1>(a, Y, part, out, N, m, n, K, team,
+                                          grid, st));
 }
+
+}  // namespace
+
+// matvec_<type>: A (N, m, n) row-major of <type>; X (N, n, K) f32; out
+// (N, m, K) f32. path: 0 = 16-byte loads at K == 1 (n % E == 0, A and X
+// 16-byte aligned; E = 4 f32, 8 bf16 / fp16), 1 = 16-byte loads of A at
+// K > 1 (the same conditions), 2 = scalar loads; grid blocks of kWarps
+// warps, at least one warp per group of kRowsPerWarp1 (K = 1) or
+// kRowsPerWarpK (K > 1) rows. One kernel launch. Returns cudaGetLastError().
+//
+// rmatvec_<type>: A (N, m, n) row-major of <type>, m > 0; Y (N, m, K) f32;
+// out (N, n, K) f32. vec = 1: a lane owns 4 columns read in one load
+// (n % 4 == 0, A 16-byte aligned). team = 1 (slices = ceil(m / kRows) <=
+// kTeam): one launch, one block per (node, column chunk); grid and part
+// unused. team = 0: part (slices, N, n, K) takes the slices' partials from
+// the first kernel, on grid blocks of kWarps warps, and sum_slices adds
+// them: two launches. Returns cudaGetLastError().
+#define MATVEC_ENTRIES(SUFFIX, T)                                             \
+  extern "C" int matvec_##SUFFIX(const void* A, const float* X, float* out,  \
+                                 int N, int m, int n, int K, int path,       \
+                                 int grid, void* stream) {                   \
+    return matvec_entry<T>(A, X, out, N, m, n, K, path, grid, stream);       \
+  }                                                                           \
+  extern "C" int rmatvec_##SUFFIX(const void* A, const float* Y,             \
+                                  float* part, float* out, int N, int m,     \
+                                  int n, int K, int vec, int team, int grid, \
+                                  void* stream) {                            \
+    return rmatvec_entry<T>(A, Y, part, out, N, m, n, K, vec, team, grid,    \
+                            stream);                                          \
+  }
+
+MATVEC_ENTRIES(f32, float)
+MATVEC_ENTRIES(bf16, __nv_bfloat16)
+MATVEC_ENTRIES(f16, __half)

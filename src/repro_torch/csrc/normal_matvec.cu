@@ -3,35 +3,41 @@
 //
 //   out[z, :] = A[z]^T (A[z] p[z]) + shift (.) p[z]
 //
-// A is (N, m, n) row-major f32, never copied; p is (N, n), out (N, n), all
-// contiguous. shift is a scalar (a value, or a 0-d device tensor read on the
-// device) or an (n,) vector broadcast over the nodes.
+// A is (N, m, n) row-major, never copied, in f32, bf16 or fp16 (widened to
+// f32 exactly as a tile is read from shared memory: csrc/elem.cuh); p is
+// (N, n) f32, out (N, n) f32, all contiguous. shift is a scalar (a value, or
+// a 0-d device tensor read on the device) or an (n,) vector broadcast over
+// the nodes.
 //
 // Replaces: src/repro/kernels/matvec.py, normal_matvec (:175) and
 // normal_matvec_gpu (:284) -- two tiled passes over A (the _mv_kernel and
-// _rmv_kernel TPU kernels) and the shifted axpy. w = A p is cast to
-// a.dtype between the two products (:186): to_a_dtype below, the identity
-// while only f32 operands are taken.
+// _rmv_kernel TPU kernels) and the shifted axpy. Those Pallas rows round
+// w = A p to a.dtype between the two products (:186); the JAX package's
+// CPU row (repro/kernels/ops.py:109-113), which the fits run against, keeps
+// w in f32, and so does this kernel: with bf16 / fp16 A, w is not rounded.
 //
 // What bounds it on an H100: every element of A is used twice (once in
-// A p, once in A^T w) for 4 flops, so the product is bound by memory: 4 N m
-// n bytes at 3.35 TB/s -- 0.955 ms for the Fig. 3 x-update's (8, 25,000,
-// 4,000), 0.076 ms for the Woodbury polish's stacked (6,400, 10,000). The
+// A p, once in A^T w) for 4 flops, so the product is bound by memory: N m n
+// elements of 4 (or 2) bytes at 3.35 TB/s -- 0.955 ms for the Fig. 3
+// x-update's (8, 25,000, 4,000) in f32, 0.478 ms in bf16; 0.076 ms for the
+// Woodbury polish's stacked (6,400, 10,000) in f32. The
 // composition of the two GEMV kernels reads A twice and cannot pass half of
 // that bound. Here a row's two uses happen while it sits in shared memory:
 //
 // * A CTA of kThreads threads owns a contiguous range of R-row tiles of one
 //   node (R = 1, 2 or 4 rows, the plan's choice from n). A ring of S stages
-//   in shared memory holds the next tiles: on the bulk path (n % 4 == 0, A
-//   16-byte aligned) a tile is one contiguous run of R n floats, fetched by
-//   ONE cp.async.bulk that completes on the stage's mbarrier; on the scalar
-//   path every thread issues 4-byte cp.asyncs into rows padded to a
-//   multiple of 4 floats and arrives on the mbarrier when they land. Thread
-//   0 (all threads, scalar path) refills a stage one tile after it was
-//   used, so S - 1 tiles stay in flight while one is consumed.
-// * Thread t owns the float4 column chunks t, t + kThreads, ... (VPT of
-//   them): p and the CTA's column partial g of those chunks live in its
-//   registers for the whole kernel.
+//   in shared memory holds the next tiles: on the bulk path (n % E == 0, A
+//   16-byte aligned; E = 4 elements in 16 bytes of f32, 8 of bf16 / fp16) a
+//   tile is one contiguous run of R n elements, fetched by ONE
+//   cp.async.bulk that completes on the stage's mbarrier; on the scalar
+//   path every thread issues 4-byte cp.asyncs (one element of f32, two of
+//   bf16 / fp16: n even, A 4-byte aligned) into rows padded to a multiple
+//   of E elements and arrives on the mbarrier when they land. Thread 0 (all
+//   threads, scalar path) refills a stage one tile after it was used, so
+//   S - 1 tiles stay in flight while one is consumed.
+// * Thread t owns the 16-byte column chunks t, t + kThreads, ... (VPT of
+//   them, E columns each): p and the CTA's column partial g of those
+//   columns live in its registers, in f32, for the whole kernel.
 // * A tile: each thread forms its share of the R dot products A_r . p from
 //   shared memory, the warps reduce them, and after ONE __syncthreads every
 //   thread adds the kWarps warp partials (the same bits everywhere) into
@@ -44,8 +50,8 @@
 //
 // Summation order (fixed by the shapes; no float atomics, so two calls
 // agree bit for bit):
-// * w_r: thread t sums its chunks in order, each chunk's 4 products
-//   x, y, z, w into one accumulator (fmaf); the warp adds its lanes with
+// * w_r: thread t sums its chunks in order, each chunk's E products in
+//   column order into one accumulator (fmaf); the warp adds its lanes with
 //   the shuffle-down tree 16, 8, 4, 2, 1; every thread adds warps 0 ..
 //   kWarps - 1 in order, starting from warp 0's partial.
 // * A CTA's partial of column c: sum over its rows in row order, from zero,
@@ -54,17 +60,18 @@
 //   + (shift_c * p_c), the product rounded on its own (__fmul_rn,
 //   __fadd_rn): the plain version's g + shift * p. With one CTA a node:
 //   its partial + (shift_c * p_c).
-#include <cuda_runtime.h>
-
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;           // threads of a stream CTA
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxVpt = 8;              // float4 column chunks a thread owns
+constexpr int kMaxVpt = 8;              // 16-byte column chunks a thread owns
 constexpr int kMaxRows = 4;             // rows of a tile (1, 2 or 4)
 constexpr int kMaxTileVecs = 8;         // most rows x vpt a kernel takes
+constexpr int kMaxCols = 4 * kMaxVpt;   // most columns a thread owns
 constexpr int kMaxStages = 8;           // stages of the ring
 constexpr int kRingBytes = 204800;      // shared memory of the ring
 constexpr int kSumCols = 32;            // outputs a sum block adds
@@ -92,10 +99,6 @@ __device__ __forceinline__ float shift_at(const Shift& s, int col) {
 __device__ __forceinline__ float finish(float g, float s, float p) {
   return __fadd_rn(g, __fmul_rn(s, p));
 }
-
-// The cast of w to a.dtype between the two products (repro matvec.py:186);
-// A is f32 here.
-__device__ __forceinline__ float to_a_dtype(float w) { return w; }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -148,41 +151,45 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Grid: N * ctas CTAs, CTA b streams node b / ctas, tiles
 // [T c / ctas, T (c + 1) / ctas) of its T = ceil(m / R) tiles, c = b % ctas.
 // ctas > 1: writes its column partial to part[z][c][:]; ctas == 1: out.
-template <bool kBulk, int VPT, int R>
+template <typename T, bool kBulk, int VPT, int R>
 __global__ void __launch_bounds__(kThreads, 1)
-normal_stream_kernel(const float* __restrict__ A, const float* __restrict__ P,
-                     Shift shift, float* __restrict__ part,
-                     float* __restrict__ out, int m, int n, int ctas,
-                     int stages) {
+normal_stream_kernel(const typename Elem<T>::S* __restrict__ A,
+                     const float* __restrict__ P, Shift shift,
+                     float* __restrict__ part, float* __restrict__ out, int m,
+                     int n, int ctas, int stages) {
+  using S = typename Elem<T>::S;
+  using V = typename Elem<T>::V16;
+  constexpr int E = Elem<T>::kPer16;
+  constexpr int W = 4 / sizeof(S);          // elements a 4-byte copy moves
   extern __shared__ __align__(128) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem + kBarBytes);
-  float* ring = reinterpret_cast<float*>(smem + kBarBytes + kRedBytes);
+  S* ring = reinterpret_cast<S*>(smem + kBarBytes + kRedBytes);
   const unsigned bar0 = smem_addr(smem);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int z = blockIdx.x / ctas, c = blockIdx.x - z * ctas;
-  const int n4 = (n + 3) / 4, ld = 4 * n4;   // a stage row: ld floats
+  const int nv = (n + E - 1) / E, ld = E * nv;   // a stage row: ld elements
   const int tiles = (m + R - 1) / R;
   const int t0 = (int)((long long)tiles * c / ctas);
   const int ntiles = (int)((long long)tiles * (c + 1) / ctas) - t0;
-  const float* a_node = A + (size_t)z * m * n;
+  const S* a_node = A + (size_t)z * m * n;
 
   // tile t of this CTA into stage s
   auto fill = [&](int t, int s) {
     const int row0 = (t0 + t) * R;
     const int rows = min(R, m - row0);
-    const float* src = a_node + (size_t)row0 * n;
-    float* dst = ring + (size_t)s * R * ld;
+    const S* src = a_node + (size_t)row0 * n;
+    S* dst = ring + (size_t)s * R * ld;
     if constexpr (kBulk) {
       if (tid == 0) {
-        const unsigned bytes = (unsigned)(rows * n) * 4u;
+        const unsigned bytes = (unsigned)(rows * n) * sizeof(S);
         mbar_expect_tx(bar0 + 8 * s, bytes);
         bulk_load(smem_addr(dst), src, bytes, bar0 + 8 * s);
       }
     } else {
-      const int count = rows * n;
+      const int count = rows * n / W;      // n % W == 0: a copy is in a row
       for (int e = tid; e < count; e += kThreads) {
-        const int r = e / n;
-        cp_async4(smem_addr(dst + r * ld + (e - r * n)), src + e);
+        const int el = e * W, r = el / n;
+        cp_async4(smem_addr(dst + r * ld + (el - r * n)), src + el);
       }
       cp_async_arrive(bar0 + 8 * s);
     }
@@ -198,29 +205,29 @@ normal_stream_kernel(const float* __restrict__ A, const float* __restrict__ P,
     const int pad = ld - n;
     for (int e = tid; e < stages * R * pad; e += kThreads) {
       const int sr = e / pad;
-      ring[sr * ld + n + (e - sr * pad)] = 0.f;
+      ring[sr * ld + n + (e - sr * pad)] = S(0);
     }
   }
   __syncthreads();
   for (int t = 0; t < min(stages, ntiles); ++t) fill(t, t);
 
   const float* pz = P + (size_t)z * n;
-  float4 p4[VPT], g4[VPT];
+  float pv[VPT][E], g[VPT][E];
 #pragma unroll
   for (int v = 0; v < VPT; ++v) {
-    const int col = 4 * (tid + v * kThreads);
-    p4[v].x = col < n ? pz[col] : 0.f;
-    p4[v].y = col + 1 < n ? pz[col + 1] : 0.f;
-    p4[v].z = col + 2 < n ? pz[col + 2] : 0.f;
-    p4[v].w = col + 3 < n ? pz[col + 3] : 0.f;
-    g4[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int col = E * (tid + v * kThreads);
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      pv[v][q] = col + q < n ? pz[col + q] : 0.f;
+      g[v][q] = 0.f;
+    }
   }
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % stages;
     const int rows = min(R, m - (t0 + t) * R);
     mbar_wait(bar0 + 8 * s, (unsigned)(t / stages) & 1u);
-    const float4* a4 = reinterpret_cast<const float4*>(ring + (size_t)s * R * ld);
+    const V* a4 = reinterpret_cast<const V*>(ring + (size_t)s * R * ld);
     float* rb = red + (t & 1) * kWarps * R;
     // this thread's share of each row's A_r . p, then the warp's
 #pragma unroll
@@ -230,12 +237,10 @@ normal_stream_kernel(const float* __restrict__ A, const float* __restrict__ P,
 #pragma unroll
         for (int v = 0; v < VPT; ++v) {
           const int j = tid + v * kThreads;
-          if (j < n4) {
-            const float4 a = a4[r * n4 + j];
-            acc = fmaf(a.x, p4[v].x, acc);
-            acc = fmaf(a.y, p4[v].y, acc);
-            acc = fmaf(a.z, p4[v].z, acc);
-            acc = fmaf(a.w, p4[v].w, acc);
+          if (j < nv) {
+            const V a = a4[r * nv + j];
+#pragma unroll
+            for (int q = 0; q < E; ++q) acc = fmaf(elem<T>(a, q), pv[v][q], acc);
           }
         }
       }
@@ -250,16 +255,13 @@ normal_stream_kernel(const float* __restrict__ A, const float* __restrict__ P,
       if (r >= rows) break;
       float w = rb[r];
       for (int k = 1; k < kWarps; ++k) w += rb[k * R + r];
-      w = to_a_dtype(w);
 #pragma unroll
       for (int v = 0; v < VPT; ++v) {
         const int j = tid + v * kThreads;
-        if (j < n4) {
-          const float4 a = a4[r * n4 + j];
-          g4[v].x = fmaf(a.x, w, g4[v].x);
-          g4[v].y = fmaf(a.y, w, g4[v].y);
-          g4[v].z = fmaf(a.z, w, g4[v].z);
-          g4[v].w = fmaf(a.w, w, g4[v].w);
+        if (j < nv) {
+          const V a = a4[r * nv + j];
+#pragma unroll
+          for (int q = 0; q < E; ++q) g[v][q] = fmaf(elem<T>(a, q), w, g[v][q]);
         }
       }
     }
@@ -269,12 +271,10 @@ normal_stream_kernel(const float* __restrict__ A, const float* __restrict__ P,
     float* o = out + (size_t)z * n;
 #pragma unroll
     for (int v = 0; v < VPT; ++v) {
-      const int col = 4 * (tid + v * kThreads);
-      const float g[4] = {g4[v].x, g4[v].y, g4[v].z, g4[v].w};
-      const float pv[4] = {p4[v].x, p4[v].y, p4[v].z, p4[v].w};
+      const int col = E * (tid + v * kThreads);
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (col + q < n) o[col + q] = finish(g[q], shift_at(shift, col + q), pv[q]);
+      for (int q = 0; q < E; ++q)
+        if (col + q < n) o[col + q] = finish(g[v][q], shift_at(shift, col + q), pv[v][q]);
     }
     return;
   }
@@ -282,13 +282,16 @@ normal_stream_kernel(const float* __restrict__ A, const float* __restrict__ P,
 #pragma unroll
   for (int v = 0; v < VPT; ++v) {
     const int j = tid + v * kThreads;
-    if (kBulk) {
-      if (j < n4) reinterpret_cast<float4*>(dst)[j] = g4[v];
-    } else {
-      const float g[4] = {g4[v].x, g4[v].y, g4[v].z, g4[v].w};
+    if (kBulk) {   // n % E == 0: the partial's rows are 16-byte aligned
+      if (j < nv)
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (4 * j + q < n) dst[4 * j + q] = g[q];
+        for (int h = 0; h < E / 4; ++h)
+          reinterpret_cast<float4*>(dst)[j * (E / 4) + h] = make_float4(
+              g[v][4 * h], g[v][4 * h + 1], g[v][4 * h + 2], g[v][4 * h + 3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < E; ++q)
+        if (E * j + q < n) dst[E * j + q] = g[v][q];
     }
   }
 }
@@ -336,7 +339,7 @@ normal_sum_kernel(const float* __restrict__ part, const float* __restrict__ P,
 }
 
 struct Args {
-  const float* A;
+  const void* A;
   const float* P;
   Shift shift;
   float* part;
@@ -345,85 +348,81 @@ struct Args {
   cudaStream_t st;
 };
 
-template <bool B, int V, int R>
+template <typename T, bool B, int V, int R>
 cudaError_t launch_stream(const Args& a) {
+  using S = typename Elem<T>::S;
   static bool configured = false;
-  auto kern = normal_stream_kernel<B, V, R>;
+  auto kern = normal_stream_kernel<T, B, V, R>;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const int ld = 4 * ((a.n + 3) / 4);
-  const size_t bytes = kBarBytes + kRedBytes + (size_t)a.stages * R * ld * 4;
-  kern<<<a.N * a.ctas, kThreads, bytes, a.st>>>(a.A, a.P, a.shift, a.part,
-                                                a.out, a.m, a.n, a.ctas,
-                                                a.stages);
+  constexpr int E = Elem<T>::kPer16;
+  const int ld = E * ((a.n + E - 1) / E);
+  const size_t bytes =
+      kBarBytes + kRedBytes + (size_t)a.stages * R * ld * sizeof(S);
+  kern<<<a.N * a.ctas, kThreads, bytes, a.st>>>(
+      static_cast<const S*>(a.A), a.P, a.shift, a.part, a.out, a.m, a.n,
+      a.ctas, a.stages);
   return cudaGetLastError();
 }
 
-// Instantiated where a tile's R x VPT float4s a thread reads stay within
-// kMaxTileVecs (no register spills; the plan never asks for more).
-template <bool B, int V, int R>
+// Instantiated where a tile's R x VPT 16-byte chunks a thread reads stay
+// within kMaxTileVecs and its columns within kMaxCols (no register spills;
+// the plan never asks for more).
+template <typename T, bool B, int V, int R>
 cudaError_t if_fits(const Args& a) {
-  if constexpr (V * R <= kMaxTileVecs) return launch_stream<B, V, R>(a);
+  if constexpr (V * R <= kMaxTileVecs && V * Elem<T>::kPer16 <= kMaxCols)
+    return launch_stream<T, B, V, R>(a);
   else return cudaErrorInvalidValue;
 }
 
-template <bool B, int V>
+template <typename T, bool B, int V>
 cudaError_t by_rows(int rows, const Args& a) {
   switch (rows) {
-    case 1: return if_fits<B, V, 1>(a);
-    case 2: return if_fits<B, V, 2>(a);
-    case 4: return if_fits<B, V, 4>(a);
+    case 1: return if_fits<T, B, V, 1>(a);
+    case 2: return if_fits<T, B, V, 2>(a);
+    case 4: return if_fits<T, B, V, 4>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool B, int V = 1>
+template <typename T, bool B, int V = 1>
 cudaError_t by_vpt(int vpt, int rows, const Args& a) {
   if constexpr (V > kMaxVpt) {
     return cudaErrorInvalidValue;
   } else {
-    if (vpt == V) return by_rows<B, V>(rows, a);
-    return by_vpt<B, V + 1>(vpt, rows, a);
+    if (vpt == V) return by_rows<T, B, V>(rows, a);
+    return by_vpt<T, B, V + 1>(vpt, rows, a);
   }
 }
 
-}  // namespace
-
-// A (N, m, n) row-major; p, out (N, n); shift: kind 0 = shift_val, 1 =
-// *shift_ptr (0-d, on the device), 2 = shift_ptr[0 .. n) for every node.
-// m == 0 (ctas 0): out = shift (.) p, one launch of the sum kernel, A
-// unread. Otherwise the stream kernel on N * ctas CTAs of kThreads threads,
-// tiles of `rows` rows in `stages` stages, each thread owning `vpt` float4
-// column chunks (4 kThreads vpt >= n); bulk = 1: one cp.async.bulk a tile
-// (n % 4 == 0, A 16-byte aligned); rows x vpt <= kMaxTileVecs. ctas == 1:
-// one launch, the stream kernel
-// writes out; ctas > 1: part (N, ctas, n) takes the CTAs' partials and the
-// sum kernel adds them: two launches. Returns cudaGetLastError().
-extern "C" int normal_matvec_f32(const float* A, const float* p,
-                                 const float* shift_ptr, float shift_val,
-                                 int shift_kind, float* part, float* out,
-                                 int N, int m, int n, int bulk, int vpt,
-                                 int rows, int stages, int ctas,
-                                 void* stream) {
+template <typename T>
+int normal_entry(const void* A, const float* p, const float* shift_ptr,
+                 float shift_val, int shift_kind, float* part, float* out,
+                 int N, int m, int n, int bulk, int vpt, int rows, int stages,
+                 int ctas, void* stream) {
+  constexpr int E = Elem<T>::kPer16;
+  constexpr int W = 4 / (int)sizeof(typename Elem<T>::S);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Shift shift{shift_ptr, shift_val, shift_kind};
   if (N < 1 || n < 1 || m < 0 || shift_kind < 0 || shift_kind > 2)
     return (int)cudaErrorInvalidValue;
   if (m == 0) ctas = 0;
   if (m > 0) {
-    const int n4 = (n + 3) / 4;
-    if (ctas < 1 || vpt < 1 || vpt > kMaxVpt || n4 > kThreads * vpt ||
+    const int nv = (n + E - 1) / E;
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(A);
+    if (ctas < 1 || vpt < 1 || vpt > kMaxVpt || nv > kThreads * vpt ||
         rows < 1 || rows > kMaxRows || stages < 2 || stages > kMaxStages ||
-        (long long)stages * rows * n4 * 16 > kRingBytes ||
-        (bulk && (n % 4 != 0 || reinterpret_cast<uintptr_t>(A) % 16 != 0)))
+        (long long)stages * rows * nv * 16 > kRingBytes ||
+        (bulk && (n % E != 0 || addr % 16 != 0)) ||
+        (!bulk && (n % W != 0 || addr % 4 != 0)))
       return (int)cudaErrorInvalidValue;
     const Args a{A, p, shift, part, out, N, m, n, stages, ctas, st};
-    const cudaError_t err = bulk ? by_vpt<true>(vpt, rows, a)
-                                 : by_vpt<false>(vpt, rows, a);
+    const cudaError_t err = bulk ? by_vpt<T, true>(vpt, rows, a)
+                                 : by_vpt<T, false>(vpt, rows, a);
     if (err != cudaSuccess || ctas == 1) return (int)err;
   }
   const long long count = (long long)N * n;
@@ -431,3 +430,32 @@ extern "C" int normal_matvec_f32(const float* A, const float* p,
                       kSumThreads, 0, st>>>(part, p, shift, out, N, n, ctas);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// normal_matvec_<type>: A (N, m, n) row-major of <type> (f32, bf16, f16);
+// p, out (N, n) f32; shift: kind 0 = shift_val, 1 = *shift_ptr (0-d, on the
+// device), 2 = shift_ptr[0 .. n) for every node. m == 0 (ctas 0): out =
+// shift (.) p, one launch of the sum kernel, A unread. Otherwise the stream
+// kernel on N * ctas CTAs of kThreads threads, tiles of `rows` rows in
+// `stages` stages, each thread owning `vpt` 16-byte column chunks of E
+// elements (E = 4 f32, 8 bf16 / fp16; kThreads vpt E >= n, vpt E <=
+// kMaxCols); bulk = 1: one cp.async.bulk a tile (n % E == 0, A 16-byte
+// aligned); bulk = 0: 4-byte copies (bf16 / fp16: n even, A 4-byte
+// aligned); rows x vpt <= kMaxTileVecs. ctas == 1: one launch, the stream
+// kernel writes out; ctas > 1: part (N, ctas, n) takes the CTAs' partials
+// and the sum kernel adds them: two launches. Returns cudaGetLastError().
+#define NORMAL_ENTRY(SUFFIX, T)                                               \
+  extern "C" int normal_matvec_##SUFFIX(                                      \
+      const void* A, const float* p, const float* shift_ptr,                 \
+      float shift_val, int shift_kind, float* part, float* out, int N,       \
+      int m, int n, int bulk, int vpt, int rows, int stages, int ctas,       \
+      void* stream) {                                                         \
+    return normal_entry<T>(A, p, shift_ptr, shift_val, shift_kind, part,     \
+                           out, N, m, n, bulk, vpt, rows, stages, ctas,      \
+                           stream);                                           \
+  }
+
+NORMAL_ENTRY(f32, float)
+NORMAL_ENTRY(bf16, __nv_bfloat16)
+NORMAL_ENTRY(f16, __half)

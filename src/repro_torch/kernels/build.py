@@ -7,8 +7,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
          -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so <name>.cu
 
 The library is built at first use into ``build/repro_torch/`` (git-ignored)
-under a name that carries the source's content hash, so an edited source is
-rebuilt and a stale library is never loaded. Only sources in this package
+under a name that carries the content hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited source or header is rebuilt and a
+stale library is never loaded. Only sources in this package
 are built. The library is loaded with ``ctypes``: pointer and stream
 arguments are declared ``c_void_p`` (an undeclared Python int would be cut
 to 32 bits), and every C entry point returns ``cudaGetLastError()``, which
@@ -55,6 +56,15 @@ F = ctypes.c_float
 # two one-launch projections: one) — and nowhere else (read through
 # repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
+# The same launches of the kernels that take several element types of A
+# (gram, matvec, rmatvec, normal_matvec), by "<kernel>_<f32|bf16|f16>".
+LAUNCHES_BY_TYPE: collections.Counter = collections.Counter()
+
+
+def count_launches(name: str, suffix: str, n: int) -> None:
+    """Add ``n`` device launches of kernel ``name`` on ``suffix`` data."""
+    LAUNCHES[name] += n
+    LAUNCHES_BY_TYPE[f"{name}_{suffix}"] += n
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -76,9 +86,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source content and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(
-        SOURCE_FLAGS.get(name, ())).encode()).hexdigest()
+    source content, the shared headers' (``csrc/*.cuh``) and flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
+                            + " ".join(SOURCE_FLAGS.get(name, ())).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

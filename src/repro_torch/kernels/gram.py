@@ -87,5 +87,5 @@ def _launch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), y.data_ptr(), out.data_ptr(), *args,
             build.stream(x))
         build.check(rc, "gram_xy")
-        build.LAUNCHES["gram"] += 1
+        build.count_launches("gram", _ENTRY[x.dtype].rsplit("_", 1)[1], 1)
     return out

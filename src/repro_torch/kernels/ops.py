@@ -19,8 +19,13 @@ flash_attention    csrc/flash_attention.cu     plain softmax attention
 =================  ==========================  =============================
 
 There is no default row: a CUDA tensor reaches a kernel or an error.
-Outputs are cast to ``a.dtype`` unless ``out_dtype`` is given, as in the
-JAX package (``repro/kernels/ops.py:54-63``).
+The kernels and plain versions compute in f32 (bf16 / fp16 data widened
+exactly); the rows round that once to ``out_dtype`` when it is given, else
+to the natural promotion of the two operands' types, as the JAX package's
+CPU row does (``repro/kernels/ops.py:58-63``, ``_matmul_jnp``): bf16 A
+against an f32 x gives f32, bf16 A against a bf16 b gives bf16. (Its
+Pallas rows round to ``a.dtype`` instead, ``ops.py:54-55``; for f32
+operands the two rules agree.)
 
 :func:`launch_counts` reads how many CUDA kernels each wrapper launched
 since :func:`reset_launch_counts`: device launches, so a two-pass
@@ -44,7 +49,8 @@ __all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
            "block_rmatvec_auto", "flash_attention", "flash_attention_auto",
            "flash_attention_flat", "gram", "gram_auto", "gram_xy",
            "l1_epigraph_proj", "l1_epigraph_proj_auto", "ladder_stats",
-           "ladder_stats_auto", "launch_counts", "matvec", "matvec_auto",
+           "ladder_stats_auto", "launch_counts", "launch_counts_by_type",
+           "matvec", "matvec_auto",
            "normal_matvec", "normal_matvec_auto", "reset_launch_counts",
            "rmatvec", "rmatvec_auto", "skappa_support",
            "skappa_support_auto"]
@@ -54,8 +60,10 @@ KERNELS = ("ladder_stats", "l1_epigraph_proj", "skappa_support", "gram",
            "block_rmatvec", "flash_attention")
 
 
-def _out(x: torch.Tensor, like: torch.Tensor, out_dtype) -> torch.Tensor:
-    return x.to(out_dtype if out_dtype is not None else like.dtype)
+def _out(x: torch.Tensor, a: torch.Tensor, v: torch.Tensor,
+         out_dtype) -> torch.Tensor:
+    return x.to(out_dtype if out_dtype is not None
+                else torch.promote_types(a.dtype, v.dtype))
 
 
 for _dev, _gram, _mv, _rmv, _nmv, _ls, _l1, _sk, _bmv, _brmv in (
@@ -67,24 +75,25 @@ for _dev, _gram, _mv, _rmv, _nmv, _ls, _l1, _sk, _bmv, _brmv in (
          ref.block_matvec_ref, ref.block_rmatvec_ref)):
     runtime.register_kernel(
         "gram", _dev,
-        lambda a, out_dtype=None, _f=_gram: _out(_f(a), a, out_dtype))
+        lambda a, out_dtype=None, _f=_gram: _out(_f(a), a, a, out_dtype))
     runtime.register_kernel(
         "matvec", _dev,
-        lambda a, x, out_dtype=None, _f=_mv: _out(_f(a, x), a, out_dtype))
+        lambda a, x, out_dtype=None, _f=_mv: _out(_f(a, x), a, x, out_dtype))
     runtime.register_kernel(
         "rmatvec", _dev,
-        lambda a, y, out_dtype=None, _f=_rmv: _out(_f(a, y), a, out_dtype))
+        lambda a, y, out_dtype=None, _f=_rmv: _out(_f(a, y), a, y,
+                                                   out_dtype))
     runtime.register_kernel("normal_matvec", _dev, _nmv)
     runtime.register_kernel("ladder_stats", _dev, _ls)
     runtime.register_kernel("l1_epigraph_proj", _dev, _l1)
     runtime.register_kernel("skappa_support", _dev, _sk)
     runtime.register_kernel(
         "block_matvec", _dev,
-        lambda a, x, M, out_dtype=None, _f=_bmv: _out(_f(a, x, M), a,
+        lambda a, x, M, out_dtype=None, _f=_bmv: _out(_f(a, x, M), a, x,
                                                       out_dtype))
     runtime.register_kernel(
         "block_rmatvec", _dev,
-        lambda a, y, M, out_dtype=None, _f=_brmv: _out(_f(a, y, M), a,
+        lambda a, y, M, out_dtype=None, _f=_brmv: _out(_f(a, y, M), a, y,
                                                        out_dtype))
 
 
@@ -121,7 +130,8 @@ def rmatvec_auto(a: torch.Tensor, y: torch.Tensor,
 
 def normal_matvec_auto(a: torch.Tensor, p: torch.Tensor,
                        shift) -> torch.Tensor:
-    """(A^T A + diag(shift)) p without forming A^T A."""
+    """(A^T A + diag(shift)) p without forming A^T A, in the promoted type
+    of a and p (f32 for the solver's f32 iterates over any data)."""
     return runtime.kernel("normal_matvec", a.device.type)(a, p, shift)
 
 
@@ -189,6 +199,13 @@ def launch_counts() -> dict[str, int]:
     return {name: build.LAUNCHES[name] for name in KERNELS}
 
 
+def launch_counts_by_type() -> dict[str, int]:
+    """The launches of gram, matvec, rmatvec and normal_matvec since the
+    last reset by the element type of A: ``{"matvec_bf16": n, ...}``."""
+    return dict(build.LAUNCHES_BY_TYPE)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     build.LAUNCHES.clear()
+    build.LAUNCHES_BY_TYPE.clear()

@@ -4,7 +4,11 @@ registry and the oracles the CUDA kernels are held against
 
 Each solver product accepts an optional leading node axis: ``a`` of shape
 ``(m, n)`` or ``(N, m, n)`` with operands shaped to match; the block
-products take the node axis always. The attention oracle takes the flat
+products take the node axis always. Operands of any float type (bf16 and
+fp16 data included) are widened to f32, which is exact, and the product is
+computed in f32 (the Gram of bf16 / fp16 operands in f64, rounded once);
+the registry rows (:mod:`.ops`) round the f32 result once to the output
+dtype. The attention oracle takes the flat
 head-major layout of the kernel.
 """
 from __future__ import annotations
@@ -13,17 +17,22 @@ import math
 
 import torch
 
+from ..runtime import REDUCED
+
 f32 = torch.float32
 
 
 def gram_ref(a: torch.Tensor) -> torch.Tensor:
-    """A^T A in f32."""
-    af = a.to(f32)
-    return af.mT @ af
+    """A^T A in f32 (see :func:`gram_xy_ref`)."""
+    return gram_xy_ref(a, a)
 
 
 def gram_xy_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """X^T Y in f32."""
+    """X^T Y in f32; for bf16 / fp16 operands an f64 product rounded once
+    (their products are exact, so this is the correctly rounded Gram, as
+    ``csrc/gram.cu`` forms it)."""
+    if x.dtype in REDUCED and y.dtype in REDUCED:
+        return (x.double().mT @ y.double()).to(f32)
     return x.to(f32).mT @ y.to(f32)
 
 
@@ -165,10 +174,13 @@ def rmatvec_ref(a: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def normal_matvec_ref(a: torch.Tensor, p: torch.Tensor, shift) -> torch.Tensor:
-    """(A^T A + diag(shift)) p in f32, cast back to a.dtype."""
+    """(A^T A + diag(shift)) p in f32, w = A p included (as the JAX
+    package's CPU row keeps it), rounded once to the promoted type of a and
+    p."""
     pf = p.to(f32)
     w = matvec_ref(a, pf)
-    return (rmatvec_ref(a, w) + shift * pf).to(a.dtype)
+    return (rmatvec_ref(a, w) + shift * pf).to(
+        torch.promote_types(a.dtype, p.dtype))
 
 
 def block_widths(n: int, nb: int, M: int) -> tuple[int, int]:

@@ -16,9 +16,11 @@ the rest of the port never string-compares device names:
 * **Ladder rounds** — :func:`ladder_rounds` gives 2 bracketing rounds on
   the card (the one-launch projections evaluate all B rungs of a round in
   one pass over |z|) and 0 on the CPU.
-* **Precision policy** — :class:`PrecisionPolicy` and its presets, as in the
-  JAX package. This port certifies ``"fp32"`` only; the solver front-end
-  rejects the other presets with :class:`CapabilityError`.
+* **Precision policy** — :class:`PrecisionPolicy`, its presets and its
+  dtype helpers, as in the JAX package. The port certifies ``"fp32"``,
+  ``"bf16"`` and ``"fp16"``; the solver front-end rejects ``"fp64_polish"``
+  (and the feature split under a reduced preset) with
+  :class:`CapabilityError`.
 
 Float32 matrix products and convolutions run in full float32 here:
 TF32 keeps about three decimal digits, which breaks the f32 kernel parity
@@ -37,7 +39,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = [
-    "DEVICE_TYPES", "PRECISION_PRESETS", "CapabilityError",
+    "DEVICE_TYPES", "PRECISION_PRESETS", "REDUCED", "CapabilityError",
     "PrecisionPolicy", "kernel", "kernel_table", "ladder_rounds",
     "precision_name", "register_kernel", "resolve_device",
     "resolve_precision",
@@ -120,6 +122,12 @@ def ladder_rounds(device_type: str) -> int:
 _DATA_DTYPES = ("bfloat16", "float16", "float32", "float64")
 _ACCUM_DTYPES = ("float32", "float64")
 _POLISH_DTYPES = ("float64",)
+REDUCED = (torch.bfloat16, torch.float16)
+
+
+def _dtype(name) -> torch.dtype:
+    """A dtype name (``"bfloat16"``) or a torch dtype as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +152,34 @@ class PrecisionPolicy:
             if val not in allowed:
                 raise ValueError(f"PrecisionPolicy.{name}={val!r} not in "
                                  f"{allowed}")
+
+    # -- dtype resolution helpers (as repro.runtime.PrecisionPolicy) --------
+    def cast_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` cast to the policy data dtype (``t`` itself when data is
+        None or ``t`` already has it)."""
+        if self.data is None or t.dtype == _dtype(self.data):
+            return t
+        return t.to(_dtype(self.data))
+
+    def data_dtype(self, incoming) -> torch.dtype:
+        """Effective data dtype given the incoming tensor dtype."""
+        return _dtype(self.data) if self.data else _dtype(incoming)
+
+    def state_dtype(self, data_dtype) -> torch.dtype:
+        """Solver-state dtype given the (already cast) data dtype."""
+        return _dtype(self.state) if self.state else _dtype(data_dtype)
+
+    def accum_dtype(self, dtype) -> torch.dtype:
+        """Accumulation / factor dtype for contractions over ``dtype`` data:
+        ``accum`` for bf16 / fp16 data, the data dtype otherwise."""
+        d = _dtype(dtype)
+        return _dtype(self.accum) if d in REDUCED else d
+
+    @property
+    def needs_x64(self) -> bool:
+        """True when any stage requests float64."""
+        return "float64" in (self.data, self.accum, self.state,
+                             self.kkt_polish)
 
 
 PRECISION_PRESETS: dict[str, PrecisionPolicy] = {

@@ -5,7 +5,8 @@ and skip where there is no card. Run them there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 They import only ``torch`` and ``repro_torch``. Tolerance: rtol 1e-4 and
 an atol of 1e-5 per unit of the summed magnitudes, since the kernels sum
-in another order than the plain versions. Flash attention is held to the
+in another order than the plain versions (bf16 / fp16 A too: both widen it
+to f32 exactly and compute in f32). Flash attention is held to the
 JAX package's own bounds for it (tests/test_kernels.py): f32 rtol 2e-5 /
 atol 1e-4, bf16 rtol 2e-2 / atol 1e-1; the bf16 kernel is also held to one
 rounding of its output against the f32 computation.
@@ -281,14 +282,15 @@ def test_cuda_matvec_rmatvec(cuda_gen, shape, k):
            ref.normal_matvec_ref(a, p, shift), m * n)
 
 
-def _misaligned(t):
-    """A contiguous copy of t whose storage starts one float past a 16-byte
-    boundary."""
-    buf = torch.empty(t.numel() + 4, device=t.device, dtype=t.dtype)
-    off = 1 + (-buf.data_ptr() // t.element_size()) % 4
+def _misaligned(t, elems=1):
+    """A contiguous copy of t whose storage starts ``elems`` elements past
+    a 16-byte boundary."""
+    per = 16 // t.element_size()
+    buf = torch.empty(t.numel() + 2 * per, device=t.device, dtype=t.dtype)
+    off = elems + (-buf.data_ptr() // t.element_size()) % per
     out = buf[off:off + t.numel()].view(t.shape)
     out.copy_(t)
-    assert out.data_ptr() % 16 == 4
+    assert out.data_ptr() % 16 == elems * t.element_size()
     return out
 
 
@@ -572,15 +574,188 @@ def test_cuda_pcg_fit_agrees_with_the_cpu_fit(cuda_gen):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_cuda_reduced_precision_operands_widen_to_f32(cuda_gen, dtype):
-    """bf16/fp16 gram operands are widened to f32 as they load; the plain
-    version widens first too, so the f32 bound holds. The GEMVs take f32
-    only in this slice and refuse the others."""
+    """bf16/fp16 operands are widened to f32 as they load (gram, matvec,
+    rmatvec, normal_matvec); the plain versions widen first too, so the f32
+    bound holds (the Gram's f64 sums to one rounding). The registry rows
+    round to the operands' promotion."""
     a = torch.randn(2, 70, 45, device="cuda", generator=cuda_gen).to(dtype)
     x = torch.randn(2, 45, device="cuda", generator=cuda_gen).to(dtype)
-    _close(gram.gram(a.mT), ref.gram_ref(a.mT), 45)
-    _close(gram.gram(a), ref.gram_ref(a), 70)
-    with pytest.raises(ValueError):
-        matvec.matvec(a, x)
+    # the Gram of half-width data is summed in f64 on both sides: within
+    # one f32 rounding of the plain version
+    for v in (a.mT, a):
+        torch.testing.assert_close(gram.gram(v), ref.gram_ref(v),
+                                   rtol=2.0 ** -23, atol=0.0)
+    got = matvec.matvec(a, x)
+    assert got.dtype == torch.float32
+    _close(got, ref.matvec_ref(a, x), 45)
+    assert ops.matvec_auto(a, x).dtype == dtype
+    assert ops.matvec_auto(a, x.float()).dtype == torch.float32
+    assert ops.matvec_auto(a, x, torch.float32).dtype == torch.float32
+    p = torch.randn(2, 45, device="cuda", generator=cuda_gen)
+    _close(matvec.normal_matvec(a, p, 0.5), ref.normal_matvec_ref(a, p, 0.5),
+           70 * 45)
+    with pytest.raises(ValueError):       # p must be f32 (the iterates)
+        matvec.normal_matvec(a, p.to(dtype), 0.5)
+
+
+# (N, m, n) of the half-width GEMVs: matvec's 16-byte paths need n % 8 ==
+# 0, rmatvec's n % 4 == 0; m is not a multiple of 4, 2 or 128 rows
+HALF_SHAPES = [
+    (2, 301, 16_896),    # 16-byte paths; one rmatvec block adds 3 slices
+    (2, 301, 16_900),    # n % 8 == 4: matvec scalar, rmatvec 4 columns
+    (1, 1_031, 258),     # nine slices, scalar rmatvec
+    (3, 5, 259),         # odd n, one slice
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("N,m,n", HALF_SHAPES)
+def test_cuda_half_width_matvec_rmatvec(cuda_gen, dtype, K, N, m, n):
+    """matvec_bf16/f16 and rmatvec_bf16/f16 against the plain versions, A
+    aligned and one element past 16 bytes, X aligned and not, a half-width
+    Y widened by the wrapper; one launch or the plan's two."""
+    a = torch.randn(N, m, n, device="cuda", generator=cuda_gen).to(dtype)
+    x = torch.randn(N, n, K, device="cuda", generator=cuda_gen)
+    y = torch.randn(N, m, K, device="cuda", generator=cuda_gen)
+    pl = matvec.plan(True, N, m, n, K, True, True, matvec.sm_count(a.device),
+                     2)
+    want, want_t = ref.matvec_ref(a, x), ref.rmatvec_ref(a, y)
+    for aa in (a, _misaligned(a)):
+        for xx in (x, _misaligned(x)):
+            ops.reset_launch_counts()
+            got = matvec.matvec(aa, xx)
+            assert ops.launch_counts()["matvec"] == 1
+            assert got.dtype == torch.float32
+            _close(got, want, n)
+        ops.reset_launch_counts()
+        _close(matvec.rmatvec(aa, y), want_t, m)
+        if aa is a:
+            assert ops.launch_counts()["rmatvec"] == pl.launches
+        y16 = y.to(dtype)
+        _close(matvec.rmatvec(aa, y16), ref.rmatvec_ref(a, y16), m)
+    if K == 1:
+        assert torch.equal(matvec.matvec(a[0], x[0, :, 0]),
+                           matvec.matvec(a, x)[0, :, 0])
+        assert torch.equal(matvec.rmatvec(a, y[..., 0]),
+                           matvec.rmatvec(a, y)[..., 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_half_width_over_an_empty_axis_are_zeros(cuda_gen, dtype):
+    ops.reset_launch_counts()
+    g = matvec.rmatvec(torch.ones(2, 0, 5, device="cuda", dtype=dtype),
+                       torch.ones(2, 0, device="cuda"))
+    w = matvec.matvec(torch.ones(2, 5, 0, device="cuda", dtype=dtype),
+                      torch.ones(2, 0, 3, device="cuda"))
+    assert g.shape == (2, 5) and not g.any()
+    assert w.shape == (2, 5, 3) and not w.any()
+    # m = 0: shift * p from the sum kernel alone (n % 8 == 0: the fused
+    # route); at odd n the composed route, whose products are empty
+    for n, launches in ((8, 1), (7, 0)):
+        p = torch.randn(3, n, device="cuda", generator=cuda_gen)
+        shift = torch.rand(n, device="cuda", generator=cuda_gen)
+        ops.reset_launch_counts()
+        got = matvec.normal_matvec(torch.empty(3, 0, n, device="cuda",
+                                               dtype=dtype), p, shift)
+        assert torch.equal(got, shift * p)
+        counts = ops.launch_counts()
+        assert counts["normal_matvec"] == launches
+        assert counts["matvec"] == counts["rmatvec"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,route,path", [
+    ((6_400, 10_000), "fused", "bulk"),   # the bf16 Woodbury polish
+    ((2, 200, 2_500), "fused", "scalar"),  # n % 8 == 4: 4-byte copies
+    ((2, 517, 4_002), "fused", "scalar"),
+    ((1, 999, 1_000), "fused", "bulk"),
+    ((150, 40, 64), "fused", "bulk"),     # one CTA a node: one launch
+    ((70, 16_384), "fused", "bulk"),      # the widest row, vpt 4
+    ((2, 33, 12_288), "fused", "bulk"),
+    ((3, 301, 4_001), "composed", "scalar"),  # odd n: matvec + rmatvec
+    ((1, 5, 3), "composed", "scalar"),
+])
+def test_cuda_half_width_normal_matvec(cuda_gen, dtype, shape, route, path):
+    """normal_matvec_bf16/f16 with a float, 0-d and vector shift against
+    the plain version (w in f32); two calls bit for bit; odd n takes the
+    half-width matvec and rmatvec kernels, counted under their names."""
+    a = torch.randn(shape, device="cuda", generator=cuda_gen).to(dtype)
+    p = torch.randn(shape[:-2] + shape[-1:], device="cuda",
+                    generator=cuda_gen)
+    N = shape[0] if len(shape) == 3 else 1
+    for aa, want_route, want_path in ((a, route, path),
+                                      (_misaligned(a, 2), route, "scalar"),
+                                      (_misaligned(a, 1), "composed", None)):
+        pl = matvec.normal_plan(N, shape[-2], shape[-1], None,
+                                aa.data_ptr() % 16 == 0,
+                                matvec.sm_count(a.device), 2,
+                                aa.data_ptr() % 4 == 0)
+        assert pl.route == want_route
+        assert want_path is None or pl.path == want_path
+        for shift in _shifts(cuda_gen, shape[-1]).values():
+            ops.reset_launch_counts()
+            got = matvec.normal_matvec(aa, p, shift)
+            assert torch.equal(got, matvec.normal_matvec(aa, p, shift))
+            counts = ops.launch_counts()
+            if pl.route == "fused":
+                assert counts["normal_matvec"] == 2 * pl.launches
+                assert counts["matvec"] == counts["rmatvec"] == 0
+            else:
+                assert counts["normal_matvec"] == 0
+                assert counts["matvec"] == 2 and counts["rmatvec"] >= 2
+            assert got.shape == p.shape and got.dtype == torch.float32
+            torch.testing.assert_close(
+                got, ref.normal_matvec_ref(a, p, shift), rtol=RTOL,
+                atol=1e-5 * _normal_scale(a.float(), p, shift))
+
+
+@pytest.mark.cuda
+def test_cuda_half_width_normal_matvec_at_the_fig3_shapes(cuda_gen):
+    """The bf16 PCG x-update's (8, 25,000, 4,000) (A is 1.6 GB) and its
+    stacked polish (200,000, 4,000)."""
+    a = torch.randn(8, 25_000, 4_000, device="cuda",
+                    generator=cuda_gen).to(torch.bfloat16)
+    p = torch.randn(8, 4_000, device="cuda", generator=cuda_gen)
+    flat = a.view(-1, 4_000)
+    shift = torch.rand(4_000, device="cuda", generator=cuda_gen) + 1e-3
+    for aa, pp, s in ((a, p, 4.1), (flat, p[0], shift)):
+        got = matvec.normal_matvec(aa, pp, s)
+        torch.testing.assert_close(
+            got, ref.normal_matvec_ref(aa, pp, s), rtol=RTOL,
+            atol=1e-5 * _normal_scale(aa.float(), pp, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,x_solver", [("bf16", "woodbury"),
+                                                ("fp16", "pcg")])
+def test_cuda_reduced_precision_fit_agrees_with_the_cpu_fit(
+        cuda_gen, precision, x_solver):
+    """chip_smoke's reduced-precision parity fits: the Woodbury parity data
+    cast to bf16 / fp16, card against the port's CPU fit: the same status
+    and support, coef within 1e-3, iterations within 2; the half-width
+    kernels launch."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.data import SyntheticSpec, make_sparse_regression
+    spec = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
+    As, bs, _ = make_sparse_regression(1, spec)
+    kw = dict(kappa=spec.kappa, gamma=10.0, rho_c=4.0, tol=1e-4,
+              max_iter=300, x_solver=x_solver, precision=precision)
+    ops.reset_launch_counts()
+    card = api.SparseLinearRegression(**kw).fit(As, bs).result_
+    counts = ops.launch_counts()
+    assert counts["normal_matvec" if x_solver == "pcg" else "matvec"] > 0
+    cpu = api.SparseLinearRegression(device="cpu", **kw).fit(As, bs).result_
+    assert int(card.status) == int(cpu.status)
+    assert torch.equal(card.support.cpu(), cpu.support)
+    np.testing.assert_allclose(card.coef.cpu().numpy(), cpu.coef.numpy(),
+                               rtol=1e-3, atol=1e-3)
+    assert abs(int(card.iters) - int(cpu.iters)) <= 2
 
 
 @pytest.mark.cuda

@@ -25,8 +25,9 @@ from repro_torch.kernels import build, matvec, ops, ref
 H100_SMS = 132
 
 
-def _plan(adjoint, N, m, n, K, a_aligned=True, v_aligned=True):
-    return matvec.plan(adjoint, N, m, n, K, a_aligned, v_aligned, H100_SMS)
+def _plan(adjoint, N, m, n, K, a_aligned=True, v_aligned=True, esize=4):
+    return matvec.plan(adjoint, N, m, n, K, a_aligned, v_aligned, H100_SMS,
+                       esize)
 
 
 def test_constants_mirror_the_cuda_source():
@@ -41,6 +42,12 @@ def test_constants_mirror_the_cuda_source():
         matvec.ROWS_PER_WARP)
     assert "enum Path { kVec1 = 0, kVecK = 1, kScalar = 2 };" in src
     assert matvec.MATVEC_PATHS == ("vec1", "veck", "scalar")
+    # one pair of C entries per element type of A, all in the signatures
+    for dt, sfx in matvec.SUFFIX.items():
+        assert f"MATVEC_ENTRIES({sfx}, " in src
+        assert {f"matvec_{sfx}", f"rmatvec_{sfx}"} <= set(matvec._SIGNATURES)
+    assert set(matvec.SUFFIX) == {torch.float32, torch.bfloat16,
+                                  torch.float16}
 
 
 @pytest.mark.parametrize("n,a_al,x_al,path", [
@@ -71,6 +78,34 @@ def test_matvec_above_k1_reads_a_in_16_bytes_where_it_can(n, K, a_al, x_al,
                                                           path, align_x):
     p = _plan(False, 1, 6_400, n, K, a_al, x_al)
     assert (p.path, p.launches, p.align_x) == (path, 1, align_x)
+
+
+@pytest.mark.parametrize("n,K,a_al,path", [
+    (10_000, 1, True, "vec1"),       # the bf16 Woodbury prox's nodes
+    (10_004, 1, True, "scalar"),     # n % 8 == 4: a row is not 16 bytes
+    (4_000, 3, True, "veck"),        # bf16 softmax: X read as float4s
+    (4_004, 3, True, "scalar"),
+    (4_000, 1, False, "scalar"),     # a off 16 bytes
+    (4_001, 1, True, "scalar"),
+])
+def test_matvec_half_width_rows_align_at_eight_elements(n, K, a_al, path):
+    """A 16-byte load holds 8 bf16 / fp16 elements: the 16-byte paths need
+    n % 8 == 0, where f32 needs n % 4 == 0; the grid is the same."""
+    p = _plan(False, 8, 800, n, K, a_al, True, esize=2)
+    f32 = _plan(False, 8, 800, n, K, a_al, True)
+    assert p.path == path and p.grid == f32.grid
+    assert p.launches == 1
+    if n % 4 == 0 and a_al:
+        assert f32.path != "scalar"
+
+
+@pytest.mark.parametrize("N,m,n", [(8, 800, 10_000), (1, 6_400, 10_000),
+                                   (1, 40_000, 4_000), (2, 300, 42)])
+@pytest.mark.parametrize("K", [1, 3])
+def test_rmatvec_half_width_plan_is_the_f32_plan(N, m, n, K):
+    """rmatvec's lane owns 4 columns at any element size (one 8-byte load
+    of bf16 / fp16): the same slices, launches and grid as f32."""
+    assert _plan(True, N, m, n, K, esize=2) == _plan(True, N, m, n, K)
 
 
 @pytest.mark.parametrize("N,m,K", [(8, 800, 1), (1, 6_400, 3),
@@ -168,6 +203,24 @@ def test_cpu_tensors_take_the_plain_version(N, m, n, K):
                                    rtol=1e-4, atol=1e-5 * n)
         np.testing.assert_allclose(np.asarray(got_t[z]), np.asarray(want_t),
                                    rtol=1e-4, atol=1e-5 * m)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cpu_half_width_a_takes_the_plain_version(dtype):
+    """bf16 / fp16 CPU tensors reach the plain versions: A widened to f32
+    (exact), an f32 product, no launch; the operand may be half-width too."""
+    rng = np.random.default_rng(7)
+    a = torch.as_tensor(rng.standard_normal((2, 33, 21)).astype(
+        np.float32)).to(dtype)
+    x = torch.as_tensor(rng.standard_normal((2, 21)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((2, 33)).astype(
+        np.float32)).to(dtype)
+    ops.reset_launch_counts()
+    got, got_t = matvec.matvec(a, x), matvec.rmatvec(a, y)
+    assert not build.LAUNCHES["matvec"] and not build.LAUNCHES["rmatvec"]
+    assert got.dtype == got_t.dtype == torch.float32
+    assert torch.equal(got, (a.float() @ x[..., None])[..., 0])
+    assert torch.equal(got_t, (a.float().mT @ y.float()[..., None])[..., 0])
 
 
 @pytest.mark.parametrize("m,n", [(1_025, 12), (60, 41)])

@@ -28,8 +28,8 @@ from repro_torch.kernels import build, matvec, ops, ref
 H100_SMS = 132
 
 
-def _plan(N, m, n, K=None, aligned=True):
-    return matvec.normal_plan(N, m, n, K, aligned, H100_SMS)
+def _plan(N, m, n, K=None, aligned=True, esize=4, aligned4=True):
+    return matvec.normal_plan(N, m, n, K, aligned, H100_SMS, esize, aligned4)
 
 
 def test_constants_mirror_the_cuda_source():
@@ -42,9 +42,11 @@ def test_constants_mirror_the_cuda_source():
         matvec.NM_MAX_TILE_VECS, matvec.NM_MAX_STAGES,
         matvec.NM_RING_BYTES)
     assert "normal_matvec" in build.SOURCES
-    # the C entry's argument order: the shift's three forms, then the bulk
-    # flag where the plan's path goes
-    assert "int bulk, int vpt,\n" in src
+    # the C entries' argument order: the shift's three forms, then the bulk
+    # flag where the plan's path goes; one entry per element type of A
+    assert "int bulk, int vpt, int rows, int stages, int ctas," in src
+    for sfx in matvec.SUFFIX.values():
+        assert f"NORMAL_ENTRY({sfx}, " in src
     assert matvec.NM_PATHS == ("scalar", "bulk")
     assert "s.kind == 0 ? s.val : s.kind == 1 ? s.ptr[0] : s.ptr[col]" in src
 
@@ -90,14 +92,60 @@ def test_plan_ragged_and_unaligned(n, aligned, path, vpt, rows, stages):
     assert (vpt - 1) * matvec.NM_THREADS < n4 <= vpt * matvec.NM_THREADS
 
 
-def test_plan_asks_only_for_instantiated_kernels():
-    """Every width up to NM_MAX_N gets a tile of rows x vpt float4s a
-    thread that the source instantiates, and a ring of 2 or more stages."""
-    for n in range(1, matvec.NM_MAX_N + 1, 7):
-        p = _plan(1, 100, n)
+@pytest.mark.parametrize("esize", [4, 2])
+def test_plan_asks_only_for_instantiated_kernels(esize):
+    """Every width up to NM_MAX_N gets a tile of rows x vpt 16-byte chunks
+    a thread that the source instantiates (at most 4 NM_MAX_VPT columns a
+    thread: f32 vpt <= 8, bf16 / fp16 vpt <= 4), and a ring of 2 or more
+    stages."""
+    for n in range(2, matvec.NM_MAX_N + 1, 6):
+        p = _plan(1, 100, n, esize=esize)
+        assert p.route == "fused", n
         assert p.rows in (1, 2, 4) and 1 <= p.vpt <= matvec.NM_MAX_VPT
+        assert p.vpt * 16 // esize <= 4 * matvec.NM_MAX_VPT, n
         assert p.rows * p.vpt <= matvec.NM_MAX_TILE_VECS, n
         assert 2 <= p.stages <= matvec.NM_MAX_STAGES, n
+        assert p.stages * p.rows * 16 * p.vpt <= matvec.NM_RING_BYTES * 2
+
+
+@pytest.mark.parametrize("N,m,n,want", [
+    # the bf16 Fig. 3 PCG x-update: 8 KB rows four a tile, 6 stages
+    (8, 25_000, 4_000, ("bulk", 1, 4, 6, 16, 2)),
+    (1, 200_000, 4_000, ("bulk", 1, 4, 6, 132, 2)),
+    # the bf16 Woodbury polish: 20 KB rows two a tile
+    (1, 6_400, 10_000, ("bulk", 3, 2, 5, 132, 2)),
+    # the widest row: 2,048 chunks of 8 columns, 4 a thread
+    (1, 1_000, 16_384, ("bulk", 4, 1, 6, 125, 2)),
+])
+def test_plan_half_width_rows(N, m, n, want):
+    """bf16 / fp16 A: 16 bytes hold 8 columns, so a row takes half the ring
+    and a tile twice the rows of f32 at the same width; p and the column
+    partials stay f32, so NM_MAX_N is the same."""
+    p = _plan(N, m, n, esize=2)
+    assert p.route == "fused"
+    assert (p.path, p.vpt, p.rows, p.stages, p.ctas, p.launches) == want
+    assert p.stages * p.rows * 16 * -(-n // 8) <= matvec.NM_RING_BYTES
+
+
+@pytest.mark.parametrize("n,aligned,aligned4,route,path", [
+    (4_000, True, True, "fused", "bulk"),
+    (4_004, True, True, "fused", "scalar"),   # n % 8 == 4: 4-byte words
+    (4_002, True, True, "fused", "scalar"),   # even n
+    (4_000, False, True, "fused", "scalar"),  # A 4 bytes past 16
+    (4_001, True, True, "composed", "scalar"),   # odd n: no 4-byte words
+    (4_000, False, False, "composed", "scalar"),  # A 2 bytes past 4
+    (matvec.NM_MAX_N + 8, True, True, "composed", "bulk"),
+])
+def test_plan_half_width_ragged_rows(n, aligned, aligned4, route, path):
+    """4-byte copies move two bf16 / fp16 elements: an odd n, or A off a
+    4-byte boundary, takes the composed matvec + rmatvec kernels (counted
+    under their own names), never the plain version."""
+    p = _plan(2, 1_000, n, aligned=aligned, esize=2, aligned4=aligned4)
+    assert (p.route, p.path) == (route, path)
+    # f32 rows (always on 4-byte boundaries) are whole 4-byte words
+    if aligned4:
+        assert _plan(2, 1_000, min(n, matvec.NM_MAX_N),
+                     aligned=aligned).route == "fused"
 
 
 @pytest.mark.parametrize("N,m,ctas,launches", [
@@ -130,7 +178,8 @@ def test_wrapper_refusals_read_metadata_only():
     a = torch.zeros(3, 40, 64)
     p = torch.zeros(3, 64)
     for args in ((a.double(), p.double(), 1.0),          # not f32
-                 (a, p.half(), 1.0),
+                 (a, p.half(), 1.0),                     # p not f32
+                 (a.bfloat16(), p.bfloat16(), 1.0),
                  (a.mT.contiguous().mT, p, 1.0),         # not row-major
                  (a, p[:, :63], 1.0),                    # p does not fit
                  (a, p[:2], 1.0),
@@ -144,6 +193,14 @@ def test_wrapper_refusals_read_metadata_only():
                  (a, p, "1.0"), (a, p, True)):
         with pytest.raises(ValueError):
             matvec.normal_args(*args)
+
+
+def test_wrapper_takes_half_width_a():
+    for dt in (torch.bfloat16, torch.float16):
+        got = matvec.normal_args(torch.zeros(3, 40, 64, dtype=dt),
+                                 torch.zeros(3, 64), torch.ones(64))
+        assert (got.N, got.m, got.n, got.K, got.shift_kind) == (
+            3, 40, 64, None, 2)
 
 
 def test_wrapper_shift_forms():

@@ -3,17 +3,23 @@
 
     git show <commit>:src/repro_torch/csrc/matvec.cu > build/matvec_old.cu
     python3 tools/matvec_probe.py --against build/matvec_old.cu \\
+        [--normal-against build/normal_matvec_old.cu] [--identity-only] \\
         [--report PATH]
 
-``--against`` names an earlier ``matvec.cu`` whose C entry points are
+``--against`` names an earlier ``matvec.cu``: one whose C entry points are
 ``matvec_f32(A, X, out, N, m, n, K, vec, stream)`` and
 ``rmatvec_f32(A, Y, part, out, N, m, n, K, stream)`` with one partial per
-128-row slice (the kernels before the redesign). Phases:
+128-row slice (the kernels before the redesign), or one with the current
+f32 entries (``..., path, grid, stream)`` and ``..., vec, team, grid,
+stream)``), launched with the current plan. ``--normal-against`` names an
+earlier ``normal_matvec.cu`` with the current ``normal_matvec_f32`` entry.
+``--identity-only`` runs phase 1 alone. Phases:
 
 1. identity — ``matvec`` and ``rmatvec`` at K = 1 (and ``rmatvec`` at
    K = 3) through the wrapper, bit for bit (``torch.equal``) against the
    earlier kernels, at the solver path's shapes, with X also one float past
-   16 bytes and 1-D;
+   16 bytes and 1-D; with ``--normal-against``, ``normal_matvec`` at the
+   path's shapes with each shift form, bit for bit;
 2. ab      — device times of the earlier and the current kernels in turns
    (earlier, current, current, earlier) and of ``torch.matmul``;
 3. plan    — launches the wrapper's plan does not choose, through the C
@@ -72,10 +78,10 @@ def smi() -> str:
         check=True).stdout.strip()
 
 
-def build_lib(build, src: str, out: str) -> subprocess.Popen:
+def build_lib(build, src: str, out: str, extra=()) -> subprocess.Popen:
     return subprocess.Popen(
         [build.nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-o", out, src],
+         "-Xcompiler", "-fPIC", *extra, "-o", out, src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -83,6 +89,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", required=True,
                     help="an earlier matvec.cu (the C interface above)")
+    ap.add_argument("--normal-against",
+                    help="an earlier normal_matvec.cu (the f32 entry above)")
+    ap.add_argument("--identity-only", action="store_true",
+                    help="run the identity phase alone")
     ap.add_argument("--report", help="write the results to PATH as JSON")
     args = ap.parse_args()
     import torch
@@ -96,9 +106,16 @@ def main() -> int:
     out_dir = build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = (build.CSRC / "matvec.cu").read_text()
+    old_current = "int path, int grid" in open(args.against).read()
+    # the earlier sources include csrc's headers by name
+    inc = ["-I", str(build.CSRC)]
     jobs = {"old": build_lib(build, os.path.abspath(args.against),
-                             str(out_dir / "libmatvec_old.so"))}
-    for name, _, patches in VARIANTS:
+                             str(out_dir / "libmatvec_old.so"), inc)}
+    if args.normal_against:
+        jobs["normal_old"] = build_lib(
+            build, os.path.abspath(args.normal_against),
+            str(out_dir / "libnormal_old.so"), inc)
+    for name, _, patches in ([] if args.identity_only else VARIANTS):
         text = src
         for old, new in patches:
             if old not in text:
@@ -106,14 +123,20 @@ def main() -> int:
             text = text.replace(old, new)
         (out_dir / f"matvec_{name}.cu").write_text(text)
         jobs[name] = build_lib(build, str(out_dir / f"matvec_{name}.cu"),
-                               str(out_dir / f"libmatvec_{name}.so"))
+                               str(out_dir / f"libmatvec_{name}.so"), inc)
     libs = {}
     for name, job in jobs.items():
         log, _ = job.communicate()
         if job.returncode:
             raise SystemExit(f"FAIL: nvcc {name}:\n{log[-3000:]}")
+        if name == "normal_old":
+            lib = ctypes.CDLL(str(out_dir / "libnormal_old.so"))
+            lib.normal_matvec_f32.argtypes = matvec._NM_SIGNATURES[
+                "normal_matvec_f32"]
+            libs[name] = lib
+            continue
         lib = ctypes.CDLL(str(out_dir / f"libmatvec_{name}.so"))
-        if name == "old":
+        if name == "old" and not old_current:
             lib.matvec_f32.argtypes = [P, P, P, I, I, I, I, I, P]
             lib.rmatvec_f32.argtypes = [P, P, P, P, I, I, I, I, P]
         else:
@@ -134,6 +157,8 @@ def main() -> int:
             raise SystemExit(f"FAIL: CUDA error {rc} at launch")
 
     def old_mv(A, x):
+        if old_current:
+            return mv(libs["old"], A, x)
         N, m, n = A.shape
         out = torch.empty(N, m, x.shape[2], device=dev)
         vec = int(x.shape[2] == 1 and n % 4 == 0 and A.data_ptr() % 16 == 0
@@ -144,6 +169,8 @@ def main() -> int:
         return out
 
     def old_rmv(A, y):
+        if old_current:
+            return rmv(libs["old"], A, y)
         N, m, n = A.shape
         K, s = y.shape[2], -(-m // 128)
         out = torch.empty(N, n, K, device=dev)
@@ -156,9 +183,13 @@ def main() -> int:
     def mv(lib, A, x):
         N, m, n = A.shape
         K = x.shape[2]
-        p = matvec.plan(False, N, m, n, K, True, True, sms)
+        p = matvec.plan(False, N, m, n, K, A.data_ptr() % 16 == 0,
+                        x.data_ptr() % 16 == 0, sms)
         # a variant may own fewer rows a warp: one warp a row fits any
-        grid = p.grid if lib is cur else -(-N * m // matvec.WARPS)
+        grid = (p.grid if lib is cur or lib is libs["old"]
+                else -(-N * m // matvec.WARPS))
+        if p.align_x:
+            x = x.clone()
         out = torch.empty(N, m, K, device=dev)
         check(lib.matvec_f32(A.data_ptr(), x.data_ptr(), out.data_ptr(), N,
                              m, n, K, matvec.MATVEC_PATHS.index(p.path),
@@ -176,7 +207,8 @@ def main() -> int:
         out = torch.empty(N, n, K, device=dev)
         part = torch.empty((0,) if team else (p.slices, N, n, K), device=dev)
         check(lib.rmatvec_f32(A.data_ptr(), y.data_ptr(), part.data_ptr(),
-                              out.data_ptr(), N, m, n, K, 1, int(team), grid,
+                              out.data_ptr(), N, m, n, K,
+                              int(p.path == "vec"), int(team), grid,
                               stream()))
         return out
 
@@ -217,10 +249,48 @@ def main() -> int:
         y3 = operands[label][3][1]
         ident[f"rmatvec {label} K=3"] = torch.equal(matvec.rmatvec(A, y3),
                                                     old_rmv(A, y3))
+    if args.normal_against:
+        def old_normal(A, p, shift):
+            a_ = matvec.normal_args(A, p, shift)
+            pl = matvec.normal_plan(a_.N, a_.m, a_.n, None,
+                                    A.data_ptr() % 16 == 0, sms)
+            out = torch.empty(a_.N, a_.n, device=dev)
+            part = torch.empty((a_.N, pl.ctas, a_.n) if pl.launches == 2
+                               else (0,), device=dev)
+            check(libs["normal_old"].normal_matvec_f32(
+                A.data_ptr(), p.data_ptr(), a_.shift_ptr, a_.shift_val,
+                a_.shift_kind, part.data_ptr(), out.data_ptr(), a_.N, a_.m,
+                a_.n, matvec.NM_PATHS.index(pl.path), pl.vpt, pl.rows,
+                pl.stages, pl.ctas, stream()))
+            return out if A.ndim == 3 else out[0]
+
+        F3 = torch.randn(8, 25_000, 4_000, device=dev, generator=g)
+        for label, A in (("(6400, 10000)", W.view(6_400, 10_000)),
+                         ("(8, 25000, 4000)", F3),
+                         ("(200000, 4000)", F3.view(-1, 4_000)),
+                         ("(2, 200, 2500)", shapes["(2, 200, 2500)"]),
+                         ("(2, 3001, 1001)", shapes["(2, 3001, 1001)"])):
+            n = A.shape[-1]
+            p = torch.randn(A.shape[:-2] + (n,), device=dev, generator=g)
+            for kind, shift in (("scalar", 4.1), ("0-d", torch.tensor(
+                    2.5, device=dev)), ("vector", torch.rand(
+                        n, device=dev, generator=g) + 1e-3)):
+                ident[f"normal_matvec {label} {kind} shift"] = torch.equal(
+                    matvec.normal_matvec(A, p, shift),
+                    old_normal(A, p, shift))
+        del F3
     same = sum(ident.values())
     print(f"identity: {same} of {len(ident)} bit-identical to the earlier "
           f"kernels" + "".join(f"\n  differs: {k}" for k, v in ident.items()
                                if not v), flush=True)
+
+    if args.identity_only:
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)),
+                        exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1)
+        return 0 if same == len(ident) else 1
 
     def turns(label, cases):
         """cases: [(name, fn)]; times them forward, then backward."""
