@@ -8,7 +8,8 @@ Phases, each printing its own line with its wall time:
 1. device   — a CUDA device or fail; the card's name and power limit as
               ``nvidia-smi`` reports them.
 2. build    — the kernels of ``src/repro_torch/csrc`` with nvcc, one
-              compiler per source, all started together.
+              compiler per source, all started together; ``cuobjdump``
+              must find DMMA in every bf16 / fp16 gram kernel.
 3. kernels  — every kernel against its plain PyTorch version on the card,
               at the solver path's shapes and at ragged ones; for each, the
               kernel's device time, the plain version's, one PyTorch library
@@ -25,13 +26,15 @@ Phases, each printing its own line with its wall time:
               beside the composition of the matvec and rmatvec kernels
               and two torch.matmul calls; two calls must agree bit for bit.
               The bf16 / fp16 instantiations of matvec, rmatvec and
-              normal_matvec (and gram's widening loads) are held and timed
-              the same way at the reduced-precision cells' shapes, beside
-              their bound with 2-byte A and torch.matmul on the half-width
-              operands, plus an odd-n view one element past 16 bytes.
+              normal_matvec are held and timed the same way at the
+              reduced-precision cells' shapes, beside their bound with
+              2-byte A and torch.matmul on the half-width operands, plus an
+              odd-n view one element past 16 bytes; the bf16 / fp16 gram
+              (on the FP64 tensor cores) beside its bound at the f64
+              tensor-core rate and the f64 torch.matmul.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
               past the one-launch limit, where the bracketing rounds run on
-              the two-pass ladder_stats kernel; ladder_stats is held
+              the one-launch ladder_stats kernel; ladder_stats is held
               against its plain version (and timed) at this n with the
               first round's 128 rungs, and at an odd B.
 4. woodbury — the paper's Fig. 2 largest point at full width (N = 8 nodes,
@@ -69,6 +72,12 @@ Phases, each printing its own line with its wall time:
               m = 5,000 per node on N = 8 to bound the run's time).
    classify_bf16 — the same two fits in bf16 through the Newton-CG prox
               (the feature split is not ported under bf16).
+   large_n_fit — the squared loss at N = 8, m = 200, n = 409,601 (one past
+              the one-launch limit; A 2.6 GB), kappa = 81,920, 3 outer
+              iterations, polish off: every projection's bracketing rounds
+              on ladder_stats. Prints ms and ladder_stats launches per
+              outer iteration and ladder_stats' device time in a profiler
+              window of 2 outer iterations.
 8. parity   — reduced fits on the card against the port's own CPU fits:
               Woodbury, the feature split (squared and logistic), the
               Woodbury fit's data through the PCG x-update, and that data
@@ -117,6 +126,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # float32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12      # dense bf16 on the tensor cores
+PEAK_F64_TC_FLOPS = 67e12     # f64 on the tensor cores (DMMA)
 PEAK_BYTES = 3.35e12
 RTOL = 1e-4          # the JAX package's f32 kernel bound (rtol 1e-4,
 ATOL_PER_SCALE = 1e-5  # atol 1e-5 per unit of summed magnitude)
@@ -130,7 +140,8 @@ LM_TOL = 2e-2        # LM logits: max |diff| within 2e-2 of the logit scale
 FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_wgmma_kernel")
 # device kernels whose ptxas report (registers, shared memory, spills) the
 # build phase prints
-PTXAS_SHOWN = ("flash_wgmma_kernel", "gram_xy_kernel")
+PTXAS_SHOWN = ("flash_wgmma_kernel", "gram_xy_kernel", "gram_dmma_kernel",
+               "ladder_kernel")
 # csrc/matvec.cu's kernel templates, summed over their instantiations, and
 # the template arguments of those the solver path runs: matvec <type of A,
 # path, rows per warp, KC, X as float4s> at K = 1 and 3, rmatvec <type,
@@ -274,6 +285,18 @@ def ptxas_summary(info: dict) -> list[str]:
                 lines.append(f"{name}: {entry} {mangled[:48]}: "
                              f"{ln.split(':', 1)[-1].strip()}")
     return lines
+
+
+def dmma_kernels(build) -> dict:
+    """{mangled name: issues DMMA} of every gram_dmma_kernel instantiation
+    in the built gram library, from ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path("gram"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs = (f.split("\n", 1) for f in sass.split("Function : ")[1:])
+    return {name.strip(): "DMMA" in body for name, body in funcs
+            if "gram_dmma_kernel" in name}
 
 
 def ptxas_ladder_proj(log: str) -> list[str]:
@@ -736,6 +759,13 @@ def main() -> int:
         built.append(f"{k} (cached)" if v["cached"]
                      else f"{k} ({v['seconds']:.1f} s)")
     phase("build", t0, "built " + ", ".join(built))
+    dmma = dmma_kernels(build)
+    require(len(dmma) == 16 and all(dmma.values()),
+            f"gram: the bf16 / fp16 kernels do not all issue DMMA: {dmma}")
+    report["gram_dmma"] = dmma
+    print(f"  gram: DMMA (the FP64 tensor cores) in all {len(dmma)} bf16 / "
+          "fp16 instantiations of gram_dmma_kernel (cuobjdump -sass)",
+          flush=True)
     for line in (*ptxas_summary(info),
                  *ptxas_ladder_proj(info.get("ladder_proj", {}).get("log",
                                                                     "")),
@@ -1019,10 +1049,11 @@ def main() -> int:
     # matvec / rmatvec at the Woodbury prox's (8, 800, 10,000) K = 1 and the
     # classify polish's (40,000, 4,000) K = 1 and 3; normal_matvec at the
     # PCG x-update's (8, 25,000, 4,000) and its polish's (200,000, 4,000);
-    # gram's widening loads at A A^T of (8, 800, 10,000) (bf16) and A^T A
-    # of (8, 800, 1,000). The outputs are f32 (A widened exactly, the sums
-    # in f32), so the f32 bound holds. Bytes count 2 for an element of A;
-    # the library yardstick is torch.matmul on half-width operands.
+    # and gram at A A^T of (8, 800, 10,000) (bf16) and A^T A of (8, 800,
+    # 1,000). The GEMVs' outputs are f32 (A widened exactly, the sums in
+    # f32), so the f32 bound holds; their library yardstick is
+    # torch.matmul on half-width operands. Bytes count 2 for an element of
+    # A. gram's bound and yardstick are below.
     for sfx, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
         # odd n, A one element past 16 bytes: the scalar loads, and
         # normal_matvec through the composed half-width kernels
@@ -1102,11 +1133,16 @@ def main() -> int:
             del got, want
         del A3h, Ao, mats, Aa
         torch.cuda.empty_cache()
-        # gram's widening loads: A A^T of the bf16 Woodbury set-up, A^T A of
-        # the dense set-up (the fp16 dense cell's too). The products are
-        # exact and summed in f64 on both sides, so the kernel is held to
-        # one f32 rounding of the plain version (rtol 2^-23); the bound
-        # counts the work at the half types' tensor-core rate.
+        # gram on the FP64 tensor cores: A A^T of the bf16 Woodbury set-up,
+        # A^T A of the dense set-up (the fp16 dense cell's too). The
+        # products are exact and summed in f64 on both sides, so the kernel
+        # is held to one f32 rounding of the plain version (rtol 2^-23),
+        # and must equal itself bit for bit: symmetric, the general path's
+        # full product of an equal copy, a repeat call. The bound counts
+        # the symmetric work at the f64 tensor-core rate; the library
+        # yardstick is the f64 torch.matmul the plain version runs, on
+        # operands widened before the clock (the half-type matmul, which
+        # sums in f32, is an extra yardstick of another function).
         grams = [(f"gram A^T A {tuple(An.shape)} {sfx}", An.to(dt))]
         if sfx == "bf16":
             grams.insert(0, (f"gram A A^T {tuple(A.shape)} {sfx}",
@@ -1114,14 +1150,23 @@ def main() -> int:
         for label, X in grams:
             nb, mm, nx = X.shape
             got, want = gram.gram(X), ref.gram_ref(X)
+            require(torch.equal(got, got.mT)
+                    and torch.equal(got, gram.gram_xy(X, X.clone()))
+                    and torch.equal(got, gram.gram(X)),
+                    f"{label}: not bit-identical to its mirror, the full "
+                    "product or a repeat call")
+            Xd = X.double()
             kernel_row(f"gram_{sfx}", f"{label} (symmetric: nb nx (nx+1) m "
                                       "flop)",
                        lambda X=X: gram.gram(X), lambda X=X: ref.gram_ref(X),
-                       lambda X=X: torch.matmul(X.mT, X), (got, want, None),
+                       lambda Xd=Xd: torch.matmul(Xd.mT, Xd),
+                       (got, want, None),
                        2 * nb * mm * nx + 4 * nb * nx * nx,
-                       nb * nx * (nx + 1) * mm, peak=PEAK_BF16_FLOPS,
-                       tol=(2.0 ** -23, 0.0))
-            del X, got, want
+                       nb * nx * (nx + 1) * mm, peak=PEAK_F64_TC_FLOPS,
+                       tol=(2.0 ** -23, 0.0),
+                       yardsticks={f"{sfx} matmul":
+                                   lambda X=X: torch.matmul(X.mT, X)})
+            del X, Xd, got, want
         del grams
         torch.cuda.empty_cache()
     report["normal_matvec_plans"] = plans
@@ -1666,6 +1711,49 @@ def main() -> int:
                       "iterations)",
                   needed_types=("matvec_bf16", "rmatvec_bf16"))
         del As_c, est_c
+    torch.cuda.empty_cache()
+
+    # 7c. the composed projections in a fit: the squared loss one entry
+    # past the one-launch limit (n = MAX_N + 1, kappa = 0.2 n as Fig. 2 sets
+    # it, 3 outer iterations, polish off as benchmarks/fig23_scaling.py
+    # fits), so every (7b) and (7c) projection runs its bracketing rounds
+    # on ladder_stats; then ladder_stats' device time in a profiler window
+    # of 2 outer iterations
+    big = SyntheticSpec(8, 200, bisect_proj.MAX_N + 1, sparsity_level=0.8)
+    As_l, bs_l, xt_l = make_sparse_regression(0, big)
+    A_l = torch.as_tensor(As_l, device=dev)
+    b_l = torch.as_tensor(bs_l, device=dev)
+    del As_l
+    est_l = fit_phase(
+        "large_n_fit", A_l, b_l, xt_l, big.kappa, "woodbury",
+        ("ladder_stats", "gram", "matvec", "rmatvec"),
+        est=api.SparseLinearRegression(kappa=big.kappa, gamma=10.0,
+                                       rho_c=4.0, max_iter=3, tol=0.0,
+                                       polish=False),
+        setup=True, cut=" (3 outer iterations, polish off)")
+    rep_l = report["large_n_fit"]
+    require(not any(rep_l["launches"][k] for k in PROJ_KERNELS),
+            f"large_n_fit: a one-launch projection ran: {rep_l['launches']}")
+    profile_phase("profile_large_n", dict(kappa=big.kappa, gamma=10.0,
+                                          rho_c=4.0),
+                  A_l, b_l, est_l.result_.state)
+    prof_l = report["profile_large_n"]
+    lad = [v for k, v in prof_l["all_device_ops"].items()
+           if "ladder_kernel" in k]
+    require(lad, "large_n_fit: the profiler saw no ladder_stats kernel")
+    lad_ms = sum(v["device_ms"] for v in lad)
+    lad_calls = sum(v["calls"] for v in lad)
+    rep_l["ladder_stats_profile"] = {
+        "outer_iters": prof_l["outer_iters"], "device_ms": lad_ms,
+        "calls": lad_calls, "ms_a_call": lad_ms / max(lad_calls, 1)}
+    print(f"  large_n_fit: {rep_l['s_per_outer_iter'] * 1e3:.2f} ms per "
+          f"outer iteration; ladder_stats "
+          f"{rep_l['launches_per_outer_iter']['ladder_stats']:.1f} launches "
+          f"per outer iteration; in the profiler window of "
+          f"{prof_l['outer_iters']} outer iterations {lad_calls} calls, "
+          f"{lad_ms:.3f} ms of device time "
+          f"({lad_ms / max(lad_calls, 1) * 1e3:.2f} us a call)", flush=True)
+    del A_l, b_l, est_l
     torch.cuda.empty_cache()
 
     # 8. the card against the port's own CPU fit ---------------------------

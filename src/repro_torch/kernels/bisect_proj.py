@@ -10,11 +10,11 @@ that drive it).
   a CUDA tensor with the default reductions here while :func:`plan` says
   one launch holds it.
 * ``ladder_stats(az, thetas)`` returns the (2, B) f32 tile
-  ``[sum_i max(az_i - theta_b, 0); #{i : az_i > theta_b}]`` from the
-  two-pass kernel of ``csrc/ladder_stats.cu`` (per-block partials, then a
-  fixed-order sum). It carries the bracketing rounds of a projection too
-  large for one launch, whose polish ``core.bilinear`` composes from
-  PyTorch ops.
+  ``[sum_i max(az_i - theta_b, 0); #{i : az_i > theta_b}]`` from one
+  launch of ``csrc/ladder_stats.cu`` (a grid sized to the card by
+  :func:`stats_plan`; the last CTA to arrive adds the CTAs' partials in
+  order). It carries the bracketing rounds of a projection too large for
+  one launch, whose polish ``core.bilinear`` composes from PyTorch ops.
 
 On a CPU tensor each function is its plain version in
 :mod:`repro_torch.kernels.ref`.
@@ -26,13 +26,14 @@ from typing import NamedTuple
 import torch
 
 from . import build
+from .matvec import sm_count
 from .ref import (LADDER_CAP, l1_epigraph_proj_ref, ladder_stats_ref,
                   skappa_support_ref)
 
 _SIGNATURES = {
-    "ladder_stats_f32": [build.P, build.P, build.P, build.P, build.P,
-                         build.I, build.I, build.I, build.P],
-    "ladder_chunk": [],
+    "ladder_stats_f32": [build.P, build.P, build.I, build.I, build.I,
+                         build.I, build.P, build.P, build.P, build.P,
+                         build.P],
 }
 _PROJ_SIGNATURES = {
     "l1_epigraph_proj_f32": [build.P, build.P, build.P, build.P, build.P,
@@ -42,7 +43,10 @@ _PROJ_SIGNATURES = {
                            build.I, build.I, build.I, build.I, build.P],
     "ladder_proj_empty": [build.P],
 }
-MAX_RUNGS = 8192   # the ladder sits in shared memory beside one az chunk
+MAX_RUNGS = 8192   # kMaxRungs: the ladder sits in shared memory
+# ladder_stats' grid (stats_plan): a CTA takes at least STATS_MIN_PER_CTA
+# entries of az, and there is at most one CTA an SM
+STATS_MIN_PER_CTA = 512
 
 # Mirrors of csrc/ladder_proj.cu's constants (tests/test_torch_ladder_proj.py
 # reads them from the source).
@@ -61,7 +65,7 @@ CLUSTER_FROM = ((4, 1_000), (8, 2_500))
 class Plan(NamedTuple):
     """How a projection of n entries runs. ``one_launch``: one launch of
     ``csrc/ladder_proj.cu`` with a cluster of ``ctas`` CTAs; otherwise
-    (n > MAX_N) the two-pass ``ladder_stats`` kernel carries the bracketing
+    (n > MAX_N) the ``ladder_stats`` kernel carries the bracketing
     rounds and PyTorch ops the polish (``ctas`` 0)."""
     one_launch: bool
     ctas: int
@@ -180,6 +184,42 @@ def launch_empty(like: torch.Tensor) -> None:
     build.check(lib.ladder_proj_empty(build.stream(like)), "launch_empty")
 
 
+class StatsPlan(NamedTuple):
+    """The grid of one ``ladder_stats`` launch: ``ctas`` CTAs, each owning
+    ``per_cta`` consecutive entries of az (the last may own fewer)."""
+    ctas: int
+    per_cta: int
+
+
+def stats_plan(n: int, sms: int) -> StatsPlan:
+    """The grid of ``ladder_stats`` over n entries on a card of ``sms`` SMs
+    (a pure function): at most one CTA an SM, each with at least
+    STATS_MIN_PER_CTA entries; n = 0 is one CTA of none."""
+    if n < 0 or sms < 1:
+        raise ValueError(f"stats_plan: n={n}, sms={sms}")
+    ctas = max(1, min(sms, n // STATS_MIN_PER_CTA))
+    per_cta = -(-n // ctas)
+    return StatsPlan(-(-n // per_cta) if n else 1, per_cta)
+
+
+# Per device: the ticket counter (0 between calls; the last CTA of a call
+# resets it) and the partials' scratch, grown as a call needs. Calls on one
+# device share them, so they must be ordered on one stream, as the solver's
+# are.
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, size: int):
+    ticket, psum, pcnt = _SCRATCH.get(device, (None, None, None))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    if psum is None or psum.numel() < size:
+        psum = torch.empty(size, dtype=torch.float64, device=device)
+        pcnt = torch.empty(size, dtype=torch.int32, device=device)
+    _SCRATCH[device] = (ticket, psum, pcnt)
+    return ticket, psum, pcnt
+
+
 def ladder_stats(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     """az (n,) nonnegative, thetas (B,) -> (2, B) f32 ladder statistics."""
     if az.device.type == "cpu":
@@ -204,18 +244,13 @@ def _launch(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ladder_stats: n={n} exceeds the int32 index range")
     az, thetas = az.contiguous(), thetas.contiguous()
     lib = build.library("ladder_stats", _SIGNATURES)
-    chunk = lib.ladder_chunk()
-    nblocks = -(-n // chunk)
-    psum = torch.empty((max(nblocks, 1), B), dtype=torch.float32,
-                       device=az.device)
-    pcnt = torch.empty((max(nblocks, 1), B), dtype=torch.int32,
-                       device=az.device)
+    ctas, per_cta = stats_plan(n, sm_count(az.device))
+    ticket, psum, pcnt = _scratch(az.device, ctas * B)
     out = torch.empty((2, B), dtype=torch.float32, device=az.device)
-    rc = lib.ladder_stats_f32(az.data_ptr(), thetas.data_ptr(),
-                              psum.data_ptr(), pcnt.data_ptr(),
-                              out.data_ptr(), n, B, nblocks,
+    rc = lib.ladder_stats_f32(az.data_ptr(), thetas.data_ptr(), n, B, ctas,
+                              per_cta, psum.data_ptr(), pcnt.data_ptr(),
+                              ticket.data_ptr(), out.data_ptr(),
                               build.stream(az))
     build.check(rc, "ladder_stats")
-    # two kernels: ladder_partial (skipped when n == 0) and ladder_reduce
-    build.LAUNCHES["ladder_stats"] += 1 + (nblocks > 0)
+    build.LAUNCHES["ladder_stats"] += 1
     return out

@@ -48,13 +48,12 @@ L = ctypes.c_longlong
 F = ctypes.c_float
 
 # Device kernel launches per kernel: a wrapper adds, where it launches, the
-# number of CUDA kernels its C entry point issued — two for ladder_stats
-# (partial and reduce passes), for block_rmatvec over more than one row
-# slice, for rmatvec when a second kernel sums its row slices
-# (kernels/matvec.py, plan) and for normal_matvec when a second kernel adds
-# its CTAs' partials (normal_plan), one otherwise (flash_attention and the
-# two one-launch projections: one) — and nowhere else (read through
-# repro_torch.kernels.ops).
+# number of CUDA kernels its C entry point issued — two for block_rmatvec
+# over more than one row slice, for rmatvec when a second kernel sums its
+# row slices (kernels/matvec.py, plan) and for normal_matvec when a second
+# kernel adds its CTAs' partials (normal_plan), one otherwise
+# (ladder_stats, flash_attention and the two one-launch projections: one)
+# — and nowhere else (read through repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 # The same launches of the kernels that take several element types of A
 # (gram, matvec, rmatvec, normal_matvec), by "<kernel>_<f32|bf16|f16>".

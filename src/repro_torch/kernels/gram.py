@@ -8,8 +8,11 @@ launch ``csrc/gram.cu``, which reads its operands through their strides:
 ``gram(A.mT)`` forms A A^T from the transposed view without copying A, and
 the feature split's (N, M, m, nb) block view of A is one launch. When both
 operands are one (:func:`same_operand`) the kernel computes only the tiles
-on and above the diagonal and mirrors them. On CPU tensors they are the
-plain versions of :mod:`repro_torch.kernels.ref`.
+on and above the diagonal and mirrors them. f32 operands take the CUDA-core
+kernel; bf16 / fp16 ones the FP64 tensor-core kernel (exact products
+summed in f64, rounded once), whose staging layouts and load path
+:func:`half_path` picks. On CPU tensors they are the plain versions of
+:mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
@@ -22,7 +25,13 @@ _ENTRY = {torch.float32: "gram_xy_f32", torch.bfloat16: "gram_xy_bf16",
           torch.float16: "gram_xy_f16"}
 _SIG = [build.P, build.P, build.P, build.I, build.I, build.I, build.I,
         build.I, *[build.L] * 8, build.I, build.P]
-_SIGNATURES = {name: _SIG for name in _ENTRY.values()}
+# the half-width entries take the path bits before the stream
+_SIGNATURES = {name: _SIG if dt == torch.float32
+               else [*_SIG[:-1], build.I, build.P]
+               for dt, name in _ENTRY.items()}
+# Mirrors of csrc/gram.cu's path bits (tests/test_torch_gram.py reads them
+# from the source): X's k axis has unit stride, Y's does, 16-byte copies.
+XK, YK, VEC = 1, 2, 4
 
 
 def gram(a: torch.Tensor) -> torch.Tensor:
@@ -73,6 +82,30 @@ def launch_args(x: torch.Tensor, y: torch.Tensor) -> tuple[int, ...]:
     return (n_outer, n_inner, m, nx, ny, *sx, *sy, int(same_operand(x, y)))
 
 
+def half_path(x: torch.Tensor, y: torch.Tensor) -> int:
+    """The path bits of the bf16 / fp16 kernel for x^T y (a pure function
+    of shapes, strides and alignment): XK / YK when an operand's k axis has
+    unit stride (it is staged [column][k], else [k][column]); VEC when both
+    operands' unit-stride axes can be copied 16 bytes (8 elements) at a
+    time: its other strides multiples of 8, its extent a multiple of 8 and
+    its first element 16-byte aligned. Otherwise slices go through
+    registers."""
+    args = launch_args(x, y)
+    m, nx, ny = args[2:5]
+    path, vec = 0, True
+    for bit, t, n, (so, sb, sk, sc) in ((XK, x, nx, args[5:9]),
+                                        (YK, y, ny, args[9:13])):
+        kf = sk == 1 and sc != 1
+        if kf:
+            path |= bit
+        unit, ext, others = (sk, m, (so, sb, sc)) if kf else (sc, n,
+                                                               (so, sb, sk))
+        vec = vec and (unit == 1 and ext % 8 == 0
+                       and all(s % 8 == 0 for s in others)
+                       and t.data_ptr() % 16 == 0)
+    return path | (VEC if vec else 0)
+
+
 def _launch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     build.require_cuda("gram_xy", x, y)
     if x.dtype not in _ENTRY or y.dtype != x.dtype:
@@ -83,8 +116,9 @@ def _launch(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                       dtype=torch.float32, device=x.device)
     if out.numel():
         lib = build.library("gram", _SIGNATURES)
+        path = () if x.dtype == torch.float32 else (half_path(x, y),)
         rc = getattr(lib, _ENTRY[x.dtype])(
-            x.data_ptr(), y.data_ptr(), out.data_ptr(), *args,
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), *args, *path,
             build.stream(x))
         build.check(rc, "gram_xy")
         build.count_launches("gram", _ENTRY[x.dtype].rsplit("_", 1)[1], 1)

@@ -28,10 +28,9 @@ Pallas rows round to ``a.dtype`` instead, ``ops.py:54-55``; for f32
 operands the two rules agree.)
 
 :func:`launch_counts` reads how many CUDA kernels each wrapper launched
-since :func:`reset_launch_counts`: device launches, so a two-pass
-``ladder_stats`` call counts 2, a one-launch projection 1, a
-``normal_matvec`` call 1 or 2 (``matvec.normal_plan``; the CPU rows count
-nothing).
+since :func:`reset_launch_counts`: device launches, so a ``ladder_stats``
+call or a one-launch projection counts 1, a ``normal_matvec`` call 1 or 2
+(``matvec.normal_plan``; the CPU rows count nothing).
 """
 from __future__ import annotations
 

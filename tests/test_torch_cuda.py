@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from repro_torch.core import bicadmm, bilinear
-from repro_torch.kernels import (bisect_proj, block_matvec, flash_attention,
-                                 gram, matvec, ops, ref)
+from repro_torch.kernels import (bisect_proj, block_matvec, build,
+                                 flash_attention, gram, matvec, ops, ref)
 
 RTOL = 1e-4
 
@@ -32,16 +32,64 @@ def _close(got, want, scale):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-5 * scale)
 
 
+def _ladder_ref(az, th, block=256):
+    """ladder_stats_ref over blocks of rungs (its (n, B) broadcast of a
+    1,100,003 x 8,192 ladder would take 36 GB)."""
+    return torch.cat([ref.ladder_stats_ref(az, th[i:i + block])
+                      for i in range(0, th.shape[0], block)], dim=1)
+
+
+# The path's shapes first; then n empty, one entry, a staged piece (4,096)
+# +- 1, the composed path's MAX_N + 1 and slices of two pieces a CTA
+# against B = 1, odd, the path's 128 and MAX_RUNGS (eight rung passes of
+# 1,024 threads)
+LADDER_CASES = [(10_000, 128), (10_001, 7), (3, 200),
+                (bisect_proj.MAX_N + 1, 128)] + [
+    (n, B) for n in (0, 1, 4_095, 4_097, bisect_proj.MAX_N + 1, 1_100_003)
+    for B in (1, 7, 128, bisect_proj.MAX_RUNGS)
+    if (n, B) != (bisect_proj.MAX_N + 1, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,B", [(10_000, 128), (10_001, 7), (3, 200),
-                                 (bisect_proj.MAX_N + 1, 128)])
+@pytest.mark.parametrize("n,B", LADDER_CASES)
 def test_cuda_ladder_stats(cuda_gen, n, B):
+    """One launch a call; counts equal to the plain version's, sums within
+    its check; the same bits on a repeat call; zeros for n = 0."""
     az = torch.rand(n, device="cuda", generator=cuda_gen)
     th = torch.rand(B, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
     got = bisect_proj.ladder_stats(az, th)
-    want = ref.ladder_stats_ref(az, th)
+    assert ops.launch_counts()["ladder_stats"] == 1
+    want = _ladder_ref(az, th)
     _close(got[0], want[0], float(az.sum()))
     assert torch.equal(got[1], want[1])
+    assert torch.equal(got, bisect_proj.ladder_stats(az, th))
+    if n == 0:
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_cuda_ladder_stats_is_one_device_kernel(cuda_gen):
+    """The profiler sees one device kernel a call (the scratch is cached
+    after the first), and unsorted rungs, a theta below every entry and one
+    above all agree too."""
+    from torch.profiler import ProfilerActivity, profile
+    az = torch.randn(bisect_proj.MAX_N + 1, device="cuda",
+                     generator=cuda_gen).abs()
+    th = torch.cat([torch.rand(126, device="cuda", generator=cuda_gen),
+                    torch.tensor([-1.0, 1e9], device="cuda")])
+    want = ref.ladder_stats_ref(az, th)
+    bisect_proj.ladder_stats(az, th)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = bisect_proj.ladder_stats(az, th)
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if str(ev.device_type).endswith("CUDA")]
+    assert len(kernels) == 1 and "ladder_kernel" in kernels[0], kernels
+    assert torch.equal(got[1], want[1])
+    _close(got[0], want[0], float(az.sum()))
 
 
 # The one-launch projections (csrc/ladder_proj.cu) against their plain
@@ -150,7 +198,7 @@ def test_cuda_projections_every_cluster_size(cuda_gen, ctas):
 def test_cuda_projections_launch_once(cuda_gen):
     """A projection at the Woodbury fit's n = 10,000 is one device kernel
     (build.LAUNCHES and the profiler); past MAX_N the rounds go to
-    ladder_stats, two launches a round."""
+    ladder_stats, one launch a round."""
     from torch.profiler import ProfilerActivity, profile
     z = torch.randn(10_000, device="cuda", generator=cuda_gen)
     t0 = torch.tensor(5.0, device="cuda")
@@ -175,7 +223,7 @@ def test_cuda_projections_launch_once(cuda_gen):
     ops.reset_launch_counts()
     bilinear.project_l1_epigraph(big, t0)
     counts = ops.launch_counts()
-    assert counts["ladder_stats"] == 4 and counts["l1_epigraph_proj"] == 0
+    assert counts["ladder_stats"] == 2 and counts["l1_epigraph_proj"] == 0
     with pytest.raises(ValueError):
         bisect_proj.l1_epigraph_proj(big, t0)      # past the one launch
     with pytest.raises(ValueError):
@@ -379,7 +427,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_gen):
 
 @pytest.mark.cuda
 def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
-    """ladder_stats issues two kernels per call; rmatvec one within one
+    """ladder_stats issues one kernel per call; rmatvec one within one
     128-row slice, one up to eight slices when one block per (node, column
     chunk) fills the card (the Woodbury prox's (8, 800, 10,000)), two
     otherwise; gram and matvec one."""
@@ -395,7 +443,7 @@ def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
     matvec.matvec(a, torch.ones(2, 40, device="cuda"))
     matvec.matvec(wide, torch.ones(8, 10_000, 3, device="cuda"))
     gram.gram(a)
-    assert ops.launch_counts() == {"ladder_stats": 2, "l1_epigraph_proj": 0,
+    assert ops.launch_counts() == {"ladder_stats": 1, "l1_epigraph_proj": 0,
                                    "skappa_support": 0, "gram": 1,
                                    "matvec": 2, "rmatvec": 4,
                                    "normal_matvec": 0, "block_matvec": 0,
@@ -570,6 +618,79 @@ def test_cuda_pcg_fit_agrees_with_the_cpu_fit(cuda_gen):
     np.testing.assert_allclose(card.coef.cpu().numpy(), cpu.coef.numpy(),
                                rtol=1e-3, atol=1e-3)
     assert abs(int(card.iters) - int(cpu.iters)) <= 2
+
+def _half_views(gen, dtype):
+    """{name: (operand, expected path bits)} of the half-width Gram: nx not
+    a multiple of 8 or of the 64-wide tile, m not a multiple of the 32-deep
+    k-slice, an odd-n view 2 bytes past 16, the (N, M, m, nb) strided block
+    view, and the transposed view A A^T takes."""
+    XK, YK, VEC = gram.XK, gram.YK, gram.VEC
+    a = torch.randn(2, 1000, 520, device="cuda", generator=gen).to(dtype)
+    r = torch.randn(3, 130, 517, device="cuda", generator=gen).to(dtype)
+    o = torch.randn(2 * 301 * 1001 + 1, device="cuda",
+                    generator=gen).to(dtype)[1:].view(2, 301, 1001)
+    assert o.data_ptr() % 16 == 2
+    blk = torch.randn(2, 600, 1024, device="cuda", generator=gen).to(dtype)
+    rag = torch.randn(3, 601, 1000, device="cuda", generator=gen).to(dtype)
+    return {
+        "A^T A m%32=8 nx%64=8": (a, VEC),
+        "A A^T m%32=8 nx%64=40": (a.mT, XK | YK | VEC),
+        "A^T A nx=517": (r, 0),
+        "A A^T m=517": (r.mT, XK | YK),
+        "one node, tile-exact": (a[0, :64, :64].contiguous(), VEC),
+        "odd n, 2 bytes past 16": (o, 0),
+        "odd n transposed": (o.mT, XK | YK),
+        "block view nb=256": (blk.unflatten(-1, (4, 256)).permute(0, 2, 1, 3),
+                              VEC),
+        "block view nb=250": (rag.unflatten(-1, (4, 250)).permute(0, 2, 1, 3),
+                              0),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_half_width_gram_on_the_tensor_cores(cuda_gen, dtype):
+    """Each view through the FP64 tensor-core kernel, one launch a call:
+    within one f32 rounding of the plain version (an f64 product rounded
+    once), exactly symmetric, equal bit for bit to the general path's full
+    product of an equal copy and to a repeat call."""
+    for name, (x, path) in _half_views(cuda_gen, dtype).items():
+        assert gram.half_path(x, x) == path, name
+        ops.reset_launch_counts()
+        got = gram.gram(x)
+        assert ops.launch_counts()["gram"] == 1, name
+        torch.testing.assert_close(got, ref.gram_ref(x), rtol=2.0 ** -23,
+                                   atol=0.0, msg=name)
+        assert torch.equal(got, got.mT), name
+        assert torch.equal(got, gram.gram_xy(x, x.clone())), name
+        assert torch.equal(got, gram.gram(x)), name
+        y = torch.randn(x.shape[:-1] + (70,), device="cuda",
+                        generator=cuda_gen).to(dtype)
+        for u, v in ((x, y), (y, x), (x.mT.contiguous().mT, y)):
+            torch.testing.assert_close(gram.gram_xy(u, v),
+                                       ref.gram_xy_ref(u, v),
+                                       rtol=2.0 ** -23, atol=0.0, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_half_width_gram_issues_dmma(cuda_gen):
+    """cuobjdump's SASS of the built gram library: every bf16 / fp16
+    instantiation issues DMMA (the FP64 tensor cores); the f32 kernel none."""
+    import os
+    import subprocess
+    lib = build.library("gram", gram._SIGNATURES)
+    del lib
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path("gram"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {f.split("\n", 1)[0].strip(): f
+             for f in sass.split("Function : ")[1:]}
+    half = [k for k in funcs if "gram_dmma_kernel" in k]
+    f32 = [k for k in funcs if "gram_xy_kernel" in k]
+    assert len(half) == 16 and len(f32) == 2, list(funcs)
+    assert all("DMMA" in funcs[k] for k in half)
+    assert not any("DMMA" in funcs[k] for k in f32)
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
