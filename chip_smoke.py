@@ -22,8 +22,9 @@ Phases, each printing its own line with its wall time:
               widths and at 0, 1 and 2 bracketing rounds, beside an empty
               kernel's launch latency. normal_matvec is timed at the
               Woodbury polish's (6,400, 10,000), the PCG x-update's
-              (8, 25,000, 4,000) and that fit's polish (200,000, 4,000),
-              beside the composition of the matvec and rmatvec kernels
+              (8, 25,000, 4,000), that fit's polish (200,000, 4,000) and
+              the spectral Woodbury refinement's (8, 800, 10,000) with its
+              scalar shift sigma + rho_c (path_gamma runs it), beside the composition of the matvec and rmatvec kernels
               and two torch.matmul calls; two calls must agree bit for bit.
               The bf16 / fp16 instantiations of matvec, rmatvec and
               normal_matvec are held and timed the same way at the
@@ -48,6 +49,34 @@ Phases, each printing its own line with its wall time:
 5. dense    — Fig. 2's smallest point (n = 1,000, kappa = 200) through the
               dense factorization and the dense polish.
    dense_fp16 — the same point in fp16 (``precision="fp16"``).
+   path     — the hyperparameter path at the woodbury point and data
+              (gamma = 10, rho_c = 4, 60 iterations a point, tol 1e-4), over
+              kappa_ladder(10,000, 8, hi_frac=0.25) in descending order:
+              a warm ``fit_path`` (the set-up inside its counted window),
+              ``fit_path(warm_start=False)`` and ``fit_grid``. Prints each
+              point's kappa, iterations, status, cardinality and training
+              loss, the iteration totals and wall times, and each run's
+              launches. No point may diverge or leave a non-finite
+              iterate, the cardinality stays within kappa, ``fit_grid``
+              (the cold scan, run again: no lane axis yet) equals the cold
+              scan bit for bit, skappa_support launches once per outer
+              iteration and ladder_stats never. No point converges in 60
+              iterations, so warm and cold spend the same; path_converge
+              (phase 8) measures the warm start's saving.
+   path_gamma — the woodbury point at kappa = 2,000 (tol 0, as the
+              woodbury phase) through ``fit_grid`` over gamma = 1, 3.16,
+              10, 31.6 on the spectral Woodbury factors: one gram launch
+              for the set-up (eigh of A A^T), and the gamma = 10 point in
+              the band of the woodbury phase's static fit (same status and
+              support, coef within 1e-3, iterations within 2; at tol 0
+              both run max_iter, so the iteration band holds by
+              construction). Prints the set-up time and ms per outer
+              iteration beside the static fit's, and the largest
+              difference in z before the polish.
+   path_dense — a 3-point gamma grid at the dense point through the
+              spectral dense factors (ridge_setup_eigh), held to the dense
+              phase's fit at gamma = 10 the same way (the dense polish
+              re-solves on the support, so z before it is printed too).
 6. fig3     — the paper's Fig. 3 smallest point at full width (N = 8,
               m = 25,000, n = 4,000, kappa = 800) through the feature-split
               sub-solver (M = 4 blocks, 15 inner iterations): the block
@@ -83,6 +112,16 @@ Phases, each printing its own line with its wall time:
               Woodbury fit's data through the PCG x-update, and that data
               in bf16 through Woodbury and in fp16 through PCG and
               Woodbury.
+   parity_path — on the Woodbury parity data, card against CPU: a 4-point
+              warm kappa path, and a warm 3-point (kappa, gamma, rho_c)
+              path through the spectral Woodbury factors and through PCG;
+              at every point the same status and support, coef within
+              1e-3, iterations within 2. The CPU side runs in a worker
+              process (2 threads), started when phase 8 starts.
+   path_converge — the warm kappa path of parity_path against its cold
+              scan on the card (``fit_path(warm_start=False)``): every
+              point must converge; prints each run's outer iterations
+              and time, and the share the warm start saves.
 9. lm       — the dense LM's serving path at full width and depth:
               qwen3-8b (36 layers, 8.19e9 parameters drawn on the card
               from seed 0, 16.4 GB in bf16), 4 prompts of 2,048 tokens
@@ -414,6 +453,229 @@ def parity_fits() -> list:
     return fits
 
 
+def parity_path_fits() -> list:
+    """The card-vs-CPU path fits (phase 8, ``parity_path``), as ``(report
+    key, what, estimator keywords, method, its keywords)`` on the Woodbury
+    parity data (``parity_fits``' first), which follows."""
+    from repro_torch.data import SyntheticSpec, make_sparse_regression
+    small = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
+    As, bs, _ = make_sparse_regression(1, small)
+    base = dict(kappa=small.kappa, gamma=10.0, rho_c=4.0, tol=1e-4,
+                max_iter=300)
+    grid = dict(kappas=[50, 40, 30], gammas=[10.0, 5.0, 20.0],
+                rho_cs=[4.0, 2.0, 4.0])
+    # warm paths, the grids' too: the CPU side of a cold point costs ~0.2 s
+    # an outer iteration there, and warm starts compound any difference
+    fits = [("parity_path_woodbury", "warm kappa path [50, 40, 30, 20], "
+             "woodbury", dict(base, x_solver="woodbury"), "fit_path",
+             dict(kappas=[50, 40, 30, 20])),
+            ("parity_grid_woodbury", "warm (kappa, gamma, rho_c) path, "
+             "spectral woodbury", dict(base, x_solver="woodbury"),
+             "fit_path", grid),
+            ("parity_grid_pcg", "warm (kappa, gamma, rho_c) path, pcg",
+             dict(base, x_solver="pcg"), "fit_path", grid)]
+    return fits, As, bs
+
+
+def parity_path_cpu(conn) -> None:
+    """The CPU side of ``parity_path``, run in a worker process while the
+    card works through phase 8: sends ``{report key: path_to_numpy(path)}``
+    (less the last state) down ``conn``, or the exception's text."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    try:
+        import torch
+        torch.set_num_threads(2)
+        from repro_torch import api
+        from repro_torch.convert import path_to_numpy
+        fits, As, bs = parity_path_fits()
+        out = {}
+        for key, _, kw, method, grid in fits:
+            extra = {k: v for k, v in grid.items() if k != "kappas"}
+            t0 = time.perf_counter()
+            p = getattr(api.SparseLinearRegression(device="cpu", **kw),
+                        method)(As, bs, grid["kappas"], **extra)
+            out[key] = dict(path_to_numpy(p._replace(state=None)),
+                            seconds=time.perf_counter() - t0)
+        conn.send(out)
+    except Exception as e:          # noqa: BLE001 -- reported by the parent
+        conn.send(f"{type(e).__name__}: {e}")
+    finally:
+        conn.close()
+
+
+def check_path(torch, name, path, kappas) -> list:
+    """The checks every path phase makes on a SparsePath: no point
+    DIVERGED, finite iterates, cardinality within kappa. Returns one dict a
+    point."""
+    from repro_torch.core.results import SolveStatus
+    require(bool(torch.isfinite(path.z).all())
+            and bool(torch.isfinite(path.coef).all()),
+            f"{name}: non-finite iterates")
+    points = []
+    for i, kappa in enumerate(kappas):
+        status = SolveStatus(int(path.status[i]))
+        require(status != SolveStatus.DIVERGED,
+                f"{name}: the point kappa={kappa} DIVERGED")
+        card = int(path.cardinality[i])
+        require(card <= kappa, f"{name}: cardinality {card} > kappa "
+                               f"{kappa}")
+        points.append({"kappa": float(path.kappas[i]),
+                       "gamma": float(path.gammas[i]),
+                       "rho_c": float(path.rho_cs[i]),
+                       "iters": int(path.iters[i]), "status": status.name,
+                       "cardinality": card,
+                       "train_loss": float(path.train_loss[i])})
+    return points
+
+
+def points_text(points) -> str:
+    return "; ".join(f"kappa {p['kappa']:g} gamma {p['gamma']:g}: "
+                     f"{p['iters']} it {p['status']} card "
+                     f"{p['cardinality']} loss {p['train_loss']:.6g}"
+                     for p in points)
+
+
+def path_point(path, i):
+    """Point ``i`` of a SparsePath as a FitResult."""
+    from repro_torch.core.results import FitResult
+    return FitResult(path.coef[i], path.z[i], path.support[i], path.iters[i],
+                     path.p_r[i], path.d_r[i], path.b_r[i],
+                     status=path.status[i])
+
+
+def check_band(torch, name, got, want, what) -> dict:
+    """One point against a reference result: the same status and support,
+    coef within 1e-3, iterations within 2."""
+    require(int(got.status) == int(want.status),
+            f"{name}: status {int(got.status)} against {what}'s "
+            f"{int(want.status)}")
+    require(torch.equal(got.support.cpu(), want.support.cpu()),
+            f"{name}: the support differs from {what}'s")
+    err = float((got.coef.cpu() - want.coef.cpu()).abs().max())
+    require(torch.allclose(got.coef.cpu(), want.coef.cpu(), rtol=1e-3,
+                           atol=1e-3), f"{name}: coef differs from {what}'s "
+                                       f"by {err}")
+    require(abs(int(got.iters) - int(want.iters)) <= 2,
+            f"{name}: {int(got.iters)} iterations against {what}'s "
+            f"{int(want.iters)}")
+    # z, before the polish: the dense polish re-solves on the support and
+    # erases most of a difference between two sets of factors
+    return {"iters": int(got.iters), "iters_ref": int(want.iters),
+            "coef_max_abs_diff": err,
+            "z_max_abs_diff": float((got.z.cpu() - want.z.cpu()).abs().max())}
+
+
+def parity_phases(torch, api, ops, report, cpu_recv, cpu_proc) -> None:
+    """Phase 8: the parity fits (card against the port's CPU fit), the
+    path parity (card against the CPU side ``parity_path_cpu`` computes in
+    ``cpu_proc``, read from ``cpu_recv``), and ``path_converge``: the warm
+    kappa path of that data against its cold scan on the card, where every
+    point converges."""
+    from repro_torch.core.results import SolveStatus, SparsePath
+    for key, what, cls, kw, As_p, bs_p in parity_fits():
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        on_card = cls(**kw).fit(As_p, bs_p).result_
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        parity_types = ops.launch_counts_by_type()
+        on_cpu = cls(device="cpu", **kw).fit(As_p, bs_p).result_
+        require(int(on_card.status) == int(on_cpu.status),
+                f"{key}: status {int(on_card.status)} on the card, "
+                f"{int(on_cpu.status)} on the CPU")
+        require(torch.equal(on_card.support.cpu(), on_cpu.support),
+                f"{key}: supports differ")
+        coef_err = float((on_card.coef.cpu() - on_cpu.coef).abs().max())
+        require(torch.allclose(on_card.coef.cpu(), on_cpu.coef, rtol=1e-3,
+                               atol=1e-3),
+                f"{key}: coef differs by {coef_err}")
+        require(abs(int(on_card.iters) - int(on_cpu.iters)) <= 2,
+                f"{key}: iterations {int(on_card.iters)} vs "
+                f"{int(on_cpu.iters)}")
+        report[key] = {
+            "iters_card": int(on_card.iters), "iters_cpu": int(on_cpu.iters),
+            "status": SolveStatus(int(on_card.status)).name,
+            "coef_max_abs_diff": coef_err, "card_fit_s": t_card,
+            "launches_by_type": parity_types}
+        phase("parity", t0, f"{what}: card {int(on_card.iters)} iters vs "
+                            f"CPU {int(on_cpu.iters)}, same status "
+                            f"{SolveStatus(int(on_card.status)).name} and "
+                            f"support, coef max abs diff {coef_err:.2e}")
+
+    # 8b. the path and grids, card against CPU ------------------------------
+    path_fits, As_pp, bs_pp = parity_path_fits()
+    on_cards = {}
+    for key, what, kw, method, grid in path_fits:
+        t0 = time.perf_counter()
+        kappas_pp = grid["kappas"]
+        extra = {k: v for k, v in grid.items() if k != "kappas"}
+        on_card = getattr(api.SparseLinearRegression(**kw), method)(
+            As_pp, bs_pp, kappas_pp, **extra)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        on_cards[key] = on_card
+        check_path(torch, key, on_card, kappas_pp)
+        report[key] = {"card_s": t_card, "strategy": on_card.strategy}
+    t0 = time.perf_counter()
+    require(cpu_recv.poll(900), "parity_path: the CPU worker sent nothing "
+                                "in 900 s")
+    cpu_paths = cpu_recv.recv()
+    cpu_proc.join(60)
+    require(isinstance(cpu_paths, dict),
+            f"parity_path: the CPU worker failed: {cpu_paths}")
+    print(f"  parity_path: waited {time.perf_counter() - t0:.2f} s for the "
+          "CPU worker", flush=True)
+    for key, what, kw, method, grid in path_fits:
+        t0 = time.perf_counter()
+        got = cpu_paths[key]
+        on_cpu = SparsePath(**{f: (torch.as_tensor(got[f])
+                                   if f in got and f != "strategy"
+                                   and got[f] is not None else got.get(f))
+                               for f in SparsePath._fields})
+        on_card = on_cards[key]
+        bands = [check_band(torch, f"{key} point {i}", path_point(on_card, i),
+                            path_point(on_cpu, i), "the CPU")
+                 for i in range(len(grid["kappas"]))]
+        report[key].update(points=bands, cpu_s=got["seconds"])
+        phase("parity_path", t0, f"{what}: card against CPU iterations "
+                                 + ", ".join(f"{b['iters']}/{b['iters_ref']}"
+                                             for b in bands)
+                                 + ", same status and support, coef max "
+                                 f"abs diff "
+                                 f"{max(b['coef_max_abs_diff'] for b in bands):.2e}"
+                                 f" (card {report[key]['card_s']:.2f} s, CPU "
+                                 f"worker {got['seconds']:.2f} s)")
+
+    # 8c. warm against cold where the points converge (card only) --------
+    t0 = time.perf_counter()
+    key, what, kw, method, grid = path_fits[0]
+    kappas_pp = grid["kappas"]
+    warm = on_cards[key]
+    cold = api.SparseLinearRegression(**kw).fit_path(
+        As_pp, bs_pp, kappas_pp, warm_start=False)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    runs = {"warm": check_path(torch, "path_converge warm", warm, kappas_pp),
+            "cold": check_path(torch, "path_converge cold", cold, kappas_pp)}
+    for run, points in runs.items():
+        require(all(pt["status"] == "CONVERGED" for pt in points),
+                f"path_converge: a {run} point did not converge: "
+                + points_text(points))
+    totals = {run: sum(pt["iters"] for pt in pts)
+              for run, pts in runs.items()}
+    report["path_converge"] = {
+        "kappas": kappas_pp, "warm": runs["warm"], "cold": runs["cold"],
+        "iters": totals, "warm_s": report[key]["card_s"], "cold_s": t_cold,
+        "iters_saved": 1 - totals["warm"] / totals["cold"]}
+    phase("path_converge", t0,
+          f"kappa path {kappas_pp}, woodbury, on the parity data, every "
+          f"point CONVERGED: warm {totals['warm']} outer iterations in "
+          f"{report[key]['card_s']:.2f} s, cold {totals['cold']} in "
+          f"{t_cold:.2f} s ({report['path_converge']['iters_saved']:.1%} "
+          "fewer warm); warm: " + points_text(runs["warm"]) + "; cold: "
+          + points_text(runs["cold"]))
+
+
 def lm_phase(torch, dev, report) -> dict:
     """9. The qwen3-8b serving path at full width and depth (module
     docstring). Returns the launch counts of the timed prefill and decode
@@ -732,6 +994,7 @@ def main() -> int:
                                   make_sparse_regression, make_sparse_softmax)
     from repro_torch import runtime
     from repro_torch.core import bicadmm, bilinear, prox
+    from repro_torch.core import path as path_mod
     from repro_torch.kernels import (bisect_proj, block_matvec, build,
                                      flash_attention, gram, matvec, ops, ref)
 
@@ -1000,19 +1263,22 @@ def main() -> int:
     # normal_matvec, (A^T A + diag(shift)) p reading A once: the Woodbury
     # polish's stacked (6,400, 10,000) with its vector shift (the row the
     # kernels line reports), the Fig. 3 PCG x-update's (8, 25,000, 4,000)
-    # with its scalar shift, and that fit's stacked polish (200,000, 4,000).
+    # with its scalar shift, that fit's stacked polish (200,000, 4,000), and
+    # the spectral Woodbury refinement's per-node (8, 800, 10,000) with its
+    # scalar shift sigma + rho_c (path_gamma's point, gamma = 10, rho_c = 4).
     # Yardsticks (no one PyTorch call computes it): the composition of the
     # matvec and rmatvec kernels, and two torch.matmul calls. The bound
     # reads A, p and the shift once and writes the output; 4 flop an entry
     # of A.
     plans = {}
-    for Aa, vec_shift in ((A_all, True), (A3, False),
-                          (A3.view(-1, A3.shape[-1]), True)):
+    for Aa, vec_shift, c in ((A_all, True, None), (A3, False, 4.1),
+                             (A3.view(-1, A3.shape[-1]), True, None),
+                             (A, False, 1.0 / (N * 10.0) + 4.0)):
         nn = Aa.shape[-1]
         Na = Aa.shape[0] if Aa.ndim == 3 else 1
         p = torch.randn(Aa.shape[:-2] + (nn,), device=dev, generator=g)
         shift = (torch.rand(nn, device=dev, generator=g) + 1e-3
-                 if vec_shift else 4.1)
+                 if vec_shift else c)
         label = (f"normal_matvec {tuple(Aa.shape)} "
                  f"{'vector' if vec_shift else 'scalar'} shift")
         got = matvec.normal_matvec(Aa, p, shift)
@@ -1484,6 +1750,7 @@ def main() -> int:
     profile_phase("profile", dict(kappa=wide.kappa, gamma=10.0, rho_c=4.0),
                   torch.as_tensor(As_w, device=dev),
                   torch.as_tensor(bs_w, device=dev), est.result_.state)
+    wood_res = est.result_
 
     # 4b. the same point in bf16: A and b cast on the card once, before the
     # clock, so the fit reads the 2-byte data in place
@@ -1498,8 +1765,8 @@ def main() -> int:
     del A16, b16
 
     # 5. the dense regime ---------------------------------------------------
-    fit_phase("dense", As_n, bs_n, xt_n, narrow.kappa, "dense",
-              (*PROJ_KERNELS, "gram", "rmatvec"))
+    dense_res = fit_phase("dense", As_n, bs_n, xt_n, narrow.kappa, "dense",
+                          (*PROJ_KERNELS, "gram", "rmatvec")).result_
     fit_phase("dense_fp16", torch.as_tensor(As_n, device=dev).to(
                   torch.float16),
               torch.as_tensor(bs_n, device=dev).to(torch.float16), xt_n,
@@ -1508,6 +1775,168 @@ def main() -> int:
                   kappa=narrow.kappa, gamma=10.0, rho_c=4.0, max_iter=60,
                   tol=0.0, precision="fp16"),
               needed_types=("gram_f16", "rmatvec_f16"))
+
+    # 5b. the hyperparameter path at the woodbury point -------------------
+    t0 = time.perf_counter()
+    bw = torch.as_tensor(bs_w, device=dev)
+    kaps = path_mod.kappa_ladder(wide.n_features, 8, hi_frac=0.25)
+    path_est = api.SparseLinearRegression(kappa=wide.kappa, gamma=10.0,
+                                          rho_c=4.0, max_iter=60)
+    path_runs, paths = {}, {}
+    for run in ("warm", "cold", "grid"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        setup_s = None
+        if run == "warm":     # the set-up, timed on its own, counted here
+            path_est._adapter.solver._setup(A, bw)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t_run
+            t_run = time.perf_counter()
+        if run == "grid":
+            p = path_est.fit_grid(A, bw, kaps)
+        else:
+            p = path_est.fit_path(A, bw, kaps, warm_start=run == "warm")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        counts = ops.launch_counts()
+        points = check_path(torch, f"path {run}", p, kaps)
+        iters = sum(pt["iters"] for pt in points)
+        require(counts["skappa_support"] == iters,
+                f"path {run}: {counts['skappa_support']} skappa_support "
+                f"launches in {iters} outer iterations")
+        require(counts["ladder_stats"] == 0,
+                f"path {run}: {counts['ladder_stats']} ladder_stats launches")
+        needed = MAIN_KERNELS if run == "warm" else (
+            *PROJ_KERNELS, "matvec", "rmatvec", "normal_matvec")
+        for k_name in needed:
+            require(counts[k_name] > 0, f"path {run}: kernel {k_name} was "
+                                        "not launched")
+        require(path_est.n_iter_ == points[-1]["iters"],
+                f"path {run}: the estimator is not fitted on the last point")
+        path_runs[run] = {"points": points, "iters": iters, "wall_s": wall,
+                          "s_per_outer_iter": wall / max(iters, 1),
+                          "setup_s": setup_s, "launches": counts,
+                          "strategy": p.strategy}
+        paths[run] = p
+        print(f"  path {run} ({p.strategy}): {iters} outer iterations, "
+              f"{wall:.3f} s ({wall / max(iters, 1) * 1e3:.2f} ms/outer "
+              f"iter)" + (f", set-up {setup_s:.3f} s" if setup_s else "")
+              + f"; launches { {k: v for k, v in counts.items() if v} }; "
+              + points_text(points), flush=True)
+    # fit_grid is the cold scan (the engine has no lane axis), run again:
+    # equal bits show the card's run-to-run determinism, no second code path
+    for field in ("coef", "z", "support", "iters", "p_r", "d_r", "b_r",
+                  "cardinality", "train_loss", "status"):
+        require(torch.equal(getattr(paths["grid"], field),
+                            getattr(paths["cold"], field)),
+                f"path: fit_grid's {field} differs from the cold scan's")
+    report["path"] = dict(path_runs, kappas=kaps)
+    phase("path", t0, f"N={N} m={m} n={n} gamma=10 rho_c=4, kappas "
+                      f"{kaps}: warm {path_runs['warm']['iters']} outer "
+                      f"iterations in {path_runs['warm']['wall_s']:.3f} s, "
+                      f"cold {path_runs['cold']['iters']} in "
+                      f"{path_runs['cold']['wall_s']:.3f} s (every point "
+                      f"stops at max_iter 60: path_converge measures the "
+                      f"warm start's saving), grid (the cold scan run "
+                      f"again) equals it bit for bit")
+    del paths, path_est
+
+    # 5c. a gamma grid on the spectral Woodbury factors ---------------------
+    t0 = time.perf_counter()
+    gammas = (1.0, 3.16, 10.0, 31.6)
+    g_est = api.SparseLinearRegression(kappa=wide.kappa, gamma=10.0,
+                                       rho_c=4.0, max_iter=60, tol=0.0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_s = time.perf_counter()
+    factors = g_est._adapter.solver._setup(A, bw, dynamic_penalties=True)[0]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_s
+    require(type(factors).__name__ == "WoodburyEighFactors",
+            f"path_gamma: set-up took {type(factors).__name__}")
+    t_s = time.perf_counter()
+    gp = g_est.fit_grid(A, bw, [wide.kappa] * len(gammas), gammas=gammas)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_s
+    counts = ops.launch_counts()
+    points = check_path(torch, "path_gamma", gp, [wide.kappa] * len(gammas))
+    iters = sum(pt["iters"] for pt in points)
+    require(counts["gram"] == 1, f"path_gamma: {counts['gram']} gram "
+                                 "launches, expected one for the set-up")
+    for k_name in (*PROJ_KERNELS, "matvec", "rmatvec", "normal_matvec"):
+        require(counts[k_name] > 0, f"path_gamma: kernel {k_name} was not "
+                                    "launched")
+    at10 = gammas.index(10.0)
+    band = check_band(torch, "path_gamma (gamma=10)",
+                      path_point(gp, at10), wood_res,
+                      "the woodbury phase's static fit")
+    static_ms = report["woodbury"]["s_per_outer_iter"] * 1e3
+    report["path_gamma"] = {
+        "points": points, "setup_s": setup_s, "wall_s": wall,
+        "s_per_outer_iter": wall / max(iters, 1),
+        "static_setup_s": report["woodbury"]["setup_s"],
+        "static_s_per_outer_iter": static_ms / 1e3, "launches": counts,
+        "launches_per_outer_iter": {k: v / max(iters, 1)
+                                    for k, v in counts.items()},
+        "gamma10_against_static": band}
+    phase("path_gamma", t0, f"kappa={wide.kappa}, gammas {gammas} via "
+                            f"spectral woodbury: set-up {setup_s:.3f} s "
+                            f"(static {report['woodbury']['setup_s']:.3f} "
+                            f"s), {wall / max(iters, 1) * 1e3:.2f} ms/outer "
+                            f"iter (static {static_ms:.2f}), launches "
+                            f"{ {k: v for k, v in counts.items() if v} }; "
+                            f"gamma=10 against the static fit: "
+                            f"{band['iters']} vs {band['iters_ref']} iters "
+                            f"(tol 0: both max_iter), coef max abs diff "
+                            f"{band['coef_max_abs_diff']:.2e}, z before the "
+                            f"polish {band['z_max_abs_diff']:.2e}; "
+                            + points_text(points))
+    del gp, g_est, factors
+
+    # 5d. a gamma grid on the spectral dense factors ------------------------
+    t0 = time.perf_counter()
+    gammas_d = (3.16, 10.0, 31.6)
+    bn = torch.as_tensor(bs_n, device=dev)
+    d_est = api.SparseLinearRegression(kappa=narrow.kappa, gamma=10.0,
+                                       rho_c=4.0, max_iter=60, tol=0.0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_s = time.perf_counter()
+    dp = d_est.fit_grid(An, bn, [narrow.kappa] * 3, gammas=gammas_d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_s
+    counts = ops.launch_counts()
+    points = check_path(torch, "path_dense", dp, [narrow.kappa] * 3)
+    iters = sum(pt["iters"] for pt in points)
+    require(type(d_est._adapter.solver._setup(
+        An, bn, dynamic_penalties=True)[0]).__name__ == "EighRidgeFactors",
+        "path_dense: the set-up did not take ridge_setup_eigh")
+    # one gram for the eigh set-up, one for each point's dense polish
+    require(counts["gram"] == 1 + len(gammas_d),
+            f"path_dense: {counts['gram']} gram launches, expected "
+            f"{1 + len(gammas_d)}")
+    band_d = check_band(torch, "path_dense (gamma=10)",
+                        path_point(dp, 1), dense_res,
+                        "the dense phase's fit")
+    report["path_dense"] = {"points": points, "wall_s": wall,
+                            "s_per_outer_iter": wall / max(iters, 1),
+                            "launches": counts,
+                            "gamma10_against_static": band_d}
+    phase("path_dense", t0, f"N={N} m={m} n={narrow.n_features} "
+                            f"kappa={narrow.kappa}, gammas {gammas_d} via "
+                            f"ridge_setup_eigh: "
+                            f"{wall / max(iters, 1) * 1e3:.2f} ms/outer "
+                            f"iter, launches "
+                            f"{ {k: v for k, v in counts.items() if v} }; "
+                            f"gamma=10 against the dense fit: "
+                            f"{band_d['iters']} vs {band_d['iters_ref']} "
+                            f"iters (tol 0: both max_iter), coef max abs "
+                            f"diff {band_d['coef_max_abs_diff']:.2e}, z "
+                            f"before the polish "
+                            f"{band_d['z_max_abs_diff']:.2e}; "
+                            + points_text(points))
+    del dp, d_est, bw, bn
 
     # 6. Fig. 3's smallest point through the feature split ------------------
     est3 = fit_phase("fig3", A3, b3, xt_3, fig3.kappa, "feature split",
@@ -1757,35 +2186,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. the card against the port's own CPU fit ---------------------------
-    for key, what, cls, kw, As_p, bs_p in parity_fits():
-        t0 = time.perf_counter()
-        ops.reset_launch_counts()
-        on_card = cls(**kw).fit(As_p, bs_p).result_
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t0
-        parity_types = ops.launch_counts_by_type()
-        on_cpu = cls(device="cpu", **kw).fit(As_p, bs_p).result_
-        require(int(on_card.status) == int(on_cpu.status),
-                f"{key}: status {int(on_card.status)} on the card, "
-                f"{int(on_cpu.status)} on the CPU")
-        require(torch.equal(on_card.support.cpu(), on_cpu.support),
-                f"{key}: supports differ")
-        coef_err = float((on_card.coef.cpu() - on_cpu.coef).abs().max())
-        require(torch.allclose(on_card.coef.cpu(), on_cpu.coef, rtol=1e-3,
-                               atol=1e-3),
-                f"{key}: coef differs by {coef_err}")
-        require(abs(int(on_card.iters) - int(on_cpu.iters)) <= 2,
-                f"{key}: iterations {int(on_card.iters)} vs "
-                f"{int(on_cpu.iters)}")
-        report[key] = {
-            "iters_card": int(on_card.iters), "iters_cpu": int(on_cpu.iters),
-            "status": SolveStatus(int(on_card.status)).name,
-            "coef_max_abs_diff": coef_err, "card_fit_s": t_card,
-            "launches_by_type": parity_types}
-        phase("parity", t0, f"{what}: card {int(on_card.iters)} iters vs "
-                            f"CPU {int(on_cpu.iters)}, same status "
-                            f"{SolveStatus(int(on_card.status)).name} and "
-                            f"support, coef max abs diff {coef_err:.2e}")
+    # parity_path's CPU side runs in a worker process meanwhile (8b)
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    cpu_recv, cpu_send = ctx.Pipe(duplex=False)
+    cpu_proc = ctx.Process(target=parity_path_cpu, args=(cpu_send,),
+                           daemon=True)
+    cpu_proc.start()
+    cpu_send.close()
+    try:
+        parity_phases(torch, api, ops, report, cpu_recv, cpu_proc)
+    finally:
+        if cpu_proc.is_alive():
+            cpu_proc.terminate()
+        cpu_proc.join()
+        cpu_recv.close()
 
     # 9. the LM serving path; 10. its parity checks
     lm_counts = lm_phase(torch, dev, report)

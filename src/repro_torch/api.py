@@ -13,12 +13,15 @@ feature-split sub-solver (``n_feature_blocks > 1``). Entry points run on the
 card unless the caller asks for the CPU: with ``device=None`` and no CUDA
 device they raise ``RuntimeError``. ``precision="bf16"`` / ``"fp16"`` fit
 bf16 / fp16 data (or f32 data, which the engine casts once) through the
-dense, Woodbury and PCG x-updates and Newton-CG, with f32 iterates. What the
-port has not ported raises :class:`CapabilityError` up front: the sharded
-engine and meshes, ``projection="sort"``, ``precision="fp64_polish"``, the
-feature split under a reduced precision, per-solve ``gamma``/``rho_c``
-overrides, divergence recovery, and the path, grid, fleet, serving and
-streaming entry points.
+dense, Woodbury and PCG x-updates and Newton-CG, with f32 iterates.
+Hyperparameter sweeps run through :func:`solve_path` / :func:`solve_grid` and
+the estimators' ``fit_path`` / ``fit_grid`` (kappa, gamma and rho_c grids;
+kappa only under the feature split), and one solve may override kappa,
+gamma or rho_c. What the port has not ported raises :class:`CapabilityError`
+up front: the sharded engine and meshes, ``projection="sort"``,
+``precision="fp64_polish"``, the feature split under a reduced precision,
+divergence recovery, and the fleet, serving and streaming entry points
+(``partial_fit``, ``fit_many``, ``serve``, ``stream``, ``recover``).
 """
 from __future__ import annotations
 
@@ -30,16 +33,18 @@ import torch
 from . import runtime
 from .core.bicadmm import BiCADMM, BiCADMMConfig
 from .core.losses import Loss, get_loss
+from .core.path import fit_grid as _ref_fit_grid
+from .core.path import fit_path as _ref_fit_path
 from .core.prox import XSOLVERS
-from .core.results import FitResult, SolveStatus
+from .core.results import FitResult, SolveStatus, SparsePath
 from .kernels.ops import matvec_auto
 from .runtime import CapabilityError
 
 __all__ = ["CapabilityError", "Capabilities", "FitResult", "SolveStatus",
            "SolverOptions", "SparseEstimator", "SparseLinearRegression",
-           "SparseLogisticRegression", "SparseProblem", "SparseSVM",
-           "SparseSoftmaxRegression", "engine_capabilities", "solve",
-           "validate_data"]
+           "SparseLogisticRegression", "SparsePath", "SparseProblem",
+           "SparseSVM", "SparseSoftmaxRegression", "engine_capabilities",
+           "solve", "solve_grid", "solve_path", "validate_data"]
 
 ENGINES = ("auto", "reference", "sharded")
 
@@ -123,7 +128,9 @@ class SolverOptions:
 
 @dataclasses.dataclass(frozen=True)
 class Capabilities:
-    """What the port's engine can do (see ``repro.api.Capabilities``)."""
+    """What the port's engine can do (see ``repro.api.Capabilities``).
+    ``grid_strategy`` is ``"cold-scan"``: with no lane axis yet, a grid runs
+    as a sequential cold scan."""
     engine: str
     distributed: bool
     dynamic_penalties: bool
@@ -138,17 +145,23 @@ class Capabilities:
     precisions: tuple = ("float32", "bfloat16", "float16")
 
 
-def engine_capabilities(engine: str = "reference") -> Capabilities:
-    """The reference engine's capabilities in this port; other engines
-    raise :class:`CapabilityError`. Dynamic penalties are off: the spectral
-    factors are not ported, and with the feature split on they stay off in
-    any case, since it bakes the penalties into its per-block factors."""
+def engine_capabilities(engine: str = "reference",
+                        options: SolverOptions | None = None
+                        ) -> Capabilities:
+    """The reference engine's capabilities under ``options`` (defaults when
+    omitted); other engines raise :class:`CapabilityError`. The feature
+    split bakes the penalties into its per-block factors, so with it only
+    kappa may change between solves."""
     if engine != "reference":
         raise CapabilityError(f"engine {engine!r} is not ported to "
                               "repro_torch yet; use engine='reference'")
+    options = options if options is not None else SolverOptions()
+    dyn = not BiCADMMConfig(
+        kappa=1, n_feature_blocks=options.n_feature_blocks,
+        force_feature_split=options.force_feature_split).use_feature_split
     return Capabilities(engine="reference", distributed=False,
-                        dynamic_penalties=False, per_solve_overrides=False,
-                        penalty_grids=False, grid_strategy=None,
+                        dynamic_penalties=dyn, per_solve_overrides=True,
+                        penalty_grids=dyn, grid_strategy="cold-scan",
                         gather_free=False)
 
 
@@ -165,6 +178,15 @@ def _check_options(options: SolverOptions) -> None:
     if unported:
         raise CapabilityError("not ported to repro_torch yet: "
                               + "; ".join(unported))
+
+
+def _check_sweep(caps: Capabilities, gammas, rho_cs) -> None:
+    if (gammas is not None or rho_cs is not None) and not caps.penalty_grids:
+        raise CapabilityError(
+            f"the {caps.engine!r} engine (as configured) supports "
+            "kappa-only sweeps: penalty-dependent factors are baked in at "
+            "setup, so gammas=/rho_cs= grids are unavailable "
+            "(Capabilities.penalty_grids=False)")
 
 
 def _check_precision(caps: Capabilities, options: SolverOptions) -> None:
@@ -263,7 +285,7 @@ class _ReferenceAdapter:
 
     def __init__(self, problem: SparseProblem, options: SolverOptions):
         _check_options(options)
-        self.caps = engine_capabilities("reference")
+        self.caps = engine_capabilities("reference", options)
         _check_precision(self.caps, options)
         self.device = runtime.resolve_device(options.device)
         self.solver = BiCADMM(problem.resolve_loss(),
@@ -271,15 +293,28 @@ class _ReferenceAdapter:
 
     def fit(self, As, bs, *, kappa=None, gamma=None, rho_c=None,
             state=None) -> FitResult:
-        if gamma is not None or rho_c is not None:
-            raise CapabilityError(
-                "per-solve gamma/rho_c overrides need the spectral factors "
-                "of a later slice (and the feature split bakes the penalties "
-                "into its factors); build a new problem instead")
-        if state is None and kappa is None:
+        """One solve; overrides / ``state`` route through ``run_from``
+        (a gamma / rho_c override under the feature split raises the
+        engine's ``ValueError``)."""
+        overrides = dict(kappa=kappa, gamma=gamma, rho_c=rho_c)
+        if state is None and all(v is None for v in overrides.values()):
             return self.solver.fit(As, bs)
         state = state if state is not None else self.solver.init_state(As, bs)
-        return self.solver.run_from(As, bs, state, kappa=kappa)
+        return self.solver.run_from(As, bs, state, **overrides)
+
+    def fit_path(self, As, bs, kappas, *, gammas=None, rho_cs=None,
+                 warm_start=True) -> SparsePath:
+        """Warm-started hyperparameter path."""
+        _check_sweep(self.caps, gammas, rho_cs)
+        return _ref_fit_path(self.solver, As, bs, kappas, gammas=gammas,
+                             rho_cs=rho_cs, warm_start=warm_start)
+
+    def fit_grid(self, As, bs, kappas, *, gammas=None, rho_cs=None
+                 ) -> SparsePath:
+        """Independent cold fits of the grid (a sequential cold scan)."""
+        _check_sweep(self.caps, gammas, rho_cs)
+        return _ref_fit_grid(self.solver, As, bs, kappas, gammas=gammas,
+                             rho_cs=rho_cs)
 
 
 def solve(problem: SparseProblem, X, y, *,
@@ -290,6 +325,29 @@ def solve(problem: SparseProblem, X, y, *,
     adapter = _ReferenceAdapter(problem, options)
     As, bs = _stack(X, y, adapter.device, options.precision)
     return adapter.fit(As, bs, state=state)
+
+
+def solve_path(problem: SparseProblem, X, y, kappas, *,
+               options: SolverOptions | None = None, gammas=None,
+               rho_cs=None, warm_start: bool = True) -> SparsePath:
+    """Warm-started hyperparameter path over ``kappas`` (and optional
+    ``gammas`` / ``rho_cs`` grids of the same length)."""
+    options = options if options is not None else SolverOptions()
+    adapter = _ReferenceAdapter(problem, options)
+    As, bs = _stack(X, y, adapter.device, options.precision)
+    return adapter.fit_path(As, bs, kappas, gammas=gammas, rho_cs=rho_cs,
+                            warm_start=warm_start)
+
+
+def solve_grid(problem: SparseProblem, X, y, kappas, *,
+               options: SolverOptions | None = None, gammas=None,
+               rho_cs=None) -> SparsePath:
+    """Independent cold fits of every grid point; ``path.strategy`` says
+    how the grid ran (``"cold-scan"``)."""
+    options = options if options is not None else SolverOptions()
+    adapter = _ReferenceAdapter(problem, options)
+    As, bs = _stack(X, y, adapter.device, options.precision)
+    return adapter.fit_grid(As, bs, kappas, gammas=gammas, rho_cs=rho_cs)
 
 
 def _unported(what: str):
@@ -336,7 +394,39 @@ class SparseEstimator:
         """Fit on ``(X, y)``; ``state=`` warm-starts from a previous
         result's ``.state``. Returns ``self``."""
         As, bs = _stack(X, y, self.device, self.options.precision)
-        res = self._adapter.fit(As, bs, state=state)
+        self._set_fitted(self._adapter.fit(As, bs, state=state))
+        return self
+
+    partial_fit = _unported("SparseEstimator.partial_fit")
+
+    def fit_path(self, X, y, kappas, *, gammas=None, rho_cs=None,
+                 warm_start: bool = True) -> SparsePath:
+        """Warm-started sweep; the estimator is left fitted on the LAST
+        grid point (the sparsest, for descending kappa ladders)."""
+        As, bs = _stack(X, y, self.device, self.options.precision)
+        path = self._adapter.fit_path(As, bs, kappas, gammas=gammas,
+                                      rho_cs=rho_cs, warm_start=warm_start)
+        self._set_fitted(self._last_point(path))
+        return path
+
+    def fit_grid(self, X, y, kappas, *, gammas=None, rho_cs=None
+                 ) -> SparsePath:
+        """Independent cold fits; the estimator is left fitted on the last
+        grid point."""
+        As, bs = _stack(X, y, self.device, self.options.precision)
+        path = self._adapter.fit_grid(As, bs, kappas, gammas=gammas,
+                                      rho_cs=rho_cs)
+        self._set_fitted(self._last_point(path))
+        return path
+
+    @staticmethod
+    def _last_point(path: SparsePath) -> FitResult:
+        return FitResult(path.coef[-1], path.z[-1], path.support[-1],
+                         path.iters[-1], path.p_r[-1], path.d_r[-1],
+                         path.b_r[-1], state=path.state,
+                         status=path.status[-1])
+
+    def _set_fitted(self, res: FitResult) -> None:
         self.result_ = res
         K = self.problem.n_classes
         self.coef_ = res.coef[:, 0] if K == 1 else res.coef
@@ -344,11 +434,6 @@ class SparseEstimator:
         self.n_iter_ = int(res.iters)
         self.engine_ = self._adapter.name
         self.capabilities_ = self._adapter.caps
-        return self
-
-    partial_fit = _unported("SparseEstimator.partial_fit")
-    fit_path = _unported("SparseEstimator.fit_path")
-    fit_grid = _unported("SparseEstimator.fit_grid")
 
     def _scores(self, X) -> torch.Tensor:
         if self.result_ is None:
@@ -420,8 +505,6 @@ class SparseSoftmaxRegression(SparseEstimator):
 
 
 # functional entry points of the JAX api that wait for later slices
-solve_path = _unported("solve_path")
-solve_grid = _unported("solve_grid")
 fit_many = _unported("fit_many")
 serve = _unported("serve")
 stream = _unported("stream")

@@ -8,7 +8,8 @@ Its ``inner`` field, the feature-split sub-solver's state, crosses as
 ``SubsolverState`` itself). :func:`state_from_numpy` turns it into the
 port's state on a device, and :func:`state_to_numpy` /
 :func:`result_to_numpy` go back, with ``inner`` as a dict. Warm starts then
-move between the packages.
+move between the packages. :func:`path_to_numpy` does the same for a
+:class:`~repro_torch.core.results.SparsePath`.
 
 :func:`lm_params_from_jax` carries the JAX package's LM parameters (a tree
 of numpy arrays) into the port's model.
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from .core.bicadmm import BiCADMMState
-from .core.results import FitResult
+from .core.results import FitResult, SparsePath
 from .core.subsolver import SubsolverState
 from .models import transformer, zoo
 
@@ -77,6 +78,22 @@ def result_to_numpy(res: FitResult) -> dict:
         val = getattr(res, name)
         out[name] = None if val is None else _numpy(val)
     out["state"] = None if res.state is None else state_to_numpy(res.state)
+    return out
+
+
+def path_to_numpy(path: SparsePath) -> dict:
+    """The path's arrays as numpy (the grids as float32 whatever the data
+    dtype), its last state as a nested dict and its strategy."""
+    out = {}
+    for name in SparsePath._fields:
+        val = getattr(path, name)
+        if name == "state":
+            val = None if val is None else state_to_numpy(val)
+        elif name in ("kappas", "gammas", "rho_cs"):
+            val = _numpy(val.to(torch.float32))
+        elif torch.is_tensor(val):
+            val = _numpy(val)
+        out[name] = val
     return out
 
 

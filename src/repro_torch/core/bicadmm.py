@@ -22,8 +22,14 @@ The x-update (7a) takes one of three routes, as in the JAX package: the
 feature-split sub-solver (Algorithm 2, :mod:`.subsolver`) when
 ``n_feature_blocks > 1`` or ``force_feature_split``; else the squared
 loss's factorized engines (:class:`.prox.NodeProxEngine`); else
-:func:`.prox.newton_cg_prox`. The fleet driver, ``fit_with_history`` and
-fault injection wait for later slices.
+:func:`.prox.newton_cg_prox`. ``run_from(kappa=, gamma=, rho_c=)``
+overrides the configured hyperparameters for one solve (the primitive the
+path engine, :mod:`.path`, loops over); a gamma or rho_c override takes the
+spectral factors of the dense and Woodbury engines, which the feature split
+cannot offer (it bakes the penalties into its per-block factors and raises
+``ValueError``). ``fit_with_history`` runs a fixed number of steps and
+records the residual traces on the device. The fleet driver and fault
+injection wait for later slices.
 
 Precision: ``"fp32"``, ``"bf16"`` and ``"fp16"``. Under the reduced presets
 the data is cast once (cached on the tensors' identity, as the JAX
@@ -111,7 +117,8 @@ class BiCADMMConfig:
 
 
 class SolveParams(NamedTuple):
-    """Per-solve hyperparameters (Python scalars in this slice)."""
+    """Per-solve hyperparameters, Python scalars (read on the host: the
+    projection kernels take kappa as a number)."""
     kappa: float
     rho_c: float
     rho_b: float
@@ -130,6 +137,11 @@ class BiCADMMState(NamedTuple):
     d_r: torch.Tensor
     b_r: torch.Tensor
     inner: Any = None  # SubsolverState of the feature split, else None
+
+
+def _number(v):
+    """A hyperparameter as a Python number (0-d tensors read once)."""
+    return v.item() if torch.is_tensor(v) else v
 
 
 def reset_for_resume(st: BiCADMMState) -> BiCADMMState:
@@ -212,26 +224,37 @@ class BiCADMM:
             self._cast_cache[key] = hit
         return hit[2], hit[3]
 
-    def _x_engine(self, m: int, n: int) -> NodeProxEngine:
+    def _x_engine(self, m: int, n: int,
+                  dynamic: bool = False) -> NodeProxEngine:
         cfg = self.cfg
         return NodeProxEngine.choose(m, n, x_solver=cfg.x_solver,
-                                     cg_iters=cfg.cg_iters, cg_tol=cfg.cg_tol)
+                                     dynamic=dynamic, cg_iters=cfg.cg_iters,
+                                     cg_tol=cfg.cg_tol)
 
     # -- setup ---------------------------------------------------------------
-    def _setup(self, As, bs):
+    def _setup(self, As, bs, *, dynamic_penalties: bool = False):
+        """(factors, N, n), cached on the data tensors and on whether the
+        penalties change between solves (spectral factors) or not."""
         cfg = self.cfg
         N, m, n = As.shape
         key = (id(As), id(bs), tuple(As.shape), tuple(bs.shape),
-               str(As.dtype), str(As.device))
+               str(As.dtype), str(As.device), bool(dynamic_penalties))
         hit = self._setup_cache.get(key)
         if hit is not None:
             return hit[-1]
         sigma = 1.0 / (N * cfg.gamma)
         if cfg.use_feature_split:
+            if dynamic_penalties:
+                raise ValueError(
+                    "dynamic gamma/rho_c are not supported with the "
+                    "feature-split sub-solver (penalties are baked into its "
+                    "cached per-block factors); sweep kappa only, or use "
+                    "n_feature_blocks=1")
             factors = subsolver_setup(As, sigma, cfg.rho_c, cfg.rho_l,
                                       cfg.n_feature_blocks)
         elif self.loss.name == "squared":
-            factors = self._x_engine(m, n).setup(As, bs, sigma, cfg.rho_c)
+            factors = self._x_engine(m, n, dynamic_penalties).setup(
+                As, bs, sigma, cfg.rho_c)
         else:
             factors = None
         out = (factors, N, n)
@@ -240,11 +263,20 @@ class BiCADMM:
         self._setup_cache[key] = (As, bs, out)
         return out
 
-    def _make_params(self, N: int, *, kappa=None) -> SolveParams:
+    def _make_params(self, N: int, *, kappa=None, gamma=None,
+                     rho_c=None) -> SolveParams:
+        """The config's hyperparameters with any override. Overrides may be
+        0-d host tensors (the path engine's grids, in the data dtype): sigma
+        and rho_b are then formed in that dtype, as the JAX package forms
+        them from its grid arrays, and read back as numbers."""
         cfg = self.cfg
         kappa = cfg.kappa if kappa is None else kappa
-        return SolveParams(kappa=kappa, rho_c=cfg.rho_c, rho_b=cfg.rho_b_eff,
-                           sigma=1.0 / (N * cfg.gamma))
+        gamma = cfg.gamma if gamma is None else gamma
+        rho_c = cfg.rho_c if rho_c is None else rho_c
+        rho_b = cfg.rho_b if cfg.rho_b is not None else cfg.alpha * rho_c
+        return SolveParams(kappa=_number(kappa), rho_c=_number(rho_c),
+                           rho_b=_number(rho_b),
+                           sigma=_number(1.0 / (N * gamma)))
 
     def _x_update(self, factors, params: SolveParams, As, bs, q, x_prev,
                   inner):
@@ -339,14 +371,17 @@ class BiCADMM:
                 return st
             st = self._step(factors, As, bs, params, st)
 
-    def run_from(self, As, bs, state: BiCADMMState, *,
-                 kappa=None) -> FitResult:
+    def run_from(self, As, bs, state: BiCADMMState, *, kappa=None,
+                 gamma=None, rho_c=None) -> FitResult:
         """Run until the residual tolerances or max_iter, warm-starting
         from ``state`` (counter and residuals reset, iterates kept).
-        ``kappa`` overrides the configured budget for this solve."""
+        ``kappa`` / ``gamma`` / ``rho_c`` override the config for this
+        solve; a ``gamma`` or ``rho_c`` override takes the spectral factors
+        (set up once and cached like the others)."""
+        dyn = gamma is not None or rho_c is not None
         As, bs = self._cast(As, bs)
-        factors, N, n = self._setup(As, bs)
-        params = self._make_params(N, kappa=kappa)
+        factors, N, n = self._setup(As, bs, dynamic_penalties=dyn)
+        params = self._make_params(N, kappa=kappa, gamma=gamma, rho_c=rho_c)
         st = self._run_while(factors, As, bs, params,
                              reset_for_resume(state))
         return self._finalize(As, bs, st, params)
@@ -355,22 +390,51 @@ class BiCADMM:
         """``run_from`` a fresh zero state."""
         return self.run_from(As, bs, self.init_state(As, bs))
 
-    def _finalize(self, As, bs, st: BiCADMMState,
-                  params: SolveParams) -> FitResult:
+    def fit_with_history(self, As, bs, iters: int | None = None
+                         ) -> FitResult:
+        """``iters`` steps (``max_iter`` by default) with no stopping test,
+        recording the residuals and the cardinality of z after each step
+        (Fig. 1). The traces stay on the device, stacked once at the end:
+        no host read per step. ``history`` holds ``p_r``, ``d_r``, ``b_r``
+        and ``card`` (int32), each of shape (iters,)."""
+        As, bs = self._cast(As, bs)
+        factors, N, n = self._setup(As, bs)
+        params = self._make_params(N)
+        iters = iters or self.cfg.max_iter
+        st = self._init_state(As, n, self.loss.n_classes)
+        rows = []
+        for _ in range(iters):
+            st = self._step(factors, As, bs, params, st)
+            rows.append((st.p_r, st.d_r, st.b_r,
+                         torch.sum(torch.abs(st.z) > 1e-6,
+                                   dtype=torch.int32)))
+        history = {name: torch.stack(col) for name, col in
+                   zip(("p_r", "d_r", "b_r", "card"), zip(*rows))}
+        return self._finalize(As, bs, st, params, history=history)
+
+    def _finalize(self, As, bs, st: BiCADMMState, params: SolveParams,
+                  history=None, *, compiled: bool = False) -> FitResult:
+        """Threshold, polish and classify a final state. ``compiled``: the
+        JAX package finalizes this solve inside one compiled program (a
+        path point), where XLA keeps the PCG polish's A^T b of bf16 / fp16
+        data in f32 instead of rounding it to the data dtype as its eager
+        finalize of a fit does; the port follows each."""
         cfg = self.cfg
         z_sparse = bilinear.hard_threshold(st.z, params.kappa)
         support = torch.abs(z_sparse) > 0
         if cfg.polish:
-            x_final = self._polish(As, bs, support, z_sparse, params)
+            x_final = self._polish(As, bs, support, z_sparse, params,
+                                   compiled)
         else:
             x_final = z_sparse
         coef = x_final.reshape(As.shape[2], self.loss.n_classes)
         status = classify_status(st.k, st.p_r, st.d_r, st.b_r, tol=cfg.tol,
                                  divergence_tol=cfg.divergence_tol)
         return FitResult(coef, st.z, support, st.k, st.p_r, st.d_r, st.b_r,
-                         None, st, status=status)
+                         history, st, status=status)
 
-    def _polish(self, As, bs, support, z0, params: SolveParams):
+    def _polish(self, As, bs, support, z0, params: SolveParams,
+                compiled: bool = False):
         """Debias: re-fit restricted to the recovered support, as the full
         regularized problem plus a large quadratic penalty off-support. For
         the squared loss a dense solve while the n x n Gram is small,
@@ -393,11 +457,14 @@ class BiCADMM:
                                                        out_dtype=acc))
                 return torch.where(support, x, 0.0)
             # the right-hand side takes no out_dtype, as in the JAX package:
-            # bf16 / fp16 data rounds A^T b to the data dtype
+            # bf16 / fp16 data rounds A^T b to the data dtype (but for the
+            # compiled finalize, see _finalize)
             shift = pen + sigma
             inv = 1.0 / (prox.col_sumsq(A_all) + shift)
+            rhs = rmatvec_auto(A_all, b_all,
+                               out_dtype=z0.dtype if compiled else None)
             x = prox.pcg(lambda p: normal_matvec_auto(A_all, p, shift),
-                         rmatvec_auto(A_all, b_all), z0, lambda r: inv * r,
+                         rhs, z0, lambda r: inv * r,
                          max(200, 2 * cfg.cg_iters), cfg.cg_tol)
             return torch.where(support, x, 0.0)
 

@@ -21,9 +21,13 @@ backend           setup          per-solve   memory       regime
 The other losses take :func:`newton_cg_prox`, a matrix-free Newton-CG on
 the ``matvec`` / ``rmatvec`` kernels.
 
-Cholesky factorizations and triangular solves go to ``torch.linalg``, as the
-JAX package leaves them to XLA outside any Pallas kernel. The spectral
-(eigh) variants for traced penalties wait for the path-engine slice.
+Cholesky factorizations, eigendecompositions and triangular solves go to
+``torch.linalg``, as the JAX package leaves them to XLA outside any Pallas
+kernel. ``NodeProxEngine(dynamic=True)`` takes the spectral (eigh) factors
+of A^T A or A A^T in place of the Cholesky ones, so that sigma and rho_c
+may change from solve to solve (the path engine's gamma / rho_c grids)
+without a new factorization; their n x n or m x m products with V or U are
+``torch.matmul`` calls, the A-products the kernels.
 
 Reduced-precision data (bf16 / fp16 ``A``, the ``"bf16"`` / ``"fp16"``
 presets) is read in place by the kernels; every factor, Gram, A^T b and the
@@ -58,6 +62,22 @@ def _eye(k: int, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(k, dtype=dtype, device=like.device)
 
 
+def _bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product: (N, k, l) @ (N, l) -> (N, k)."""
+    return (M @ v[..., None])[..., 0]
+
+
+def _eigh(G: torch.Tensor):
+    """(evals, V) of a batch of symmetric Grams, computed in f64 and
+    returned in G's dtype. The JAX package takes an f32 eigh; torch's
+    batched f32 eigh on the card (cuSOLVER's Jacobi routine) leaves ~5e-6
+    relative error in the Woodbury solves where the CPU's LAPACK leaves
+    ~2e-7, and moved a card-against-CPU parity fit by 9 iterations; the f64
+    eigh leaves 1.2e-7, the static Cholesky solve's error."""
+    evals, V = torch.linalg.eigh(G.to(torch.float64))
+    return evals.to(G.dtype), V.to(G.dtype)
+
+
 def _tri_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """(L L^T)^{-1} rhs for a batch of lower factors and (N, k) rhs."""
     y = torch.linalg.solve_triangular(chol, rhs[..., None], upper=False)
@@ -88,6 +108,29 @@ def ridge_prox_factorized(f: RidgeFactors, q, rho_c) -> torch.Tensor:
     return _tri_solve(f.chol, f.Atb + rho_c * q)
 
 
+@dataclasses.dataclass(frozen=True)
+class EighRidgeFactors:
+    """Spectral factors of A^T A per node: (A^T A + c I)^{-1} rhs for any
+    shift c given at solve time."""
+    V: torch.Tensor      # (N, n, n) orthonormal eigenvectors of A^T A
+    evals: torch.Tensor  # (N, n) eigenvalues (>= 0)
+    Atb: torch.Tensor    # (N, n)
+
+
+def ridge_setup_eigh(A, b) -> EighRidgeFactors:
+    """eigh of the gram kernel's A^T A (f32 for bf16 / fp16 data)."""
+    acc = _accum(A.dtype)
+    evals, V = _eigh(gram_auto(A, out_dtype=acc))
+    return EighRidgeFactors(V, evals, rmatvec_auto(A, b, out_dtype=acc))
+
+
+def ridge_prox_eigh(f: EighRidgeFactors, q, rho_c, sigma) -> torch.Tensor:
+    """:func:`ridge_prox_factorized` with the shift sigma + rho_c given at
+    solve time: x = V diag(1/(evals + c)) V^T (A^T b + rho_c q)."""
+    rhs = f.Atb + rho_c * q
+    return _bmv(f.V, _bmv(f.V.mT, rhs) / (f.evals + sigma + rho_c))
+
+
 # ------------------------------------------------------------ woodbury ----
 @dataclasses.dataclass(frozen=True)
 class WoodburyFactors:
@@ -114,6 +157,43 @@ def woodbury_prox(f: WoodburyFactors, q, rho_c) -> torch.Tensor:
     rhs = f.Atb + rho_c * q
     y = _tri_solve(f.chol, matvec_auto(f.A, rhs))
     return (rhs - rmatvec_auto(f.A, y)) / f.c
+
+
+@dataclasses.dataclass(frozen=True)
+class WoodburyEighFactors:
+    """Spectral dual factors of A A^T per node: the Woodbury counterpart of
+    :class:`EighRidgeFactors`, any shift c at solve time."""
+    A: torch.Tensor      # (N, m, n) data, by reference
+    U: torch.Tensor      # (N, m, m) orthonormal eigenvectors of A A^T
+    evals: torch.Tensor  # (N, m) eigenvalues (>= 0)
+    Atb: torch.Tensor    # (N, n)
+
+
+def woodbury_setup_eigh(A, b) -> WoodburyEighFactors:
+    """eigh of A A^T, the gram kernel on the transposed view of A."""
+    acc = _accum(A.dtype)
+    evals, U = _eigh(gram_auto(A.mT, out_dtype=acc))
+    return WoodburyEighFactors(A, U, evals,
+                               rmatvec_auto(A, b, out_dtype=acc))
+
+
+def _woodbury_eigh_solve(f: WoodburyEighFactors, rhs, c) -> torch.Tensor:
+    y = _bmv(f.U, _bmv(f.U.mT, matvec_auto(f.A, rhs)) / (f.evals + c))
+    return (rhs - rmatvec_auto(f.A, y)) / c
+
+
+def woodbury_prox_eigh(f: WoodburyEighFactors, q, rho_c,
+                       sigma) -> torch.Tensor:
+    """Spectral dual solve with one refinement pass, as the JAX package's:
+    solve, form the residual of (A^T A + c I) x = rhs, solve for the
+    correction. The residual's A^T (A x0) + c x0 is one ``normal_matvec``
+    (one pass over A on the card; on the CPU the same sums as the
+    ``matvec`` and ``rmatvec`` composition)."""
+    c = sigma + rho_c
+    rhs = f.Atb + rho_c * q
+    x0 = _woodbury_eigh_solve(f, rhs, c)
+    r = rhs - normal_matvec_auto(f.A, x0, c)
+    return x0 + _woodbury_eigh_solve(f, r, c)
 
 
 # ----------------------------------------------------------------- pcg ----
@@ -264,18 +344,33 @@ def newton_cg_prox(loss, A, b, q, sigma: float, rho_c: float,
     return x
 
 
+def direct_prox(loss, A, b, q, sigma: float, rho_c: float,
+                ridge: RidgeFactors | None = None) -> torch.Tensor:
+    """Closed form for the squared loss (from ``ridge_setup`` factors),
+    Newton-CG otherwise."""
+    if loss.name == "squared":
+        if ridge is None:
+            raise ValueError("the squared loss needs ridge_setup factors")
+        return ridge_prox_factorized(ridge, q, rho_c)
+    return newton_cg_prox(loss, A, b, q, sigma, rho_c)
+
+
 # ------------------------------------------------- the unified engine ----
 @dataclasses.dataclass(frozen=True)
 class NodeProxEngine:
     """Squared-loss x-update engine: resolves the ``x_solver`` policy,
-    builds the stacked per-node factors once and solves every iteration."""
+    builds the stacked per-node factors once and solves every iteration.
+    ``dynamic`` takes the spectral factors of the dense and Woodbury
+    backends, so sigma and rho_c may change between solves."""
     kind: str                 # "dense" | "woodbury" | "pcg"
+    dynamic: bool = False
     cg_iters: int = 200
     cg_tol: float = 1e-6
 
     @staticmethod
     def choose(m: int, n: int, *, x_solver: str = "auto",
-               cg_iters: int = 200, cg_tol: float = 1e-6) -> "NodeProxEngine":
+               dynamic: bool = False, cg_iters: int = 200,
+               cg_tol: float = 1e-6) -> "NodeProxEngine":
         """Dense factors while the n x n Gram is cheap, the m x m Woodbury
         dual when samples are the short axis, matrix-free PCG otherwise."""
         if x_solver not in XSOLVERS:
@@ -289,14 +384,16 @@ class NodeProxEngine:
                 kind = "woodbury"
             else:
                 kind = "pcg"
-        return NodeProxEngine(kind, cg_iters, cg_tol)
+        return NodeProxEngine(kind, bool(dynamic), cg_iters, cg_tol)
 
     def setup(self, A, b, sigma: float, rho_c: float):
         """Stacked per-node factors for A (N, m, n), b (N, m)."""
         if self.kind == "dense":
-            return ridge_setup(A, b, sigma, rho_c)
+            return (ridge_setup_eigh(A, b) if self.dynamic
+                    else ridge_setup(A, b, sigma, rho_c))
         if self.kind == "woodbury":
-            return woodbury_setup(A, b, sigma, rho_c)
+            return (woodbury_setup_eigh(A, b) if self.dynamic
+                    else woodbury_setup(A, b, sigma, rho_c))
         return cg_setup(A, b, self.cg_iters, self.cg_tol)
 
     def solve(self, factors, q, rho_c, sigma, x0=None) -> torch.Tensor:
@@ -307,8 +404,12 @@ def x_solve(factors, q, rho_c, sigma, x0=None) -> torch.Tensor:
     """Backend dispatch on the factor type; ``x0`` warm-starts PCG only."""
     if isinstance(factors, RidgeFactors):
         return ridge_prox_factorized(factors, q, rho_c)
+    if isinstance(factors, EighRidgeFactors):
+        return ridge_prox_eigh(factors, q, rho_c, sigma)
     if isinstance(factors, WoodburyFactors):
         return woodbury_prox(factors, q, rho_c)
+    if isinstance(factors, WoodburyEighFactors):
+        return woodbury_prox_eigh(factors, q, rho_c, sigma)
     if isinstance(factors, CGFactors):
         return pcg_prox(factors, q, rho_c, sigma, x0)
     raise TypeError(f"unknown x-update factor type {type(factors)!r}")

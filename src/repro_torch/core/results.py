@@ -1,6 +1,7 @@
 """Result types of the port's solver (counterpart of
 ``repro.core.results``): :class:`SolveStatus`, the in-loop
-:func:`divergence_probe`, :func:`classify_status` and :class:`FitResult`.
+:func:`divergence_probe`, :func:`classify_status`, :class:`FitResult` and
+the stacked :class:`SparsePath` of a hyperparameter sweep.
 """
 from __future__ import annotations
 
@@ -70,6 +71,11 @@ class FitResult(NamedTuple):
         return self.coef.reshape(-1)
 
     @property
+    def x_sparse(self) -> torch.Tensor:
+        """Flat ``(n*K,)`` view of ``coef`` (the sharded engine's name)."""
+        return self.coef.reshape(-1)
+
+    @property
     def converged(self) -> bool:
         """Whether this solve ended :data:`SolveStatus.CONVERGED`."""
         return int(self.status) == int(SolveStatus.CONVERGED)
@@ -78,3 +84,33 @@ class FitResult(NamedTuple):
     def status_name(self) -> str | None:
         """Name of the status code (``"CONVERGED"`` …), or ``None``."""
         return None if self.status is None else status_name(self.status)
+
+
+class SparsePath(NamedTuple):
+    """Stacked per-grid-point results of a sweep (:mod:`.path`); leading
+    axis = grid index. The grids themselves stay on the host."""
+    coef: torch.Tensor         # (P, n, K) sparse solutions
+    z: torch.Tensor            # (P, n*K) consensus iterates
+    support: torch.Tensor      # (P, n*K) bool
+    iters: torch.Tensor        # (P,) outer iterations spent per point
+    p_r: torch.Tensor          # (P,)
+    d_r: torch.Tensor          # (P,)
+    b_r: torch.Tensor          # (P,)
+    cardinality: torch.Tensor  # (P,) int32 ||coef_p||_0
+    kappas: torch.Tensor       # (P,) host tensors in the data dtype
+    gammas: torch.Tensor       # (P,)
+    rho_cs: torch.Tensor       # (P,)
+    train_loss: Any = None     # (P,) sum-loss on the training data
+    state: Any = None          # solver state after the last point
+    strategy: str | None = None  # "warm-scan" | "cold-scan"
+    status: Any = None         # (P,) int32 SolveStatus codes
+
+    @property
+    def x(self) -> torch.Tensor:
+        """Flat ``(P, n*K)`` view of ``coef``."""
+        return self.coef.reshape(self.coef.shape[0], -1)
+
+    @property
+    def x_sparse(self) -> torch.Tensor:
+        """Flat ``(P, n*K)`` view of ``coef`` (the sharded engine's name)."""
+        return self.coef.reshape(self.coef.shape[0], -1)

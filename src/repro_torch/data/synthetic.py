@@ -95,12 +95,10 @@ def make_sparse_softmax(seed: int, spec: SyntheticSpec):
     return As, bs, x_true
 
 
-def make_graded_regression(seed: int, spec: SyntheticSpec, *,
-                           base: float = 3.0, lo: float = 1.0):
+def _graded(rng, spec, base: float, lo: float):
     """Orthonormal design (QR of a normal matrix) and a planted model with
     linearly graded magnitudes base -> lo: the well-posed family whose
     best-subset support is exactly the top-kappa magnitudes."""
-    rng = np.random.default_rng(seed)
     N, m, n, kappa = (spec.n_nodes, spec.m_per_node, spec.n_features,
                       spec.kappa)
     Q, _ = np.linalg.qr(rng.standard_normal((N * m, n)))
@@ -110,4 +108,24 @@ def make_graded_regression(seed: int, spec: SyntheticSpec, *,
     idx = rng.permutation(n)[:kappa]
     x_true = np.zeros(n, np.float32)
     x_true[idx] = mags * signs
+    return As, x_true
+
+
+def make_graded_regression(seed: int, spec: SyntheticSpec, *,
+                           base: float = 3.0, lo: float = 1.0):
+    """Regression targets on the graded family (:func:`_graded`)."""
+    rng = np.random.default_rng(seed)
+    As, x_true = _graded(rng, spec, base, lo)
     return As, _targets(rng, spec, As, x_true), x_true
+
+
+def make_graded_classification(seed: int, spec: SyntheticSpec, *,
+                               base: float = 3.0, lo: float = 1.0):
+    """{-1, +1} labels, the sign of the graded family's scores (a zero
+    score counts as +1), no label noise. Returns (As, bs float32,
+    x_true (n,))."""
+    rng = np.random.default_rng(seed)
+    As, x_true = _graded(rng, spec, base, lo)
+    scores = As @ x_true
+    bs = np.sign(np.where(scores == 0, 1.0, scores)).astype(np.float32)
+    return As, bs, x_true

@@ -112,36 +112,53 @@ def test_unported_options_raise_capability_error(name):
 
 
 def test_unported_models_and_entry_points_raise_capability_error():
-    """Every model is ported now (each loss resolves); what the models
-    still lack — path, grid and streaming fits, per-solve penalties, the
-    fleet — raises up front, for the classifiers and the feature split
-    too."""
+    """Every model is ported (each loss resolves), and so are the path,
+    the grid and per-solve overrides: they run, for the classifiers and the
+    feature split too (kappa only there: a gamma / rho_c override or grid
+    raises ValueError, as in the JAX package). What the models still lack —
+    streaming fits, the fleet, serving, recovery and the sharded engine —
+    raises CapabilityError up front."""
     for name in ("logistic", "hinge", "smoothed_hinge"):
         assert losses.get_loss(name).name == name
     assert losses.get_loss("softmax", 3).n_classes == 3
-    X, y = np.ones((4, 3), np.float32), np.ones(4, np.float32)
-    for est in (api.SparseLinearRegression(kappa=3, device="cpu"),
-                api.SparseLogisticRegression(kappa=3, device="cpu"),
-                api.SparseSVM(kappa=3, device="cpu", n_feature_blocks=2),
-                api.SparseSoftmaxRegression(kappa=3, n_classes=3,
-                                            device="cpu")):
-        for method in (est.fit_path, est.fit_grid, est.partial_fit):
-            with pytest.raises(api.CapabilityError):
-                method(X, y)
+    X = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    y = np.sign(X[:, 0] + 0.1).astype(np.float32)
+    kw = dict(device="cpu", max_iter=3, zt_iters=4)
+    for est in (api.SparseLinearRegression(kappa=2, **kw),
+                api.SparseLogisticRegression(kappa=2, **kw),
+                api.SparseSVM(kappa=2, n_feature_blocks=2, **kw),
+                api.SparseSoftmaxRegression(kappa=2, n_classes=3, **kw)):
+        yy = (X[:, 0] > 0).astype(np.int64) if est.problem.n_classes > 1 \
+            else y
+        for method in (est.fit_path, est.fit_grid):
+            path = method(X, yy, [2, 1])
+            assert path.coef.shape[0] == 2 and est.n_iter_ == int(
+                path.iters[-1])
+        with pytest.raises(api.CapabilityError):
+            est.partial_fit(X, yy)
     with pytest.raises(api.CapabilityError):
         api.fit_many(api.SparseProblem("logistic", kappa=3), X, y)
-    for fn in (api.solve_path, api.solve_grid, api.fit_many, api.serve,
-               api.stream, api.recover):
+    for fn in (api.fit_many, api.serve, api.stream, api.recover):
         with pytest.raises(api.CapabilityError):
             fn(api.SparseProblem("squared", kappa=3), X, y)
-    for opts in (api.SolverOptions(device="cpu"),
-                 api.SolverOptions(device="cpu", n_feature_blocks=2)):
+    for fn in (api.solve_path, api.solve_grid):
+        path = fn(api.SparseProblem("squared", kappa=2), X, y, [2, 1],
+                  options=api.SolverOptions(**kw), gammas=[1.0, 2.0])
+        assert path.strategy in ("warm-scan", "cold-scan")
+    As, bs = torch.as_tensor(X)[None], torch.as_tensor(y)[None]
+    for split in (False, True):
+        opts = api.SolverOptions(n_feature_blocks=2 if split else 1, **kw)
         adapter = api._ReferenceAdapter(api.SparseProblem("squared",
-                                                          kappa=3), opts)
-        assert not adapter.caps.dynamic_penalties
+                                                          kappa=2), opts)
+        assert adapter.caps.per_solve_overrides
+        assert adapter.caps.dynamic_penalties is not split
+        assert adapter.fit(As, bs, kappa=1).support.sum() <= 1
         for over in (dict(gamma=2.0), dict(rho_c=2.0)):
-            with pytest.raises(api.CapabilityError):
-                adapter.fit(torch.ones(1, 4, 3), torch.ones(1, 4), **over)
+            if split:
+                with pytest.raises(ValueError, match="feature-split"):
+                    adapter.fit(As, bs, **over)
+            else:
+                assert adapter.fit(As, bs, **over).status is not None
     with pytest.raises(api.CapabilityError):
         api.engine_capabilities("sharded")
 
