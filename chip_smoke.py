@@ -32,7 +32,11 @@ Phases, each printing its own line with its wall time:
               2-byte A and torch.matmul on the half-width operands, plus an
               odd-n view one element past 16 bytes; the bf16 / fp16 gram
               (on the FP64 tensor cores) beside its bound at the f64
-              tensor-core rate and the f64 torch.matmul.
+              tensor-core rate and the f64 torch.matmul. The lane
+              projections at the fleet's (10,000, 16) and (2,000, 64)
+              against their plain versions and, lane by lane, against the
+              solo kernel (bit for bit); gram, matvec, rmatvec and
+              normal_matvec at the fleet's (B N, m, n) views.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
               past the one-launch limit, where the bracketing rounds run on
               the one-launch ladder_stats kernel; ladder_stats is held
@@ -58,25 +62,28 @@ Phases, each printing its own line with its wall time:
               loss, the iteration totals and wall times, and each run's
               launches. No point may diverge or leave a non-finite
               iterate, the cardinality stays within kappa, ``fit_grid``
-              (the cold scan, run again: no lane axis yet) equals the cold
-              scan bit for bit, skappa_support launches once per outer
-              iteration and ladder_stats never. No point converges in 60
+              (the points on lanes) keeps each point's status and
+              iterations of the cold scan (how far the unconverged
+              supports and iterates differ is printed; path_converge holds
+              the grid to the band), the scans launch skappa_support once
+              per outer iteration and the grid each lane kernel once a step
+              for all points, and ladder_stats never launches. No point converges in 60
               iterations, so warm and cold spend the same; path_converge
               (phase 8) measures the warm start's saving.
    path_gamma — the woodbury point at kappa = 2,000 (tol 0, as the
               woodbury phase) through ``fit_grid`` over gamma = 1, 3.16,
               10, 31.6 on the spectral Woodbury factors: one gram launch
-              for the set-up (eigh of A A^T), and the gamma = 10 point in
-              the band of the woodbury phase's static fit (same status and
-              support, coef within 1e-3, iterations within 2; at tol 0
-              both run max_iter, so the iteration band holds by
-              construction). Prints the set-up time and ms per outer
-              iteration beside the static fit's, and the largest
-              difference in z before the polish.
+              for the set-up (eigh of A A^T), the points on lanes, and the
+              gamma = 10 point against the woodbury phase's static fit:
+              the same status and iterations (tol 0: both max_iter); how
+              many support entries, and how far coef and z before the
+              polish, differ is printed (the top-kappa support of an
+              unconverged z moves with the products' summation order).
+              Prints the set-up time and ms per outer iteration beside the
+              static fit's.
    path_dense — a 3-point gamma grid at the dense point through the
-              spectral dense factors (ridge_setup_eigh), held to the dense
-              phase's fit at gamma = 10 the same way (the dense polish
-              re-solves on the support, so z before it is printed too).
+              spectral dense factors (ridge_setup_eigh), against the dense
+              phase's fit at gamma = 10 the same way.
 6. fig3     — the paper's Fig. 3 smallest point at full width (N = 8,
               m = 25,000, n = 4,000, kappa = 800) through the feature-split
               sub-solver (M = 4 blocks, 15 inner iterations): the block
@@ -111,17 +118,20 @@ Phases, each printing its own line with its wall time:
               Woodbury, the feature split (squared and logistic), the
               Woodbury fit's data through the PCG x-update, and that data
               in bf16 through Woodbury and in fp16 through PCG and
-              Woodbury.
+              Woodbury. The CPU side of phase 8 (these fits at torch's
+              default thread count, parity_path's at 2 threads) runs in a
+              worker process from the build on, beside phases 3 to 8.
    parity_path — on the Woodbury parity data, card against CPU: a 4-point
               warm kappa path, and a warm 3-point (kappa, gamma, rho_c)
               path through the spectral Woodbury factors and through PCG;
               at every point the same status and support, coef within
-              1e-3, iterations within 2. The CPU side runs in a worker
-              process (2 threads), started when phase 8 starts.
+              1e-3, iterations within 2.
    path_converge — the warm kappa path of parity_path against its cold
               scan on the card (``fit_path(warm_start=False)``): every
               point must converge; prints each run's outer iterations
-              and time, and the share the warm start saves.
+              and time, and the share the warm start saves; then
+              ``fit_grid`` (the points on lanes) with every point in the
+              cold scan's band.
 9. lm       — the dense LM's serving path at full width and depth:
               qwen3-8b (36 layers, 8.19e9 parameters drawn on the card
               from seed 0, 16.4 GB in bf16), 4 prompts of 2,048 tokens
@@ -139,6 +149,27 @@ Phases, each printing its own line with its wall time:
               config, card
               against the port's CPU run; (c) decode after prefill against
               the forward pass on the card, 2 layers at full width in f32.
+11. fleet   — the fleet driver (``api.fit_many``) at
+              benchmarks/fleet_bench.py's settings (kappa 4, gamma 5,
+              rho_c 1, 100 iterations, tol 1e-3; its data, seed 0), run
+              before phases 9 and 10: fleet_sq (B = 10,000, N = 1, m = 32,
+              n = 16, squared), fleet_sq_wide (B = 2,000, m = 128, n = 64)
+              and fleet_sq_wide_het (per-lane kappa 4 / 8 / 12 / 16 and
+              gamma 1 / 5 / 25: the spectral factors), fleet_logistic (that
+              shape, labels sign(A x*), examples/lm_sparse_probe.py's gamma
+              1,000 and tol 1e-3, rho_c 10, cut to 20 iterations: Newton-CG
+              on lanes), fleet_list (64 problems, m in {24, 32, 40}, n 16,
+              through the sequence input, with the corrected train losses),
+              fleet_caps (iter_caps 0 / 3 / 100 / 7 on 1,000 lanes: ABORTED
+              and inert lanes) and fleet_warm (a refit from the returned
+              state). Each stacked part holds 8 lanes spread over the fleet
+              against solo card fits (the same status, support, coef within
+              1e-3, iterations within 2; the count that match to the
+              iteration is printed), checks 121 l1 and 1 S^kappa lane
+              launches an outer iteration, and prints fits per second, the
+              wall time, outer iterations (mean and max), the solo loop
+              extrapolated to B as fleet_bench does, the launches and the
+              peak device memory above the fleet's start.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -213,6 +244,9 @@ REPLACES = {
     "block_matvec": "src/repro/kernels/ops.py:115",
     "block_rmatvec": "src/repro/kernels/ops.py:126",
     "flash_attention": "src/repro/kernels/flash_attention.py:30",
+    # the same loops, vmapped over the fleet's lanes
+    "l1_epigraph_proj_lanes": "src/repro/core/bilinear.py:177",
+    "skappa_support_lanes": "src/repro/core/bilinear.py:409",
 }
 SOURCES = {
     "ladder_stats": "src/repro_torch/csrc/ladder_stats.cu",
@@ -225,6 +259,8 @@ SOURCES = {
     "block_matvec": "src/repro_torch/csrc/block_matvec.cu",
     "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "l1_epigraph_proj_lanes": "src/repro_torch/csrc/ladder_proj.cu",
+    "skappa_support_lanes": "src/repro_torch/csrc/ladder_proj.cu",
 }
 # the bf16 / fp16 instantiations, each a row of the kernels line
 HALF_TYPES = ("bf16", "f16")
@@ -235,6 +271,7 @@ for _name in HALF_KERNELS:
     _base = _name.rsplit("_", 1)[0]
     REPLACES[_name], SOURCES[_name] = REPLACES[_base], SOURCES[_base]
 PROJ_KERNELS = ("l1_epigraph_proj", "skappa_support")
+LANE_KERNELS = ("l1_epigraph_proj_lanes", "skappa_support_lanes")
 MAIN_KERNELS = (*PROJ_KERNELS, "gram", "matvec", "rmatvec", "normal_matvec")
 BLOCK_KERNELS = ("block_matvec", "block_rmatvec")
 # the projections against their plain versions and the f64 sort oracles:
@@ -477,25 +514,35 @@ def parity_path_fits() -> list:
     return fits, As, bs
 
 
-def parity_path_cpu(conn) -> None:
-    """The CPU side of ``parity_path``, run in a worker process while the
-    card works through phase 8: sends ``{report key: path_to_numpy(path)}``
-    (less the last state) down ``conn``, or the exception's text."""
+def parity_cpu(conn) -> None:
+    """The CPU side of phase 8, run in a worker process from the build on
+    while the card works through phases 3 to 8: sends ``{"fits": {report
+    key: the parity fit's coef, support, status and iters as numpy},
+    "paths": {report key: path_to_numpy(path)}}`` (less the last state)
+    down ``conn``, or the exception's text. The parity fits run at torch's
+    default thread count, the main process's (the CPU's GEMMs partition
+    their sums by thread, and the reduced-precision fits' stopping
+    iteration follows: at 2 threads the fp16 Woodbury fit read 123 against
+    the card's 120), the paths at 2 threads."""
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
         import torch
-        torch.set_num_threads(2)
         from repro_torch import api
         from repro_torch.convert import path_to_numpy
+        out = {"fits": {}, "paths": {}}
+        for key, _, cls, kw, As_p, bs_p in parity_fits():
+            res = cls(device="cpu", **kw).fit(As_p, bs_p).result_
+            out["fits"][key] = {f: getattr(res, f).numpy() for f in
+                                ("coef", "support", "status", "iters")}
+        torch.set_num_threads(2)
         fits, As, bs = parity_path_fits()
-        out = {}
         for key, _, kw, method, grid in fits:
             extra = {k: v for k, v in grid.items() if k != "kappas"}
             t0 = time.perf_counter()
             p = getattr(api.SparseLinearRegression(device="cpu", **kw),
                         method)(As, bs, grid["kappas"], **extra)
-            out[key] = dict(path_to_numpy(p._replace(state=None)),
-                            seconds=time.perf_counter() - t0)
+            out["paths"][key] = dict(path_to_numpy(p._replace(state=None)),
+                                     seconds=time.perf_counter() - t0)
         conn.send(out)
     except Exception as e:          # noqa: BLE001 -- reported by the parent
         conn.send(f"{type(e).__name__}: {e}")
@@ -565,13 +612,66 @@ def check_band(torch, name, got, want, what) -> dict:
             "z_max_abs_diff": float((got.z.cpu() - want.z.cpu()).abs().max())}
 
 
+# unconverged_diffs' bound on z before the polish, relative to max |z| of
+# the reference: on an H100 80GB HBM3 at 700 W the lane grids read at most
+# 3.6e-5 against the cold scan (path, max |z| 3.0), 1.8e-5 / 9.2e-6
+# against the static fits (path_gamma / path_dense, max |z| 3.0 / 2.7); a
+# wrong per-lane sigma, rho_c or kappa moves z by far more in 60
+# iterations
+Z_RTOL = 1e-3
+
+
+def unconverged_diffs(torch, name, got, want, what, kappa) -> dict:
+    """One point of a grid against a reference where neither converges:
+    the same status and iterations, z before the polish within Z_RTOL x
+    max |z| of the reference's, and supports (the top-kappa nonzeros of an
+    unconverged z) that differ only at near-ties: where the reference's |z|
+    lies within that bound of its kappa-th largest |z| (0 where z has fewer
+    nonzeros). Returns the differences."""
+    require(int(got.status) == int(want.status)
+            and int(got.iters) == int(want.iters),
+            f"{name}: status / iterations differ from {what}'s")
+    z_ref, z_got = want.z.cpu().reshape(-1), got.z.cpu().reshape(-1)
+    az = z_ref.abs()
+    z_max = float(az.max())
+    limit = Z_RTOL * z_max
+    z_err = float((z_got - z_ref).abs().max())
+    require(z_err <= limit, f"{name}: z before the polish differs from "
+                            f"{what}'s by {z_err:.3e} (limit {limit:.3e})")
+    k = min(az.numel(), max(0, math.ceil(kappa)))
+    thr = (0.0 if k in (0, az.numel()) else
+           float(torch.sort(az, descending=True).values[k - 1]))
+    flips = (got.support.cpu() != want.support.cpu()).reshape(-1)
+    tie = float((az[flips] - thr).abs().max()) if bool(flips.any()) else 0.0
+    require(tie <= limit, f"{name}: the support differs from {what}'s at "
+                          f"an entry {tie:.3e} from the threshold {thr:.3e} "
+                          f"(limit {limit:.3e})")
+    return {"iters": int(got.iters), "iters_ref": int(want.iters),
+            "support_differs_in": int(flips.sum()),
+            "flip_distance_from_threshold": tie,
+            "coef_max_abs_diff": float((got.coef.cpu()
+                                        - want.coef.cpu()).abs().max()),
+            "z_max_abs_diff": z_err, "z_max_abs": z_max,
+            "z_limit": limit}
+
+
 def parity_phases(torch, api, ops, report, cpu_recv, cpu_proc) -> None:
-    """Phase 8: the parity fits (card against the port's CPU fit), the
-    path parity (card against the CPU side ``parity_path_cpu`` computes in
-    ``cpu_proc``, read from ``cpu_recv``), and ``path_converge``: the warm
-    kappa path of that data against its cold scan on the card, where every
-    point converges."""
+    """Phase 8: the parity fits and the path parity, card against the
+    port's CPU side (``parity_cpu``, computed in ``cpu_proc``, read from
+    ``cpu_recv``), and ``path_converge``: the warm kappa path of that data
+    against its cold scan on the card, where every point converges."""
+    from types import SimpleNamespace
+
     from repro_torch.core.results import SolveStatus, SparsePath
+    t0 = time.perf_counter()
+    require(cpu_recv.poll(1200), "parity: the CPU worker sent nothing in "
+                                 "1,200 s")
+    cpu = cpu_recv.recv()
+    cpu_proc.join(60)
+    require(isinstance(cpu, dict),
+            f"parity: the CPU worker failed: {cpu}")
+    print(f"  parity: waited {time.perf_counter() - t0:.2f} s for the CPU "
+          "worker", flush=True)
     for key, what, cls, kw, As_p, bs_p in parity_fits():
         t0 = time.perf_counter()
         ops.reset_launch_counts()
@@ -579,7 +679,8 @@ def parity_phases(torch, api, ops, report, cpu_recv, cpu_proc) -> None:
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
         parity_types = ops.launch_counts_by_type()
-        on_cpu = cls(device="cpu", **kw).fit(As_p, bs_p).result_
+        on_cpu = SimpleNamespace(**{f: torch.as_tensor(v)
+                                    for f, v in cpu["fits"][key].items()})
         require(int(on_card.status) == int(on_cpu.status),
                 f"{key}: status {int(on_card.status)} on the card, "
                 f"{int(on_cpu.status)} on the CPU")
@@ -616,15 +717,7 @@ def parity_phases(torch, api, ops, report, cpu_recv, cpu_proc) -> None:
         on_cards[key] = on_card
         check_path(torch, key, on_card, kappas_pp)
         report[key] = {"card_s": t_card, "strategy": on_card.strategy}
-    t0 = time.perf_counter()
-    require(cpu_recv.poll(900), "parity_path: the CPU worker sent nothing "
-                                "in 900 s")
-    cpu_paths = cpu_recv.recv()
-    cpu_proc.join(60)
-    require(isinstance(cpu_paths, dict),
-            f"parity_path: the CPU worker failed: {cpu_paths}")
-    print(f"  parity_path: waited {time.perf_counter() - t0:.2f} s for the "
-          "CPU worker", flush=True)
+    cpu_paths = cpu["paths"]
     for key, what, kw, method, grid in path_fits:
         t0 = time.perf_counter()
         got = cpu_paths[key]
@@ -655,6 +748,31 @@ def parity_phases(torch, api, ops, report, cpu_recv, cpu_proc) -> None:
         As_pp, bs_pp, kappas_pp, warm_start=False)
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
+    # the same points on lanes (fit_grid), held to the cold scan's band
+    t_g = time.perf_counter()
+    grid = api.SparseLinearRegression(**kw).fit_grid(As_pp, bs_pp,
+                                                     kappas_pp)
+    torch.cuda.synchronize()
+    t_grid = time.perf_counter() - t_g
+    require(grid.strategy == "vmap", f"path_converge: the grid ran as "
+                                     f"{grid.strategy}")
+    grid_bands = [check_band(torch, f"path_converge grid point {i}",
+                             path_point(grid, i), path_point(cold, i),
+                             "the cold scan")
+                  for i in range(len(kappas_pp))]
+    # a (kappa, gamma, rho_c) grid on the spectral Woodbury factors, on
+    # lanes, against its cold scan: every point in the band
+    _, _, kw_s, _, grid_s = path_fits[1]
+    pen = {k: v for k, v in grid_s.items() if k != "kappas"}
+    cold_s = api.SparseLinearRegression(**kw_s).fit_path(
+        As_pp, bs_pp, grid_s["kappas"], warm_start=False, **pen)
+    lanes_s = api.SparseLinearRegression(**kw_s).fit_grid(
+        As_pp, bs_pp, grid_s["kappas"], **pen)
+    torch.cuda.synchronize()
+    grid_bands += [check_band(torch, f"path_converge spectral grid point "
+                                     f"{i}", path_point(lanes_s, i),
+                              path_point(cold_s, i), "the cold scan")
+                   for i in range(len(grid_s["kappas"]))]
     runs = {"warm": check_path(torch, "path_converge warm", warm, kappas_pp),
             "cold": check_path(torch, "path_converge cold", cold, kappas_pp)}
     for run, points in runs.items():
@@ -666,14 +784,313 @@ def parity_phases(torch, api, ops, report, cpu_recv, cpu_proc) -> None:
     report["path_converge"] = {
         "kappas": kappas_pp, "warm": runs["warm"], "cold": runs["cold"],
         "iters": totals, "warm_s": report[key]["card_s"], "cold_s": t_cold,
-        "iters_saved": 1 - totals["warm"] / totals["cold"]}
+        "iters_saved": 1 - totals["warm"] / totals["cold"],
+        "grid_s": t_grid, "grid_vs_cold": grid_bands}
     phase("path_converge", t0,
           f"kappa path {kappas_pp}, woodbury, on the parity data, every "
           f"point CONVERGED: warm {totals['warm']} outer iterations in "
           f"{report[key]['card_s']:.2f} s, cold {totals['cold']} in "
           f"{t_cold:.2f} s ({report['path_converge']['iters_saved']:.1%} "
-          "fewer warm); warm: " + points_text(runs["warm"]) + "; cold: "
+          "fewer warm); grid (the points on lanes) in "
+          f"{t_grid:.2f} s and the spectral (kappa, gamma, rho_c) grid of "
+          "parity_path on lanes, every point in its cold scan's band "
+          "(iterations " + ", ".join(f"{b['iters']}/{b['iters_ref']}"
+                                     for b in grid_bands)
+          + "); warm: " + points_text(runs["warm"]) + "; cold: "
           + points_text(runs["cold"]))
+
+
+# benchmarks/fleet_bench.py's config and rows (B, N, m, n, loop sample)
+FLEET_CFG = dict(kappa=4, gamma=5.0, rho_c=1.0, max_iter=100, tol=1e-3)
+FLEET_ROWS = {"fleet_sq": (10_000, 1, 32, 16), "fleet_sq_wide": (2_000, 1,
+                                                                 128, 64)}
+# examples/lm_sparse_probe.py's probe fit: gamma 1,000, tol 1e-3; rho_c 10,
+# not 1: at rho_c 1 the iterates on sign(A x*) labels grow without bound
+# (z ~ 30-50, p_r ~ 77 after 200 iterations) and a 1e-7 relative change of
+# A changes the support, so no fit determines the support a lane could be
+# held to. Depth cut from the probe's 200 iterations to 20: a Newton-CG
+# outer iteration is ~250 host-paced CG steps (~0.25 s solo, ~0.44 s for
+# the fleet), so 8 solo fits of 200 took 407 s of a run (PERF.md section 6)
+PROBE_CFG = dict(kappa=4, gamma=1000.0, rho_c=10.0, max_iter=20, tol=1e-3)
+FLEET_SAMPLE = 8        # lanes held against solo fits, spread over B
+
+
+def fleet_data(B, N, m, n, seed=0, labels=False):
+    """benchmarks/fleet_bench.py's ``_fleet_data`` as numpy (seed 0): A
+    standard normal, x* with ~30 % nonzeros, b = A x* + 0.01 noise; with
+    ``labels`` b = sign(A x*) instead (the logistic probes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    As = rng.standard_normal((B, N, m, n)).astype(np.float32)
+    xs = rng.standard_normal((B, n)) * (rng.random((B, n)) < 0.3)
+    bs = np.einsum("bnmf,bf->bnm", As, xs).astype(np.float32)
+    if labels:
+        return As, np.where(bs >= 0, 1.0, -1.0).astype(np.float32)
+    bs += 0.01 * rng.standard_normal((B, N, m)).astype(np.float32)
+    return As, bs
+
+
+def fleet_phases(torch, api, ops, report, dev) -> dict:
+    """Phase 11: the fleet driver (module docstring). Returns the launch
+    counts of the fleet_sq run."""
+    import numpy as np
+    from repro_torch.core import BiCADMM, BiCADMMConfig
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.core.results import SolveStatus
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def solo_fit(solver, A, b, kappa, gamma):
+        over = {}
+        if kappa is not None:
+            over["kappa"] = kappa
+        if gamma is not None:
+            over["gamma"] = torch.tensor(gamma, dtype=torch.float32)
+        if not over:
+            return solver.fit(A, b)
+        return solver.run_from(A, b, solver.init_state(A, b), **over)
+
+    def run_part(name, loss, cfg, As_np, bs_np, kappas=None, gammas=None,
+                 cut=""):
+        """Fit the stacked fleet through api.fit_many with the launch
+        counts set to 0 just before and read just after; hold FLEET_SAMPLE
+        lanes against solo fits of their problems on the card."""
+        t_ph = time.perf_counter()
+        B, N, m, n = As_np.shape
+        As = torch.as_tensor(As_np, device=dev)
+        bs = torch.as_tensor(bs_np, device=dev)
+        problem = api.SparseProblem(loss, kappa=cfg["kappa"],
+                                    gamma=cfg["gamma"], rho_c=cfg["rho_c"])
+        opts = api.SolverOptions(device=dev, max_iter=cfg["max_iter"],
+                                 tol=cfg["tol"])
+        sync()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t_fit = time.perf_counter()
+        res = api.fit_many(problem, As, bs, kappas=kappas, gammas=gammas,
+                           options=opts)
+        sync()
+        wall = time.perf_counter() - t_fit
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - mem0
+                if dev.type == "cuda" else 0)
+        iters = res.iters.cpu().numpy()
+        trips = int(iters.max())
+        require(bool(torch.isfinite(res.z).all())
+                and bool(torch.isfinite(res.coef).all()),
+                f"{name}: non-finite iterates")
+        statuses = res.status.cpu().numpy()
+        require(not (statuses == int(SolveStatus.DIVERGED)).any(),
+                f"{name}: a lane DIVERGED")
+        # the projections: one launch an outer iteration for every lane
+        require(counts["l1_epigraph_proj_lanes"] == 121 * trips
+                and counts["skappa_support_lanes"] == trips,
+                f"{name}: {counts['l1_epigraph_proj_lanes']} l1 and "
+                f"{counts['skappa_support_lanes']} S^kappa lane launches in "
+                f"{trips} outer iterations (expected 121 and 1 each)")
+        require(not any(counts[k] for k in PROJ_KERNELS),
+                f"{name}: a solo projection launched: {counts}")
+        needed = ("rmatvec", "matvec") + (("gram",) if loss == "squared"
+                                          else ())
+        for k_name in needed:
+            require(counts[k_name] > 0, f"{name}: kernel {k_name} was not "
+                                        "launched")
+        # FLEET_SAMPLE lanes against solo fits of their problems
+        solver = BiCADMM(loss, BiCADMMConfig(**cfg))
+        sample = np.linspace(0, B - 1, FLEET_SAMPLE).astype(int)
+        sync()
+        t_solo = time.perf_counter()
+        solos = [solo_fit(solver, As[i], bs[i],
+                          None if kappas is None else int(kappas[i]),
+                          None if gammas is None else float(gammas[i]))
+                 for i in sample]
+        sync()
+        solo_s = time.perf_counter() - t_solo
+        exact = 0
+        for i, solo in zip(sample, solos):
+            lane = res[int(i)]
+            require(int(lane.status) == int(solo.status),
+                    f"{name} lane {i}: status {int(lane.status)} against "
+                    f"the solo fit's {int(solo.status)}")
+            require(torch.equal(lane.support.cpu(), solo.support.cpu()),
+                    f"{name} lane {i}: the support differs from the solo "
+                    "fit's")
+            err = float((lane.coef - solo.coef).abs().max())
+            require(err <= 1e-3, f"{name} lane {i}: coef differs from the "
+                                 f"solo fit's by {err}")
+            di = abs(int(lane.iters) - int(solo.iters))
+            require(di <= 2, f"{name} lane {i}: {int(lane.iters)} "
+                             f"iterations against the solo fit's "
+                             f"{int(solo.iters)}")
+            exact += di == 0
+        per_fit = solo_s / len(sample)
+        out = {"B": B, "N": N, "m": m, "n": n, "loss": loss,
+               "fleet_s": wall, "fits_per_s": B / wall,
+               "outer_iters_mean": float(iters.mean()),
+               "outer_iters_max": trips,
+               "ms_per_outer_iter": wall / max(trips, 1) * 1e3,
+               "solo_sample": len(sample), "solo_s": solo_s,
+               "solo_per_fit_s": per_fit,
+               "solo_loop_s_extrapolated": per_fit * B,
+               "speedup_vs_solo_loop": per_fit * B / wall,
+               "lanes_matching_solo_iterations": exact,
+               "statuses": {SolveStatus(c).name: int((statuses == c).sum())
+                            for c in np.unique(statuses)},
+               "launches": counts, "peak_bytes_above_start": peak}
+        report[name] = out
+        phase(name, t_ph, f"B={B} N={N} m={m} n={n} {loss}{cut}: "
+                          f"{wall:.3f} s, {B / wall:.1f} fits/s, outer "
+                          f"iterations mean {iters.mean():.2f} max {trips} "
+                          f"({wall / max(trips, 1) * 1e3:.2f} ms each), "
+                          f"statuses {out['statuses']}; solo loop "
+                          f"{per_fit * 1e3:.1f} ms a fit on {len(sample)} "
+                          f"lanes, {per_fit * B:.1f} s extrapolated to B "
+                          f"({per_fit * B / wall:.1f}x the fleet); "
+                          f"{exact}/{len(sample)} sampled lanes match their "
+                          f"solo fit to the iteration (all within 2, same "
+                          f"status and support, coef within 1e-3); launches "
+                          f"{ {k: v for k, v in counts.items() if v} }; "
+                          f"peak device memory above the start "
+                          f"{peak / 1e9:.3f} GB")
+        return res, As, bs
+
+    # fleet_sq: fleet_bench's default first row, stacked input
+    B, N, m, n = FLEET_ROWS["fleet_sq"]
+    As_np, bs_np = fleet_data(B, N, m, n)
+    res_sq, As_sq, bs_sq = run_part("fleet_sq", "squared", FLEET_CFG, As_np,
+                                    bs_np)
+    sq_counts = report["fleet_sq"]["launches"]
+
+    # fleet_sq_wide: its second row, then per-lane kappa and gamma cycling
+    # (the spectral factors)
+    B, N, m, n = FLEET_ROWS["fleet_sq_wide"]
+    Aw_np, bw_np = fleet_data(B, N, m, n)
+    run_part("fleet_sq_wide", "squared", FLEET_CFG, Aw_np, bw_np)
+    kappas = np.resize(np.array([4, 8, 12, 16]), B)
+    gammas = np.resize(np.array([1.0, 5.0, 25.0], np.float32), B)
+    res_het, _, _ = run_part("fleet_sq_wide_het", "squared", FLEET_CFG,
+                             Aw_np, bw_np, kappas=kappas, gammas=gammas,
+                             cut=" (kappa 4/8/12/16 and gamma 1/5/25 "
+                                 "cycling: spectral factors)")
+    require(bool((res_het.cardinality.cpu()
+                  <= torch.as_tensor(kappas)).all()),
+            "fleet_sq_wide_het: a lane's cardinality exceeds its kappa")
+
+    # fleet_logistic: the wide shape, labels sign(A x*), the probe's config
+    Al_np, bl_np = fleet_data(B, N, m, n, labels=True)
+    run_part("fleet_logistic", "logistic", PROBE_CFG, Al_np, bl_np)
+
+    # a bucketed list: 64 problems, m in {24, 32, 40} at n = 16, through
+    # fit_many's sequence input; the bucket's corrected train losses
+    t_ph = time.perf_counter()
+    ms = [24, 32, 40] * 21 + [24]
+    problems = []
+    for i, mi in enumerate(ms):
+        A_i, b_i = fleet_data(1, 1, mi, 16, seed=100 + i)
+        problems.append((A_i[0], b_i[0]))
+    problem = api.SparseProblem("squared", kappa=FLEET_CFG["kappa"],
+                                gamma=FLEET_CFG["gamma"])
+    opts = api.SolverOptions(device=dev, max_iter=FLEET_CFG["max_iter"],
+                             tol=FLEET_CFG["tol"])
+    ops.reset_launch_counts()
+    listed = api.fit_many(problem, [p[0] for p in problems],
+                          [p[1] for p in problems], options=opts)
+    sync()
+    wall = time.perf_counter() - t_ph
+    list_counts = ops.launch_counts()
+    buckets = fleet_mod.bucket_problems(
+        [(torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev))
+         for X, y in problems])
+    require(len(buckets) == 1 and buckets[0].signature == (1, 40, 16),
+            f"fleet_list: buckets {[b.signature for b in buckets]}")
+    solver = BiCADMM("squared", BiCADMMConfig(**FLEET_CFG))
+    sub = fleet_mod.fit_many_stacked(solver, buckets[0].As, buckets[0].bs)
+    corrected = fleet_mod.corrected_train_losses(solver, sub, buckets[0])
+    worst = 0.0
+    for j, (X, y) in enumerate(problems):
+        require(torch.equal(listed[j].coef, sub.coef[j])
+                and int(listed[j].iters) == int(sub.iters[j]),
+                f"fleet_list: problem {j} differs from its bucket's lane")
+        pred = torch.as_tensor(X.reshape(-1, 16), device=dev) @ sub.coef[j]
+        true = float(0.5 * ((pred[:, 0] - torch.as_tensor(
+            y.reshape(-1), device=dev)) ** 2).sum())
+        worst = max(worst, abs(float(corrected[j]) - true)
+                    / max(abs(true), 1e-6))
+    require(worst <= 1e-4, f"fleet_list: corrected train loss off the true "
+                           f"loss by {worst:.2e} relative")
+    report["fleet_list"] = {"problems": len(problems), "fit_s": wall,
+                            "launches": list_counts,
+                            "corrected_loss_max_rel_err": worst}
+    phase("fleet_list", t_ph, f"{len(problems)} problems, m in {{24, 32, "
+                              f"40}}, n 16, through fit_many's sequence "
+                              f"input: one bucket (1, 40, 16), {wall:.3f} "
+                              f"s; each equals its bucket lane; corrected "
+                              f"train losses within {worst:.2e} of the "
+                              "unpadded losses")
+
+    # iter_caps: cap 0 on some lanes, caps below max_iter on others
+    t_ph = time.perf_counter()
+    Bc = min(1_000, As_sq.shape[0])
+    caps = np.resize(np.array([0, 3, FLEET_CFG["max_iter"], 7]), Bc)
+    capped = api.fit_many(problem, As_sq[:Bc], bs_sq[:Bc], iter_caps=caps,
+                          options=opts)
+    sync()
+    it = capped.iters.cpu().numpy()
+    st = capped.status.cpu().numpy()
+    zero = caps == 0
+    require((it[zero] == 0).all() and bool(
+        (capped.state.k[torch.as_tensor(zero, device=dev)] == 0).all()),
+            "fleet_caps: a cap-0 lane stepped")
+    low = (caps > 0) & (caps < FLEET_CFG["max_iter"])
+    require((it[low] <= caps[low]).all(), "fleet_caps: a lane ran past its "
+                                          "cap")
+    stopped = low & (it == caps) & (st != int(SolveStatus.CONVERGED))
+    require((st[zero] == int(SolveStatus.ABORTED)).all()
+            and (st[stopped] == int(SolveStatus.ABORTED)).all(),
+            "fleet_caps: a capped lane is not ABORTED")
+    full = caps == FLEET_CFG["max_iter"]
+    require(not (st[full] == int(SolveStatus.ABORTED)).any(),
+            "fleet_caps: an uncapped lane is ABORTED")
+    report["fleet_caps"] = {"lanes": Bc, "cap_zero": int(zero.sum()),
+                            "aborted": int((st == int(
+                                SolveStatus.ABORTED)).sum()),
+                            "fit_s": time.perf_counter() - t_ph}
+    phase("fleet_caps", t_ph, f"{Bc} lanes of fleet_sq, caps 0 / 3 / "
+                              f"{FLEET_CFG['max_iter']} / 7 cycling: cap-0 "
+                              f"lanes keep k = 0, "
+                              f"{report['fleet_caps']['aborted']} lanes "
+                              "ABORTED (every cap-0 lane and every lane its "
+                              "cap stopped), none of the uncapped")
+
+    # a warm refit from the returned state
+    t_ph = time.perf_counter()
+    ops.reset_launch_counts()
+    warm = api.fit_many(problem, As_sq, bs_sq, states=res_sq.state,
+                        options=opts)
+    sync()
+    wall = time.perf_counter() - t_ph
+    w_it = warm.iters.cpu().numpy()
+    conv = res_sq.status.cpu().numpy() == int(SolveStatus.CONVERGED)
+    require((warm.status.cpu().numpy()[conv]
+             == int(SolveStatus.CONVERGED)).all(),
+            "fleet_warm: a converged lane did not stay converged")
+    report["fleet_warm"] = {"fit_s": wall,
+                            "outer_iters_max": int(w_it.max()),
+                            "outer_iters_mean": float(w_it.mean()),
+                            "cold_outer_iters_max":
+                                report["fleet_sq"]["outer_iters_max"],
+                            "launches": ops.launch_counts()}
+    phase("fleet_warm", t_ph, f"fleet_sq refit from its state: outer "
+                              f"iterations mean {w_it.mean():.2f} max "
+                              f"{w_it.max()} (cold: max "
+                              f"{report['fleet_sq']['outer_iters_max']}), "
+                              f"{wall:.3f} s; converged lanes stay "
+                              "converged")
+    return sq_counts
 
 
 def lm_phase(torch, dev, report) -> dict:
@@ -1037,6 +1454,21 @@ def main() -> int:
                                "normal_matvec", PTXAS_NORMAL)):
         print("  " + line, flush=True)
 
+    # the CPU side of phase 8 (the parity fits' and paths' CPU fits) runs in
+    # a worker process from here on, beside the card's phases 3 to 8
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    cpu_recv, cpu_send = ctx.Pipe(duplex=False)
+    cpu_proc = ctx.Process(target=parity_cpu, args=(cpu_send,), daemon=True)
+    cpu_proc.start()
+    cpu_send.close()
+
+    def stop_worker():
+        if cpu_proc.is_alive():
+            cpu_proc.terminate()
+        cpu_proc.join()
+        cpu_recv.close()
+
     # data of the two Fig. 2 points and the Fig. 3 point (numpy, seed 0) --
     t0 = time.perf_counter()
     wide = SyntheticSpec(8, 800, 10_000, sparsity_level=0.8)
@@ -1190,6 +1622,84 @@ def main() -> int:
                                     for r in (0, 1, 2))
             for kind in ("l1", "skappa")) + " ms at 0 / 1 / 2 rounds",
             flush=True)
+    # the lane projections at the fleet phase's shapes (fleet_sq's
+    # (10,000, 16), fleet_sq_wide's (2,000, 64) with kappa 4 / 8 / 12 / 16
+    # cycling) against their plain versions (s* and the step counts equal,
+    # z, t and u_max within the solo projections' tolerance) and, lane by
+    # lane, against the solo kernel (bit for bit). The bound counts each
+    # lane's thresholds as the solo rows do; bytes: z and t0 / kappa read,
+    # the outputs written.
+    lane_stats = {}
+    for (Bl, dl), kap_cycle in (((10_000, 16), (4,)),
+                                ((2_000, 64), (4, 8, 12, 16))):
+        zl = (torch.randn(Bl, dl, device=dev, generator=g)
+              * torch.rand(Bl, 1, device=dev, generator=g))
+        zl[::5, :3] = 0.0                       # zeros and a tie cluster
+        zl[1::5, 2:6] = zl[1::5, 2:3]
+        scale = float(zl.abs().max())
+        ptol = (PROJ_RTOL, PROJ_ATOL_PER_MAX * scale)
+        tl = (torch.rand(Bl, device=dev, generator=g) - 0.3) * zl.abs().sum(1)
+        kl = torch.as_tensor(kap_cycle, dtype=torch.float32,
+                             device=dev).repeat(Bl // len(kap_cycle))
+        got = bisect_proj.l1_epigraph_proj_lanes(zl, tl, stats=True)
+        want = ref.l1_epigraph_proj_lanes_ref(zl, tl, stats=True)
+        require(torch.equal(got[3], want[3]),
+                f"l1_epigraph_proj_lanes ({Bl}, {dl}): polish steps differ "
+                "from the plain version's")
+        for what, g_, w_ in (("t", got[1], want[1]),
+                             ("theta", got[2], want[2])):
+            check_close(torch, f"l1_epigraph_proj_lanes ({Bl}, {dl}) {what}",
+                        g_, w_, None, rtol=ptol[0], atol=ptol[1])
+        gs = bisect_proj.skappa_support_lanes(zl, kl, stats=True)
+        ws = ref.skappa_support_lanes_ref(zl, kl, stats=True)
+        require(torch.equal(gs[1], ws[1]) and torch.equal(gs[2], ws[2]),
+                f"skappa_support_lanes ({Bl}, {dl}): s* or the search steps "
+                "differ from the plain version's")
+        check_close(torch, f"skappa_support_lanes ({Bl}, {dl}) u_max", gs[0],
+                    ws[0], None, rtol=ptol[0], atol=ptol[1])
+        solo = [torch.empty_like(x) for x in (*got, *gs)]
+        for i in range(Bl):
+            z_i, t_i, th_i, k_i = bisect_proj.l1_epigraph_proj(
+                zl[i], tl[i], stats=True)
+            u_i, s_i, ks_i = bisect_proj.skappa_support(
+                zl[i], float(kap_cycle[i % len(kap_cycle)]), stats=True)
+            for dst, v in zip(solo, (z_i, t_i, th_i, k_i, u_i, s_i, ks_i)):
+                dst[i] = v
+        require(all(torch.equal(a, b) for a, b in zip(solo, (*got, *gs))),
+                f"lane projections ({Bl}, {dl}): a lane differs from the "
+                "solo kernel's output on its row")
+        rounds = runtime.ladder_rounds("cuda")
+        need = got[3] > 0
+        l1_terms = int((1 + need.long() * rounds * bisect_proj.RUNGS
+                        + got[3].long()).sum()) * dl
+        search = gs[2] > 0
+        sk_terms = int((2 + search.long() * rounds * bisect_proj.RUNGS
+                        + 4 * gs[2].long()).sum()) * dl
+        lane_stats[f"({Bl}, {dl})"] = {
+            "polish_steps_mean": float(got[3].float().mean()),
+            "search_steps_mean": float(gs[2].float().mean()),
+            "layout": bisect_proj.lane_plan(dl)._asdict()}
+        kernel_row("l1_epigraph_proj_lanes",
+                   f"l1_epigraph_proj_lanes ({Bl}, {dl}), "
+                   f"{bisect_proj.lane_plan(dl)}",
+                   lambda zl=zl, tl=tl: bisect_proj.l1_epigraph_proj_lanes(
+                       zl, tl),
+                   lambda zl=zl, tl=tl: ref.l1_epigraph_proj_lanes_ref(zl,
+                                                                       tl),
+                   None, (got[0], want[0], None), 8 * Bl * dl + 8 * Bl,
+                   2 * l1_terms, tol=ptol, plain_eager=True)
+        kernel_row("skappa_support_lanes",
+                   f"skappa_support_lanes ({Bl}, {dl}) kappa "
+                   f"{'/'.join(map(str, kap_cycle))}",
+                   lambda zl=zl, kl=kl: bisect_proj.skappa_support_lanes(
+                       zl, kl),
+                   lambda zl=zl, kl=kl: ref.skappa_support_lanes_ref(zl, kl),
+                   None, (gs[0], ws[0], None), 8 * Bl * dl + 8 * Bl,
+                   2 * sk_terms, tol=ptol, plain_eager=True)
+        print(f"  lane projections ({Bl}, {dl}): every lane equals the solo "
+              "kernel on its row bit for bit", flush=True)
+        del zl, got, want, gs, ws, solo
+    report["lane_projections"] = lane_stats
     empty = {"ms": graph_ms(torch, lambda: bisect_proj.launch_empty(A)),
              "call_ms": cuda_ms(torch, lambda: bisect_proj.launch_empty(A))}
     print(f"  empty kernel: {empty['ms']:.4f} ms in a CUDA graph, "
@@ -1310,6 +1820,45 @@ def main() -> int:
         del got, want
     report["normal_matvec_plans"] = plans
     torch.cuda.empty_cache()
+
+    # the node products at the fleet phase's (B N, m, n) views, far narrower
+    # than any shape above: fleet_sq's (10,000, 32, 16) and fleet_sq_wide's
+    # (2,000, 128, 64) -- the dense set-up's and polish's gram, A^T b and the
+    # training loss's matvec, Newton-CG's matvec / rmatvec, normal_matvec
+    for Bf, mf, nf in ((10_000, 32, 16), (2_000, 128, 64)):
+        Af = torch.randn(Bf, mf, nf, device=dev, generator=g)
+        xf = torch.randn(Bf, nf, device=dev, generator=g)
+        yf = torch.randn(Bf, mf, device=dev, generator=g)
+        label = f"({Bf}, {mf}, {nf}) fleet view"
+        scale = float(ref.gram_ref(Af.abs()).max())
+        kernel_row("gram", f"gram A^T A {label}", lambda Af=Af: gram.gram(Af),
+                   lambda Af=Af: ref.gram_ref(Af),
+                   lambda Af=Af: torch.matmul(Af.mT, Af),
+                   (gram.gram(Af), ref.gram_ref(Af), scale),
+                   4 * Af.numel() + 4 * Bf * nf * nf, Bf * nf * (nf + 1) * mf)
+        for name, fn, plain, lib, v, mags in (
+                ("matvec", matvec.matvec, ref.matvec_ref,
+                 lambda Af=Af, xf=xf: torch.matmul(Af, xf[..., None]), xf,
+                 (Af.abs() @ xf.abs()[..., None]).max()),
+                ("rmatvec", matvec.rmatvec, ref.rmatvec_ref,
+                 lambda Af=Af, yf=yf: torch.matmul(Af.mT, yf[..., None]), yf,
+                 (Af.abs().mT @ yf.abs()[..., None]).max())):
+            kernel_row(name, f"{name} {label}",
+                       lambda fn=fn, Af=Af, v=v: fn(Af, v),
+                       lambda plain=plain, Af=Af, v=v: plain(Af, v), lib,
+                       (fn(Af, v), plain(Af, v), float(mags)),
+                       4 * (Af.numel() + Bf * (mf + nf)),
+                       2 * Af.numel())
+        got = matvec.normal_matvec(Af, xf, 1.25)
+        want = ref.normal_matvec_ref(Af, xf, 1.25)
+        mags = (Af.abs().mT @ (Af.abs() @ xf.abs()[..., None]))[..., 0]
+        kernel_row("normal_matvec", f"normal_matvec {label} scalar shift",
+                   lambda Af=Af, xf=xf: matvec.normal_matvec(Af, xf, 1.25),
+                   lambda Af=Af, xf=xf: ref.normal_matvec_ref(Af, xf, 1.25),
+                   None, (got, want, float((mags + 1.25 * xf.abs()).max())),
+                   4 * (Af.numel() + 2 * xf.numel()),
+                   4 * Af.numel() + 2 * xf.numel())
+        del Af, xf, yf, got, want, mags
 
     # the bf16 / fp16 instantiations at the reduced-precision cells' shapes:
     # matvec / rmatvec at the Woodbury prox's (8, 800, 10,000) K = 1 and the
@@ -1802,13 +2351,23 @@ def main() -> int:
         counts = ops.launch_counts()
         points = check_path(torch, f"path {run}", p, kaps)
         iters = sum(pt["iters"] for pt in points)
-        require(counts["skappa_support"] == iters,
-                f"path {run}: {counts['skappa_support']} skappa_support "
-                f"launches in {iters} outer iterations")
+        if run == "grid":    # every point a lane: one launch a step for all
+            trips = max(pt["iters"] for pt in points)
+            require(counts["skappa_support_lanes"] == trips
+                    and counts["l1_epigraph_proj_lanes"] == 121 * trips
+                    and not any(counts[k] for k in PROJ_KERNELS),
+                    f"path grid: {counts} in {trips} outer iterations of "
+                    "the lanes")
+        else:
+            require(counts["skappa_support"] == iters,
+                    f"path {run}: {counts['skappa_support']} skappa_support "
+                    f"launches in {iters} outer iterations")
         require(counts["ladder_stats"] == 0,
                 f"path {run}: {counts['ladder_stats']} ladder_stats launches")
-        needed = MAIN_KERNELS if run == "warm" else (
-            *PROJ_KERNELS, "matvec", "rmatvec", "normal_matvec")
+        needed = (MAIN_KERNELS if run == "warm" else
+                  (*LANE_KERNELS, "matvec", "rmatvec", "normal_matvec")
+                  if run == "grid" else
+                  (*PROJ_KERNELS, "matvec", "rmatvec", "normal_matvec"))
         for k_name in needed:
             require(counts[k_name] > 0, f"path {run}: kernel {k_name} was "
                                         "not launched")
@@ -1824,22 +2383,39 @@ def main() -> int:
               f"iter)" + (f", set-up {setup_s:.3f} s" if setup_s else "")
               + f"; launches { {k: v for k, v in counts.items() if v} }; "
               + points_text(points), flush=True)
-    # fit_grid is the cold scan (the engine has no lane axis), run again:
-    # equal bits show the card's run-to-run determinism, no second code path
-    for field in ("coef", "z", "support", "iters", "p_r", "d_r", "b_r",
-                  "cardinality", "train_loss", "status"):
-        require(torch.equal(getattr(paths["grid"], field),
-                            getattr(paths["cold"], field)),
-                f"path: fit_grid's {field} differs from the cold scan's")
-    report["path"] = dict(path_runs, kappas=kaps)
+    # fit_grid runs the points on lanes (shared factors, the K = 8 form of
+    # the products). No point converges in 60 iterations, and a support
+    # there is the nonzeros of an unconverged z (kappa >= 667), which the
+    # products' other summation order moves by single near-zero entries:
+    # each point keeps the cold scan's status and iterations, z within
+    # Z_RTOL and supports that differ only at near-ties; path_converge
+    # holds the grid to the cold scan's band where every point converges
+    grid_vs_cold = [unconverged_diffs(torch, f"path grid point {i}",
+                                      path_point(paths["grid"], i),
+                                      path_point(paths["cold"], i),
+                                      "the cold scan", kaps[i])
+                    for i in range(len(kaps))]
+    report["path"] = dict(path_runs, kappas=kaps, grid_vs_cold=grid_vs_cold)
     phase("path", t0, f"N={N} m={m} n={n} gamma=10 rho_c=4, kappas "
                       f"{kaps}: warm {path_runs['warm']['iters']} outer "
                       f"iterations in {path_runs['warm']['wall_s']:.3f} s, "
                       f"cold {path_runs['cold']['iters']} in "
                       f"{path_runs['cold']['wall_s']:.3f} s (every point "
                       f"stops at max_iter 60: path_converge measures the "
-                      f"warm start's saving), grid (the cold scan run "
-                      f"again) equals it bit for bit")
+                      f"warm start's saving), grid (the points on lanes) "
+                      f"{path_runs['grid']['iters']} in "
+                      f"{path_runs['grid']['wall_s']:.3f} s, against the "
+                      f"cold scan: supports differ in at most "
+                      f"{max(d['support_differs_in'] for d in grid_vs_cold)}"
+                      f" entries, coef by "
+                      f"{max(d['coef_max_abs_diff'] for d in grid_vs_cold):.2e}"
+                      f", z by "
+                      f"{max(d['z_max_abs_diff'] for d in grid_vs_cold):.2e}"
+                      f" (limit, Z_RTOL x max |z|: at least "
+                      f"{min(d['z_limit'] for d in grid_vs_cold):.2e}), "
+                      f"support flips at most "
+                      f"{max(d['flip_distance_from_threshold'] for d in grid_vs_cold):.2e}"
+                      f" from the threshold")
     del paths, path_est
 
     # 5c. a gamma grid on the spectral Woodbury factors ---------------------
@@ -1864,13 +2440,18 @@ def main() -> int:
     iters = sum(pt["iters"] for pt in points)
     require(counts["gram"] == 1, f"path_gamma: {counts['gram']} gram "
                                  "launches, expected one for the set-up")
-    for k_name in (*PROJ_KERNELS, "matvec", "rmatvec", "normal_matvec"):
+    for k_name in (*LANE_KERNELS, "matvec", "rmatvec", "normal_matvec"):
         require(counts[k_name] > 0, f"path_gamma: kernel {k_name} was not "
                                     "launched")
     at10 = gammas.index(10.0)
-    band = check_band(torch, "path_gamma (gamma=10)",
-                      path_point(gp, at10), wood_res,
-                      "the woodbury phase's static fit")
+    # the grid's points are lanes (K = 4 products on the spectral
+    # factors): at tol 0 nothing converges, and the top-kappa support of an
+    # unconverged z moves with the summation order (near-ties only); z is
+    # held to Z_RTOL; path_converge holds a spectral grid to its cold
+    # scan's band where the points converge
+    band = unconverged_diffs(torch, "path_gamma (gamma=10)",
+                             path_point(gp, at10), wood_res,
+                             "the woodbury phase's static fit", wide.kappa)
     static_ms = report["woodbury"]["s_per_outer_iter"] * 1e3
     report["path_gamma"] = {
         "points": points, "setup_s": setup_s, "wall_s": wall,
@@ -1888,9 +2469,14 @@ def main() -> int:
                             f"{ {k: v for k, v in counts.items() if v} }; "
                             f"gamma=10 against the static fit: "
                             f"{band['iters']} vs {band['iters_ref']} iters "
-                            f"(tol 0: both max_iter), coef max abs diff "
+                            f"(tol 0: both max_iter), support differs in "
+                            f"{band['support_differs_in']} entries, coef max "
+                            f"abs diff "
                             f"{band['coef_max_abs_diff']:.2e}, z before the "
-                            f"polish {band['z_max_abs_diff']:.2e}; "
+                            f"polish {band['z_max_abs_diff']:.2e} (limit "
+                            f"{band['z_limit']:.2e}), flips "
+                            f"{band['flip_distance_from_threshold']:.2e} "
+                            f"from the threshold; "
                             + points_text(points))
     del gp, g_est, factors
 
@@ -1916,9 +2502,9 @@ def main() -> int:
     require(counts["gram"] == 1 + len(gammas_d),
             f"path_dense: {counts['gram']} gram launches, expected "
             f"{1 + len(gammas_d)}")
-    band_d = check_band(torch, "path_dense (gamma=10)",
-                        path_point(dp, 1), dense_res,
-                        "the dense phase's fit")
+    band_d = unconverged_diffs(torch, "path_dense (gamma=10)",
+                               path_point(dp, 1), dense_res,
+                               "the dense phase's fit", narrow.kappa)
     report["path_dense"] = {"points": points, "wall_s": wall,
                             "s_per_outer_iter": wall / max(iters, 1),
                             "launches": counts,
@@ -1931,10 +2517,15 @@ def main() -> int:
                             f"{ {k: v for k, v in counts.items() if v} }; "
                             f"gamma=10 against the dense fit: "
                             f"{band_d['iters']} vs {band_d['iters_ref']} "
-                            f"iters (tol 0: both max_iter), coef max abs "
+                            f"iters (tol 0: both max_iter), support differs "
+                            f"in {band_d['support_differs_in']} entries, "
+                            f"coef max abs "
                             f"diff {band_d['coef_max_abs_diff']:.2e}, z "
                             f"before the polish "
-                            f"{band_d['z_max_abs_diff']:.2e}; "
+                            f"{band_d['z_max_abs_diff']:.2e} (limit "
+                            f"{band_d['z_limit']:.2e}), flips "
+                            f"{band_d['flip_distance_from_threshold']:.2e} "
+                            f"from the threshold; "
                             + points_text(points))
     del dp, d_est, bw, bn
 
@@ -2185,22 +2776,16 @@ def main() -> int:
     del A_l, b_l, est_l
     torch.cuda.empty_cache()
 
-    # 8. the card against the port's own CPU fit ---------------------------
-    # parity_path's CPU side runs in a worker process meanwhile (8b)
-    import multiprocessing
-    ctx = multiprocessing.get_context("spawn")
-    cpu_recv, cpu_send = ctx.Pipe(duplex=False)
-    cpu_proc = ctx.Process(target=parity_path_cpu, args=(cpu_send,),
-                           daemon=True)
-    cpu_proc.start()
-    cpu_send.close()
+    # 8. the card against the port's own CPU fit (its CPU side computed by
+    # the worker started after the build) ----------------------------------
     try:
         parity_phases(torch, api, ops, report, cpu_recv, cpu_proc)
     finally:
-        if cpu_proc.is_alive():
-            cpu_proc.terminate()
-        cpu_proc.join()
-        cpu_recv.close()
+        stop_worker()
+
+    # 11. the fleet driver (before the LM phases, which take 16 GB)
+    fleet_counts = fleet_phases(torch, api, ops, report, dev)
+    torch.cuda.empty_cache()
 
     # 9. the LM serving path; 10. its parity checks
     lm_counts = lm_phase(torch, dev, report)
@@ -2209,7 +2794,7 @@ def main() -> int:
     # launches: each kernel's count from the full-width path that runs it
     # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit, the Fig. 3
     # PCG fit, the qwen3-8b prefill and decode, the projections past the
-    # one-launch limit); the bf16 instantiations' from woodbury_bf16 and
+    # one-launch limit, the lane projections' from fleet_sq); the bf16 instantiations' from woodbury_bf16 and
     # pcg_bf16, the fp16 ones' from dense_fp16 and the fp16 parity fits
     # (no full-width fp16 cell runs matvec or normal_matvec)
     half_counts = {
@@ -2231,6 +2816,7 @@ def main() -> int:
                                          f"{half_counts[name]}")
         else:
             counts = (lm_counts if name == "flash_attention" else
+                      fleet_counts if name in LANE_KERNELS else
                       block_counts if name in BLOCK_KERNELS else
                       large_counts if name == "ladder_stats" else
                       pcg_counts if name == "normal_matvec" else

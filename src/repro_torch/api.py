@@ -17,11 +17,13 @@ dense, Woodbury and PCG x-updates and Newton-CG, with f32 iterates.
 Hyperparameter sweeps run through :func:`solve_path` / :func:`solve_grid` and
 the estimators' ``fit_path`` / ``fit_grid`` (kappa, gamma and rho_c grids;
 kappa only under the feature split), and one solve may override kappa,
-gamma or rho_c. What the port has not ported raises :class:`CapabilityError`
-up front: the sharded engine and meshes, ``projection="sort"``,
-``precision="fp64_polish"``, the feature split under a reduced precision,
-divergence recovery, and the fleet, serving and streaming entry points
-(``partial_fit``, ``fit_many``, ``serve``, ``stream``, ``recover``).
+gamma or rho_c. :func:`fit_many` fits a fleet of independent problems
+(stacked arrays or a list of mixed shapes) in one lane-batched driver.
+What the port has not ported raises :class:`CapabilityError` up front: the
+sharded engine and meshes, ``precision="fp64_polish"``, the feature split
+under a reduced precision, divergence recovery, and the serving and
+streaming entry points (``partial_fit``, ``serve``, ``stream``,
+``recover``).
 """
 from __future__ import annotations
 
@@ -32,18 +34,21 @@ import torch
 
 from . import runtime
 from .core.bicadmm import BiCADMM, BiCADMMConfig
+from .core.fleet import fit_many as _ref_fit_many
+from .core.fleet import fit_many_stacked as _ref_fit_many_stacked
 from .core.losses import Loss, get_loss
 from .core.path import fit_grid as _ref_fit_grid
 from .core.path import fit_path as _ref_fit_path
 from .core.prox import XSOLVERS
-from .core.results import FitResult, SolveStatus, SparsePath
+from .core.results import FitResult, FleetResult, SolveStatus, SparsePath
 from .kernels.ops import matvec_auto
 from .runtime import CapabilityError
 
-__all__ = ["CapabilityError", "Capabilities", "FitResult", "SolveStatus",
-           "SolverOptions", "SparseEstimator", "SparseLinearRegression",
-           "SparseLogisticRegression", "SparsePath", "SparseProblem",
-           "SparseSVM", "SparseSoftmaxRegression", "engine_capabilities",
+__all__ = ["CapabilityError", "Capabilities", "FitResult", "FleetResult",
+           "SolveStatus", "SolverOptions", "SparseEstimator",
+           "SparseLinearRegression", "SparseLogisticRegression",
+           "SparsePath", "SparseProblem", "SparseSVM",
+           "SparseSoftmaxRegression", "engine_capabilities", "fit_many",
            "solve", "solve_grid", "solve_path", "validate_data"]
 
 ENGINES = ("auto", "reference", "sharded")
@@ -129,8 +134,10 @@ class SolverOptions:
 @dataclasses.dataclass(frozen=True)
 class Capabilities:
     """What the port's engine can do (see ``repro.api.Capabilities``).
-    ``grid_strategy`` is ``"cold-scan"``: with no lane axis yet, a grid runs
-    as a sequential cold scan."""
+    ``grid_strategy`` is ``"vmap"``: a grid's points run together on a lane
+    axis (``"cold-scan"`` under the feature split, whose per-point factors
+    and inner state have no lane axis). ``fleet``: ``fit_many``, off under
+    the feature split as in the JAX package."""
     engine: str
     distributed: bool
     dynamic_penalties: bool
@@ -161,8 +168,9 @@ def engine_capabilities(engine: str = "reference",
         force_feature_split=options.force_feature_split).use_feature_split
     return Capabilities(engine="reference", distributed=False,
                         dynamic_penalties=dyn, per_solve_overrides=True,
-                        penalty_grids=dyn, grid_strategy="cold-scan",
-                        gather_free=False)
+                        penalty_grids=dyn,
+                        grid_strategy="vmap" if dyn else "cold-scan",
+                        gather_free=False, fleet=dyn)
 
 
 def _check_options(options: SolverOptions) -> None:
@@ -171,8 +179,6 @@ def _check_options(options: SolverOptions) -> None:
     unported = []
     if options.engine == "sharded" or options.mesh is not None:
         unported.append("the sharded engine (engine='sharded' / mesh=)")
-    if options.projection != "ladder":
-        unported.append(f"projection={options.projection!r}")
     if options.recovery is not None:
         unported.append("divergence recovery (recovery=)")
     if unported:
@@ -187,6 +193,15 @@ def _check_sweep(caps: Capabilities, gammas, rho_cs) -> None:
             "kappa-only sweeps: penalty-dependent factors are baked in at "
             "setup, so gammas=/rho_cs= grids are unavailable "
             "(Capabilities.penalty_grids=False)")
+
+
+def _check_fleet(caps: Capabilities) -> None:
+    if not caps.fleet:
+        raise CapabilityError(
+            f"the {caps.engine!r} engine (as configured) does not support "
+            "fleet fitting (Capabilities.fleet=False): fit_many needs the "
+            "lane-batched masked driver — use the reference engine with "
+            "n_feature_blocks=1")
 
 
 def _check_precision(caps: Capabilities, options: SolverOptions) -> None:
@@ -215,6 +230,7 @@ def build_config(problem: SparseProblem,
         newton_iters=options.newton_iters, polish=options.polish,
         over_relax=options.over_relax,
         force_feature_split=options.force_feature_split,
+        projection=options.projection,
         x_solver=options.x_solver, cg_iters=options.cg_iters,
         cg_tol=options.cg_tol, precision=options.precision)
 
@@ -311,10 +327,27 @@ class _ReferenceAdapter:
 
     def fit_grid(self, As, bs, kappas, *, gammas=None, rho_cs=None
                  ) -> SparsePath:
-        """Independent cold fits of the grid (a sequential cold scan)."""
+        """Independent cold fits of the grid, on a lane axis."""
         _check_sweep(self.caps, gammas, rho_cs)
         return _ref_fit_grid(self.solver, As, bs, kappas, gammas=gammas,
                              rho_cs=rho_cs)
+
+    def fit_many_stacked(self, As, bs, *, kappas=None, gammas=None,
+                         rho_cs=None, states=None,
+                         iter_caps=None) -> FleetResult:
+        """Stacked fleet fit (capability-checked adapter entry)."""
+        _check_fleet(self.caps)
+        return _ref_fit_many_stacked(self.solver, As, bs, kappas=kappas,
+                                     gammas=gammas, rho_cs=rho_cs,
+                                     states=states, iter_caps=iter_caps)
+
+    def fit_many(self, problems, *, kappas=None, gammas=None,
+                 rho_cs=None, on_bucket=None) -> list[FitResult]:
+        """Heterogeneous fleet fit (capability-checked adapter entry)."""
+        _check_fleet(self.caps)
+        return _ref_fit_many(self.solver, problems, kappas=kappas,
+                             gammas=gammas, rho_cs=rho_cs,
+                             on_bucket=on_bucket)
 
 
 def solve(problem: SparseProblem, X, y, *,
@@ -343,11 +376,69 @@ def solve_grid(problem: SparseProblem, X, y, kappas, *,
                options: SolverOptions | None = None, gammas=None,
                rho_cs=None) -> SparsePath:
     """Independent cold fits of every grid point; ``path.strategy`` says
-    how the grid ran (``"cold-scan"``)."""
+    how the grid ran (``"vmap"``, or ``"cold-scan"`` under the feature
+    split)."""
     options = options if options is not None else SolverOptions()
     adapter = _ReferenceAdapter(problem, options)
     As, bs = _stack(X, y, adapter.device, options.precision)
     return adapter.fit_grid(As, bs, kappas, gammas=gammas, rho_cs=rho_cs)
+
+
+def _stack_many(Xs, ys, device: torch.device):
+    """Stacked fleet data on ``device`` in the (B, N, m, n) / (B, N, m)
+    layout: ``(B, samples, n)`` (N = 1) or ``(B, N, m, n)``."""
+    Xs, ys = _as_tensor(Xs, device), _as_tensor(ys, device)
+    if Xs.ndim == 3:
+        Xs = Xs[:, None]
+    if Xs.ndim != 4:
+        raise ValueError(f"stacked fleet data must be (B, samples, n) or "
+                         f"(B, N, m, n); got shape {tuple(Xs.shape)}")
+    validate_data(Xs.reshape(-1, Xs.shape[-1]), ys)
+    return Xs, ys.reshape(Xs.shape[:3]).to(Xs.dtype)
+
+
+def fit_many(problem: SparseProblem, Xs, ys, *, kappas=None, gammas=None,
+             rho_cs=None, options: SolverOptions | None = None,
+             states=None, iter_caps=None) -> FleetResult | list[FitResult]:
+    """Fit a fleet of B independent instances of ``problem`` in one
+    lane-batched driver (``repro.api.fit_many``).
+
+    * Stacked arrays ``Xs (B, samples, n)`` or ``(B, N, m, n)`` with
+      matching ``ys``: returns a :class:`FleetResult` (``result[i]`` is
+      problem i's :class:`FitResult`). ``states`` warm-starts every lane
+      from a previous fleet's ``.state``; ``iter_caps`` caps each lane's
+      iterations below ``max_iter`` (a capped lane ends ``ABORTED``, a
+      cap of 0 never steps).
+    * Sequences ``Xs`` / ``ys`` of per-problem arrays of mixed shapes:
+      bucketed by ``(N, n)``, zero-padded along the samples
+      (``repro_torch.core.fleet``), one fleet a bucket; returns a list of
+      :class:`FitResult` in input order.
+
+    ``kappas`` / ``gammas`` / ``rho_cs`` are optional per-problem vectors.
+    Fleets need the direct x-update (``Capabilities.fleet``); the data is
+    float32 and the fit runs on ``options.device``.
+    """
+    options = options if options is not None else SolverOptions()
+    adapter = _ReferenceAdapter(problem, options)
+    if isinstance(Xs, (list, tuple)):
+        if not isinstance(ys, (list, tuple)) or len(ys) != len(Xs):
+            raise ValueError("sequence input needs per-problem ys of the "
+                             "same length as Xs")
+        if states is not None or iter_caps is not None:
+            raise ValueError("states=/iter_caps= require stacked-array "
+                             "input (one shape signature)")
+        problems = []
+        for X, y in zip(Xs, ys):
+            X, y = _as_tensor(X, adapter.device), _as_tensor(y,
+                                                            adapter.device)
+            validate_data(X, y)
+            problems.append((X, y.to(X.dtype)))
+        return adapter.fit_many(problems, kappas=kappas, gammas=gammas,
+                                rho_cs=rho_cs)
+    As, bs = _stack_many(Xs, ys, adapter.device)
+    return adapter.fit_many_stacked(As, bs, kappas=kappas, gammas=gammas,
+                                    rho_cs=rho_cs, states=states,
+                                    iter_caps=iter_caps)
 
 
 def _unported(what: str):
@@ -505,7 +596,6 @@ class SparseSoftmaxRegression(SparseEstimator):
 
 
 # functional entry points of the JAX api that wait for later slices
-fit_many = _unported("fit_many")
 serve = _unported("serve")
 stream = _unported("stream")
 recover = _unported("recover")

@@ -9,7 +9,11 @@ Its ``inner`` field, the feature-split sub-solver's state, crosses as
 port's state on a device, and :func:`state_to_numpy` /
 :func:`result_to_numpy` go back, with ``inner`` as a dict. Warm starts then
 move between the packages. :func:`path_to_numpy` does the same for a
-:class:`~repro_torch.core.results.SparsePath`.
+:class:`~repro_torch.core.results.SparsePath`, and :func:`fleet_to_numpy`
+for a :class:`~repro_torch.core.results.FleetResult`;
+:func:`fleet_state_from_numpy` takes a fleet's batched state (a JAX
+``FleetResult.state``, each field with its leading lane axis), so a fleet
+warm-starts from the other package's.
 
 :func:`lm_params_from_jax` carries the JAX package's LM parameters (a tree
 of numpy arrays) into the port's model.
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from .core.bicadmm import BiCADMMState
-from .core.results import FitResult, SparsePath
+from .core.results import FitResult, FleetResult, SparsePath
 from .core.subsolver import SubsolverState
 from .models import transformer, zoo
 
@@ -95,6 +99,28 @@ def path_to_numpy(path: SparsePath) -> dict:
             val = _numpy(val)
         out[name] = val
     return out
+
+
+def fleet_to_numpy(fleet: FleetResult) -> dict:
+    """The fleet's arrays as numpy, its batched state as a nested dict and
+    its strategy."""
+    out = {}
+    for name in FleetResult._fields:
+        val = getattr(fleet, name)
+        if name == "state":
+            val = None if val is None else state_to_numpy(val)
+        elif torch.is_tensor(val):
+            val = _numpy(val)
+        out[name] = val
+    return out
+
+
+def fleet_state_from_numpy(d: dict, device) -> BiCADMMState:
+    """The port's batched fleet state from a dict of numpy arrays with a
+    leading lane axis (the fleet has no feature-split inner state)."""
+    if d.get("inner") is not None:
+        raise ValueError("a fleet state has no feature-split inner state")
+    return state_from_numpy(d, device)
 
 
 def lm_params_from_jax(params: Mapping, cfg, device) -> transformer.LM:

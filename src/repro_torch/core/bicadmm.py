@@ -80,6 +80,7 @@ class BiCADMMConfig:
     polish: bool = True             # debias on the recovered support
     over_relax: float = 1.0
     force_feature_split: bool = False  # Algorithm 2 even when M == 1
+    projection: str = "ladder"      # "ladder" (sort-free exact) | "sort"
     x_solver: str = "auto"          # "auto" | "dense" | "woodbury" | "pcg"
     cg_iters: int = 200
     cg_tol: float = 1e-6
@@ -117,12 +118,14 @@ class BiCADMMConfig:
 
 
 class SolveParams(NamedTuple):
-    """Per-solve hyperparameters, Python scalars (read on the host: the
-    projection kernels take kappa as a number)."""
-    kappa: float
-    rho_c: float
-    rho_b: float
-    sigma: float      # 1 / (N * gamma)
+    """Per-solve hyperparameters: Python scalars for one solve (read on the
+    host: the solo projection kernels take kappa as a number). For lanes
+    (the fleet, a grid) ``kappa`` is a (B,) tensor on the device and each
+    penalty a Python scalar shared by every lane or a (B,) tensor."""
+    kappa: Any
+    rho_c: Any
+    rho_b: Any
+    sigma: Any        # 1 / (N * gamma)
 
 
 class BiCADMMState(NamedTuple):
@@ -165,25 +168,43 @@ def _fista_betas(iters: int) -> list[float]:
     return out
 
 
-def _zt_update(z0, t0, w, s, v, N: float, rho_c: float, rho_b: float,
-               iters: int):
+def _col(v):
+    """A per-lane (B,) tensor as a (B, 1) column; a Python scalar as is."""
+    return v[:, None] if torch.is_tensor(v) else v
+
+
+def _zt_update(z0, t0, w, s, v, N: float, rho_c, rho_b, iters: int, *,
+               projection: str = "ladder"):
     """Step (7b): min over {(z,t): ||z||_1 <= t} of
     (N rho_c / 2) ||z - w||^2 + (rho_b / 2) (s^T z - t + v)^2
-    by FISTA with the exact sort-free cone projection."""
+    by FISTA with the exact sort-free cone projection (``projection=
+    "sort"``: the sort oracle). With a lane axis (z0 (B, d), t0 (B,), rho_c
+    and rho_b scalars or (B,) tensors) every lane takes the same steps,
+    each FISTA step's projection one call for all lanes."""
+    project = (bilinear.project_l1_epigraph_sort if projection == "sort"
+               else bilinear.project_l1_epigraph)
     a = N * rho_c
-    L = a + rho_b * (torch.sum(s * s) + 1.0)   # ||Hessian||_2 upper bound
+    lanes = z0.ndim == 2
+    if lanes:
+        L = a + rho_b * (torch.sum(s * s, dim=-1) + 1.0)
+
+        def grads(z, t):
+            r = torch.sum(s * z, dim=-1) - t + v
+            return _col(a) * (z - w) + _col(rho_b * r) * s, -rho_b * r
+    else:
+        L = a + rho_b * (torch.sum(s * s) + 1.0)  # ||Hessian||_2 bound
+
+        def grads(z, t):
+            r = torch.sum(s * z) - t + v
+            return a * (z - w) + rho_b * r * s, -rho_b * r
     step = 1.0 / L
+    step_z = _col(step) if lanes else step
 
-    def grads(z, t):
-        r = torch.sum(s * z) - t + v
-        return a * (z - w) + rho_b * r * s, -rho_b * r
-
-    z, t = bilinear.project_l1_epigraph(z0, t0)
+    z, t = project(z0, t0)
     zy, ty = z, t
     for beta in _fista_betas(iters):
         gz, gt = grads(zy, ty)
-        z_new, t_new = bilinear.project_l1_epigraph(zy - step * gz,
-                                                    ty - step * gt)
+        z_new, t_new = project(zy - step_z * gz, ty - step * gt)
         zy = z_new + beta * (z_new - z)
         ty = t_new + beta * (t_new - t)
         z, t = z_new, t_new
@@ -200,6 +221,8 @@ class BiCADMM:
                  n_classes: int = 1):
         self.loss = (get_loss(loss, n_classes) if isinstance(loss, str)
                      else loss)
+        if cfg.projection not in ("ladder", "sort"):
+            raise ValueError(f"unknown projection mode {cfg.projection!r}")
         self.cfg = cfg
         # the precision policy's cast of the data and the setup factors,
         # both keyed on the data tensors' identity, so warm-started run_from
@@ -314,8 +337,10 @@ class BiCADMM:
 
         w = torch.mean(x_eff + st.u, dim=0)                # consensus center
         z_new, t_new = _zt_update(st.z, st.t, w, st.s, st.v, float(N),
-                                  rho_c, rho_b, cfg.zt_iters)
-        s_new = bilinear.s_update(z_new, t_new, st.v, params.kappa)
+                                  rho_c, rho_b, cfg.zt_iters,
+                                  projection=cfg.projection)
+        s_new = bilinear.s_update(z_new, t_new, st.v, params.kappa,
+                                  method=self._s_method)
         u_new = st.u + x_eff - z_new[None]
         gval = bilinear.g(z_new, s_new, t_new)
         v_new = st.v + gval
@@ -358,6 +383,178 @@ class BiCADMM:
         """A fresh zero state."""
         As, bs = self._cast(As, bs)
         return self._init_state(As, As.shape[2], self.loss.n_classes)
+
+    @property
+    def _s_method(self) -> str:
+        return "sort" if self.cfg.projection == "sort" else "ladder"
+
+    # -- lanes: B solves stepped together (the fleet driver, a grid) ---------
+    def _lane_step(self, x_update, params: SolveParams,
+                   st: BiCADMMState) -> BiCADMMState:
+        """One iteration of B independent solves, the state's fields with a
+        leading lane axis (x, u (B, N, d); z, s (B, d); t, v, k and the
+        residuals (B,)). ``x_update(q, x_prev)`` is the (7a) step of every
+        lane's nodes, (B, N, d) -> (B, N, d); the rest is :meth:`_step`'s
+        arithmetic lane by lane, the projections one call for all lanes."""
+        cfg = self.cfg
+        N = st.x.shape[1]
+        rho_c, rho_b = params.rho_c, params.rho_b
+        q = st.z[:, None] - st.u
+        x_new = x_update(q, st.x)
+        if cfg.over_relax != 1.0:
+            x_eff = (cfg.over_relax * x_new
+                     + (1.0 - cfg.over_relax) * st.z[:, None])
+        else:
+            x_eff = x_new
+        w = torch.mean(x_eff + st.u, dim=1)
+        z_new, t_new = _zt_update(st.z, st.t, w, st.s, st.v, float(N),
+                                  rho_c, rho_b, cfg.zt_iters,
+                                  projection=cfg.projection)
+        s_new = bilinear.s_update(z_new, t_new, st.v, params.kappa,
+                                  method=self._s_method)
+        u_new = st.u + x_eff - z_new[:, None]
+        gval = bilinear.g(z_new, s_new, t_new)
+        v_new = st.v + gval
+        p_r = torch.sum(torch.linalg.vector_norm(x_new - z_new[:, None],
+                                                 dim=2), dim=1)
+        sqrt_n = np.float32(np.sqrt(np.float32(N)))
+        scale = (float(sqrt_n) * rho_c if torch.is_tensor(rho_c)
+                 else float(sqrt_n * np.float32(rho_c)))
+        d_r = scale * torch.linalg.vector_norm(z_new - st.z, dim=-1)
+        b_r = torch.abs(gval)
+        return BiCADMMState(x_new, u_new, z_new, t_new, s_new, v_new,
+                            st.k + 1, p_r, d_r, b_r, None)
+
+    def _fleet_active(self, st: BiCADMMState, iter_caps=None) -> torch.Tensor:
+        """(B,) mask of the lanes still iterating: the solo loop's test per
+        lane, with ``iter_caps`` (a (B,) int tensor) tightening each lane's
+        budget below ``max_iter`` (a cap of 0: an inert padding lane)."""
+        cfg = self.cfg
+        converged = ((st.p_r < cfg.tol) & (st.d_r < cfg.tol)
+                     & (st.b_r < cfg.tol))
+        diverged = divergence_probe(st, cfg.divergence_tol)
+        budget = (cfg.max_iter if iter_caps is None
+                  else torch.clamp_max(iter_caps, cfg.max_iter))
+        return (~converged) & (~diverged) & (st.k < budget)
+
+    def _run_while_lanes(self, step, st: BiCADMMState,
+                         iter_caps=None) -> BiCADMMState:
+        """Step every lane while any is active; a lane that is not keeps
+        its whole state (``torch.where``), as the JAX package's vmapped
+        ``while_loop`` keeps it. The host reads the mask once an outer
+        iteration, as :meth:`_run_while` reads its test."""
+        while True:
+            active = self._fleet_active(st, iter_caps)
+            if not bool(active.any()):
+                return st
+            new = step(st)
+            st = BiCADMMState(*(
+                None if o is None else torch.where(
+                    active.reshape(active.shape + (1,) * (o.ndim - 1)), n, o)
+                for n, o in zip(new, st)))
+
+    def _fleet_x_update(self, factors, params: SolveParams, As, bs):
+        """The (7a) step of B problems' nodes, ``As`` (B, N, m, n): the
+        squared loss's factors (set up on the (B N, m, n) view) or
+        Newton-CG, each node a system of the kernels' batch, per-lane
+        penalties repeated over the lane's N nodes."""
+        cfg, loss = self.cfg, self.loss
+        B, N, m, n = As.shape
+        K = loss.n_classes
+        A_nodes, b_nodes = As.reshape(B * N, m, n), bs.reshape(B * N, m)
+
+        def per_node(v, ndim):
+            if not torch.is_tensor(v):
+                return v
+            return v.repeat_interleave(N).reshape((B * N,) + (1,) * ndim)
+
+        if loss.name == "squared":
+            rho_c, sigma = per_node(params.rho_c, 1), per_node(params.sigma, 1)
+
+            def update(q, x_prev):
+                x = x_solve(factors, q.reshape(B * N, -1), rho_c, sigma,
+                            x0=x_prev.reshape(B * N, -1))
+                return x.reshape(B, N, -1)
+            return update
+        xdims = 2 if K > 1 else 1
+        rho_c = per_node(params.rho_c, xdims)
+        sigma = per_node(params.sigma, xdims)
+
+        def update(q, x_prev):
+            qn = q.reshape((B * N, n, K) if K > 1 else (B * N, n))
+            x = newton_cg_prox(loss, A_nodes, b_nodes, qn, sigma, rho_c,
+                               newton_iters=cfg.newton_iters)
+            return x.reshape(B, N, -1)
+        return update
+
+    def _run_while_fleet(self, factors, As, bs, params: SolveParams,
+                         st0: BiCADMMState, iter_caps=None) -> BiCADMMState:
+        """The fleet's masked loop: B problems ``As`` (B, N, m, n), ``bs``
+        (B, N, m) with per-problem ``params`` from ``st0`` until no lane is
+        active (``repro.core.bicadmm.BiCADMM._run_while_fleet``)."""
+        update = self._fleet_x_update(factors, params, As, bs)
+        return self._run_while_lanes(
+            lambda st: self._lane_step(update, params, st), st0, iter_caps)
+
+    def _finalize_lanes(self, As, bs, st: BiCADMMState,
+                        params: SolveParams):
+        """Threshold, polish and classify every lane of a final lane state
+        over per-lane data ``As`` (B, N, m, n): (x (B, d), support (B, d),
+        status (B,)), each lane as :meth:`_finalize` finalizes a path
+        point (``compiled``)."""
+        cfg = self.cfg
+        z_sparse = bilinear.hard_threshold_lanes(st.z, params.kappa)
+        support = torch.abs(z_sparse) > 0
+        x = (self._polish_lanes(As, bs, support, z_sparse, params)
+             if cfg.polish else z_sparse)
+        status = classify_status(st.k, st.p_r, st.d_r, st.b_r, tol=cfg.tol,
+                                 divergence_tol=cfg.divergence_tol)
+        return x, support, status
+
+    def _polish_lanes(self, As, bs, support, z0, params: SolveParams):
+        """:meth:`_polish` of every lane: the dense solve, the PCG polish or
+        Newton-CG, each with a lane axis (per-lane data, support and
+        sigma)."""
+        cfg, loss = self.cfg, self.loss
+        B, N, m, n = As.shape
+        K = loss.n_classes
+        sigma = N * params.sigma         # 1 / gamma, per lane or shared
+        pen = torch.where(support, 0.0, 1e8).to(z0.dtype)
+        A_all, b_all = As.reshape(B, N * m, n), bs.reshape(B, N * m)
+        if loss.name == "squared":
+            shift = pen + _col(sigma)
+            if n <= prox.DENSE_MAX_N and cfg.x_solver in ("auto", "dense"):
+                acc = cfg.precision.accum_dtype(A_all.dtype)
+                H = (gram_auto(A_all, out_dtype=acc)
+                     + torch.diag_embed(shift.to(acc)))
+                x = torch.linalg.solve(H, rmatvec_auto(A_all, b_all,
+                                                       out_dtype=acc))
+                return torch.where(support, x, 0.0)
+            inv = 1.0 / (prox.col_sumsq(A_all) + shift)
+            rhs = rmatvec_auto(A_all, b_all, out_dtype=z0.dtype)
+            x = prox.pcg(lambda p: normal_matvec_auto(A_all, p, shift),
+                         rhs, z0, lambda r: inv * r,
+                         max(200, 2 * cfg.cg_iters), cfg.cg_tol)
+            return torch.where(support, x, 0.0)
+        xshape = (B, n, K) if K > 1 else (B, n)
+        sig_x = (sigma.reshape((B,) + (1,) * (len(xshape) - 1))
+                 if torch.is_tensor(sigma) else sigma)
+        xf = z0
+        for _ in range(cfg.newton_iters):
+            x = xf.reshape(xshape)
+            pred = matvec_auto(A_all, x)
+            g = rmatvec_auto(A_all, loss.grad(pred, b_all))
+            g = (g + sig_x * x).reshape(B, -1) + pen * xf
+            dgrad = prox.grad_tangent(loss, pred, b_all)
+
+            def hvp(p, dgrad=dgrad):
+                pv = p.reshape(xshape)
+                dlg = dgrad(matvec_auto(A_all, pv))
+                out = (rmatvec_auto(A_all, dlg) + sig_x * pv).reshape(B, -1)
+                return out + pen * p
+
+            xf = xf - prox._cg(hvp, g, 60)
+        return torch.where(support, xf, 0.0)
 
     def _run_while(self, factors, As, bs, params: SolveParams,
                    st: BiCADMMState) -> BiCADMMState:
@@ -476,11 +673,11 @@ class BiCADMM:
             pred = matvec_auto(A_all, x)
             g = rmatvec_auto(A_all, loss.grad(pred, b_all))
             g = (g + sigma * x).reshape(-1) + pen * xf
+            dgrad = prox.grad_tangent(loss, pred, b_all)
 
-            def hvp(p, pred=pred):
+            def hvp(p, dgrad=dgrad):
                 pv = p[0].reshape(xshape)
-                _, dlg = torch.func.jvp(lambda pr: loss.grad(pr, b_all),
-                                        (pred,), (matvec_auto(A_all, pv),))
+                dlg = dgrad(matvec_auto(A_all, pv))
                 out = (rmatvec_auto(A_all, dlg) + sigma * pv).reshape(-1)
                 return (out + pen * p[0])[None]
 

@@ -28,7 +28,21 @@ once per chunk. This is exact: a frozen loop keeps the values the JAX
 ``while_loop`` exits with, and steps are counted against the same cap
 (:data:`NEWTON_CAP`).
 
-The ``*_sort`` functions are the sort-based test oracles.
+Lanes. :func:`project_l1_epigraph`, :func:`support_skappa_ladder`,
+:func:`s_update` and :func:`g` also take a leading lane axis (z of shape
+(B, d), one vector per lane, with per-lane (B,) t0, kappa, t and v): the
+fleet driver's B problems and a grid's P points. On the card every lane is
+projected in ONE launch (``kernels.bisect_proj.l1_epigraph_proj_lanes`` /
+``skappa_support_lanes``): a CUDA lane tensor reaches those kernels or
+raises. On the CPU the lanes run the composed path with the row reductions
+of each lane, so a lane's result equals the solo composed path's on that
+row bit for bit; the data-dependent loops then run until every lane is
+done, a finished lane frozen by ``torch.where`` as the JAX package's
+vmapped ``while_loop`` freezes it.
+
+The ``*_sort`` functions are the sort-based test oracles (lanes too); the
+``*_bisect`` ones the approximate scalar-bisection variants, and
+:func:`support_skappa` the top-k LP at a static kappa.
 """
 from __future__ import annotations
 
@@ -38,8 +52,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..kernels import bisect_proj
-from ..kernels.ops import (l1_epigraph_proj_auto, ladder_stats_auto,
-                           skappa_support_auto)
+from ..kernels.ops import (l1_epigraph_proj_auto,
+                           l1_epigraph_proj_lanes_auto, ladder_stats_auto,
+                           skappa_support_auto, skappa_support_lanes_auto)
 
 LADDER_B = 128     # rungs per bracketing round (one (2, B) stats pass each)
 NEWTON_CAP = 64    # hard cap on polish / search steps
@@ -49,7 +64,10 @@ CHUNK = {"cuda": 4, "cpu": 1}
 
 
 def g(z: torch.Tensor, s: torch.Tensor, t) -> torch.Tensor:
-    """Bi-linear constraint residual g(z, s, t) = z^T s - t."""
+    """Bi-linear constraint residual g(z, s, t) = z^T s - t (per lane for
+    (B, d) operands)."""
+    if z.ndim == 2:
+        return torch.sum(z * s, dim=-1) - t
     return torch.sum(z * s) - t
 
 
@@ -131,7 +149,8 @@ def _masked_loop(step, state: tuple, active: torch.Tensor, k: int,
 
     ``step`` returns ``(new_state, still_going)``; a finished loop's state is
     frozen with ``torch.where``, and the host reads ``active`` once per
-    ``CHUNK[device]`` steps.
+    ``CHUNK[device]`` steps. ``active`` may hold one flag per lane (the
+    state entries then (B,)): the loop runs until every lane is done.
     """
     chunk = CHUNK[active.device.type]
     while k < cap:
@@ -143,7 +162,7 @@ def _masked_loop(step, state: tuple, active: torch.Tensor, k: int,
                           for n, o in zip(new, state))
             active = active & going
             k += 1
-        if not bool(active):
+        if not bool(active.any()):
             break
     return state
 
@@ -199,9 +218,15 @@ def project_l1_epigraph(z0: torch.Tensor, t0, *, ops: LadderOps = DEFAULT_OPS,
                         rounds: int | None = None, B: int = LADDER_B,
                         newton_cap: int = NEWTON_CAP):
     """Exact Euclidean projection onto ``{(z, t): ||z||_1 <= t}``
-    (sort-free; apex and inside cases as in the JAX package)."""
+    (sort-free; apex and inside cases as in the JAX package). ``z0`` (B, d)
+    with ``t0`` (B,) projects every lane (module docstring)."""
     if rounds is None:
         rounds = default_rounds(z0.device)
+    if z0.ndim == 2:
+        if _lanes_on_card(z0, ops, B, "project_l1_epigraph"):
+            return l1_epigraph_proj_lanes_auto(z0, t0, rounds=rounds,
+                                               cap=newton_cap)
+        return _project_lanes(z0, t0, rounds, B, newton_cap)
     if _one_launch(z0, ops, B):
         return l1_epigraph_proj_auto(z0, t0, rounds=rounds, cap=newton_cap)
     t0 = torch.as_tensor(t0, dtype=z0.dtype, device=z0.device)
@@ -221,24 +246,48 @@ def project_l1_epigraph(z0: torch.Tensor, t0, *, ops: LadderOps = DEFAULT_OPS,
 
 
 def project_l1_epigraph_sort(z0: torch.Tensor, t0):
-    """Sort-based exact projection — the test oracle of the ladder path."""
+    """Sort-based exact projection — the test oracle of the ladder path
+    (per lane for z0 (B, d), t0 (B,))."""
     t0 = torch.as_tensor(t0, dtype=z0.dtype, device=z0.device)
-    az = torch.sort(torch.abs(z0), descending=True).values
-    csum = torch.cumsum(az, 0)
-    n = z0.shape[0]
+    az = torch.sort(torch.abs(z0), dim=-1, descending=True).values
+    csum = torch.cumsum(az, -1)
+    n = z0.shape[-1]
     k = torch.arange(1, n + 1, dtype=z0.dtype, device=z0.device)
-    theta_j = (csum - t0) / (k + 1.0)
-    lower = torch.cat([az[1:], torch.zeros(1, dtype=az.dtype,
-                                           device=az.device)])
+    theta_j = (csum - t0[..., None]) / (k + 1.0)
+    lower = torch.cat([az[..., 1:], torch.zeros_like(az[..., :1])], -1)
     valid = (theta_j >= lower) & (theta_j <= az) & (theta_j >= 0)
-    theta = torch.min(torch.where(valid, theta_j, math.inf))
+    theta = torch.amin(torch.where(valid, theta_j, math.inf), -1)
     apex = ~torch.isfinite(theta)
     theta = torch.where(apex, 0.0, theta)
-    inside = torch.sum(torch.abs(z0)) <= t0
+    inside = torch.sum(torch.abs(z0), -1) <= t0
     theta = torch.where(inside, 0.0, theta)
     to_apex = apex & ~inside
-    z = torch.where(to_apex, 0.0, _soft(z0, theta))
+    z = torch.where(to_apex[..., None], 0.0, _soft(z0, theta[..., None]))
     t = torch.where(to_apex, torch.clamp_min(t0, 0.0), t0 + theta)
+    return z, t
+
+
+def project_l1_epigraph_bisect(z0: torch.Tensor, t0, iters: int = 60,
+                               sum_fn=torch.sum, max_fn=torch.max):
+    """Projection onto the l1-epigraph by ``iters`` bisection steps on
+    theta (``repro.core.bilinear.project_l1_epigraph_bisect``): accurate to
+    max|z0| / 2^iters, not exact; the fixed-count loop reads nothing back
+    to the host."""
+    t0 = torch.as_tensor(t0, dtype=z0.dtype, device=z0.device)
+    az = torch.abs(z0)
+    inside = sum_fn(az) <= t0
+    hi = max_fn(az)
+    lo = torch.zeros_like(hi)
+    apex = (-t0 - hi) > 0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        pos = (sum_fn(torch.clamp_min(az - mid, 0.0)) - t0 - mid) > 0
+        lo, hi = torch.where(pos, mid, lo), torch.where(pos, hi, mid)
+    theta = torch.where(inside, 0.0, 0.5 * (lo + hi))
+    to_apex = apex & ~inside
+    z = torch.where(to_apex, 0.0, _soft(z0, theta))
+    t = torch.where(to_apex, torch.clamp_min(t0, 0.0),
+                    torch.where(inside, t0, t0 + theta))
     return z, t
 
 
@@ -246,16 +295,70 @@ def project_l1_epigraph_sort(z0: torch.Tensor, t0):
 # S^kappa support function
 # --------------------------------------------------------------------------
 def support_skappa_sort(z: torch.Tensor, kappa):
-    """Double-argsort rank-trick LP over S^kappa — the test oracle."""
+    """Double-argsort rank-trick LP over S^kappa — the test oracle (per
+    lane for z (B, d), kappa (B,))."""
     az = torch.abs(z)
-    kap = torch.as_tensor(kappa, dtype=az.dtype, device=az.device)
+    kap = torch.as_tensor(kappa, device=az.device).to(az.dtype)[..., None]
     kf = torch.floor(kap)
     frac = kap - kf
-    order = torch.argsort(-az, stable=True)
-    ranks_f = torch.argsort(order, stable=True).to(az.dtype)
+    order = torch.argsort(-az, dim=-1, stable=True)
+    ranks_f = torch.argsort(order, dim=-1, stable=True).to(az.dtype)
     w = torch.clamp(kf - ranks_f, 0.0, 1.0)
     w = w + frac * ((ranks_f >= kf) & (ranks_f < kf + 1.0)).to(az.dtype)
-    return torch.sum(az * w), torch.sign(z) * w
+    return torch.sum(az * w, -1), torch.sign(z) * w
+
+
+def support_skappa(z: torch.Tensor, kappa):
+    """max over S^kappa of z^T s and an attaining vertex
+    (``repro.core.bilinear.support_skappa``): for a Python number kappa
+    the top-ceil(kappa) magnitudes by a stable descending sort (ties to the
+    lower index, as ``jax.lax.top_k``), the fractional weight on the last;
+    for a tensor kappa the sort oracle."""
+    if not isinstance(kappa, (int, float)) or isinstance(kappa, bool):
+        return support_skappa_sort(z, kappa)
+    az = torch.abs(z)
+    n = z.shape[0]
+    kf = math.floor(kappa)
+    frac = kappa - kf
+    if kf >= n:
+        return torch.sum(az), torch.sign(z)
+    k_take = min(n, kf + (1 if frac > 0 else 0))
+    if k_take == 0:
+        return torch.zeros((), dtype=az.dtype, device=z.device), \
+            torch.zeros_like(z)
+    order = torch.sort(az, descending=True, stable=True)
+    vals, idx = order.values[:k_take], order.indices[:k_take]
+    wts = torch.ones(k_take, dtype=az.dtype, device=z.device)
+    if frac > 0 and k_take == kf + 1:
+        wts[-1] = frac
+    w = torch.zeros_like(az).index_put_((idx,), wts)
+    return torch.sum(vals * wts), torch.sign(z) * w
+
+
+def support_skappa_bisect(z: torch.Tensor, kappa, iters: int = 60,
+                          sum_fn=torch.sum, max_fn=torch.max):
+    """Scalar-bisection variant of :func:`support_skappa`
+    (``repro.core.bilinear.support_skappa_bisect``): approximate to the
+    bisection's resolution; the fixed-count loop reads nothing back to the
+    host."""
+    az = torch.abs(z)
+    kap = torch.as_tensor(kappa, dtype=az.dtype, device=az.device)
+    hi = max_fn(az)
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        too_many = sum_fn((az > mid).to(az.dtype)) > kap
+        lo, hi = torch.where(too_many, mid, lo), torch.where(too_many, hi,
+                                                              mid)
+    above = (az > hi).to(az.dtype)
+    boundary = ((az > lo) & (az <= hi)).to(az.dtype)
+    cnt_bnd = sum_fn(boundary)
+    leftover = torch.clamp_min(kap - sum_fn(above), 0.0)
+    bnd_w = torch.where(cnt_bnd > 0,
+                        leftover / torch.where(cnt_bnd > 0, cnt_bnd, 1.0),
+                        0.0)
+    w = above + bnd_w * boundary
+    return sum_fn(az * w), torch.sign(z) * w
 
 
 def support_skappa_ladder(z: torch.Tensor, kappa, *,
@@ -263,9 +366,15 @@ def support_skappa_ladder(z: torch.Tensor, kappa, *,
                           rounds: int | None = None, B: int = LADDER_B,
                           cap: int = NEWTON_CAP):
     """Exact sort-free ``max_{s in S^kappa} z^T s`` and an argmax
-    (``repro.core.bilinear.support_skappa_ladder``)."""
+    (``repro.core.bilinear.support_skappa_ladder``). ``z`` (B, d) with a
+    (B,) tensor ``kappa`` (on z's device) takes every lane."""
     if rounds is None:
         rounds = default_rounds(z.device)
+    if z.ndim == 2:
+        if _lanes_on_card(z, ops, B, "support_skappa_ladder"):
+            return skappa_support_lanes_auto(z, kappa, rounds=rounds,
+                                             cap=cap)
+        return _support_lanes(z, kappa, rounds, B, cap)
     if _one_launch(z, ops, B) and not (torch.is_tensor(kappa)
                                        and kappa.device.type != "cpu"):
         return skappa_support_auto(z, kappa, rounds=rounds, cap=cap)
@@ -329,7 +438,8 @@ def support_skappa_ladder(z: torch.Tensor, kappa, *,
 # --------------------------------------------------------------------------
 def s_update(z: torch.Tensor, t, v, kappa, *, ops: LadderOps = DEFAULT_OPS,
              method: str = "ladder", rounds: int | None = None):
-    """Closed-form ADMM s-step (12): argmin_{s in S^kappa} (z^T s - (t - v))^2."""
+    """Closed-form ADMM s-step (12): argmin_{s in S^kappa} (z^T s - (t - v))^2
+    (per lane for z (B, d) with (B,) t, v and kappa)."""
     if method == "sort":
         u_max, s_star = support_skappa_sort(z, kappa)
     else:
@@ -339,6 +449,8 @@ def s_update(z: torch.Tensor, t, v, kappa, *, ops: LadderOps = DEFAULT_OPS,
     c_cl = torch.minimum(torch.maximum(c, -u_max), u_max)
     theta = torch.where(u_max > 0,
                         c_cl / torch.where(u_max > 0, u_max, 1.0), 0.0)
+    if z.ndim == 2:
+        return theta[:, None] * s_star
     return theta * s_star
 
 
@@ -362,3 +474,166 @@ def hard_threshold_sort(z: torch.Tensor, kappa) -> torch.Tensor:
     ranks = torch.argsort(torch.argsort(-torch.abs(z), stable=True),
                           stable=True)
     return torch.where(ranks < kappa, z, 0.0)
+
+
+def hard_threshold_lanes(z: torch.Tensor, kappa: torch.Tensor
+                         ) -> torch.Tensor:
+    """:func:`hard_threshold` of every row of z (B, d) at its own kappa
+    (B,): the ceil(kappa) largest magnitudes, ties to the lower index (the
+    same entries the solo function keeps)."""
+    order = torch.sort(torch.abs(z), dim=-1, descending=True,
+                       stable=True).indices
+    ranks = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(z.shape[-1], device=z.device).expand_as(
+            order).contiguous())
+    keep = ranks < torch.ceil(kappa.to(torch.float64)).to(ranks.dtype)[:, None]
+    return torch.where(keep, z, 0.0)
+
+
+def check_theorem_certificate(x: torch.Tensor, kappa, tol: float = 1e-6
+                              ) -> dict[str, torch.Tensor]:
+    """The (s, t) certificate of Theorem 2.1 for a kappa-sparse x, and the
+    residuals of its four conditions (``repro.core.bilinear
+    .check_theorem_certificate``)."""
+    t = torch.sum(torch.abs(x))
+    s = torch.sign(x)   # ||s||_1 = ||x||_0 <= kappa when x is kappa-sparse
+    return {
+        "bilinear": torch.abs(g(x, s, t)),
+        "l1_x": torch.clamp_min(torch.sum(torch.abs(x)) - t, 0.0),
+        "l1_s": torch.clamp_min(torch.sum(torch.abs(s)) - kappa, 0.0),
+        "linf_s": torch.clamp_min(torch.max(torch.abs(s)) - 1.0, 0.0),
+    }
+
+
+# --------------------------------------------------------------------------
+# lanes
+# --------------------------------------------------------------------------
+def _lanes_on_card(z: torch.Tensor, ops: LadderOps, B: int,
+                   what: str) -> bool:
+    """Whether lanes z (B, d) go to a lane kernel: every CUDA lane operand
+    does, or raises where no lane kernel takes it; CPU lanes run the
+    composed path."""
+    if z.device.type != "cuda":
+        return False
+    if ops is not DEFAULT_OPS or B != LADDER_B:
+        raise ValueError(f"{what}: lanes on the card take the default "
+                         f"reductions and {LADDER_B} rungs (the lane "
+                         "kernels)")
+    if z.dtype != torch.float32 or not bisect_proj.plan(
+            z.shape[-1]).one_launch:
+        raise ValueError(f"{what}: no lane kernel for {z.dtype} rows of "
+                         f"{z.shape[-1]} entries (float32, at most "
+                         f"{bisect_proj.MAX_N})")
+    return True
+
+
+def _rung_crossings(az, th, kap_or_t0, l1: bool):
+    """Per lane: the number of leading rungs of th (L, B) on the h > 0
+    (``l1``) or count > kappa side, from (L, d, B) f32 terms."""
+    d = az[:, :, None] - th[:, None, :]
+    if l1:
+        h = torch.clamp_min(d, 0.0).sum(1) - kap_or_t0[:, None] - th
+        return torch.sum(h > 0, 1)
+    return torch.sum((d > 0).to(az.dtype).sum(1) > kap_or_t0[:, None], 1)
+
+
+def _lane_bracket(az, lo, hi, rounds, B, target, l1: bool):
+    """``rounds`` bracketing rounds of every lane's [lo, hi]."""
+    ar = torch.arange(1, B + 1, dtype=lo.dtype, device=lo.device)
+    for _ in range(rounds):
+        th = lo[:, None] + (hi - lo)[:, None] * ar / B
+        idx = _rung_crossings(az, th, target, l1)
+        below = th.gather(1, torch.clamp_min(idx - 1, 0)[:, None])[:, 0]
+        above = th.gather(1, torch.clamp_max(idx, B - 1)[:, None])[:, 0]
+        lo, hi = (torch.where(idx == 0, lo, below),
+                  torch.where(idx == B, hi, above))
+    return lo, hi
+
+
+def _project_lanes(z0, t0, rounds, B, cap):
+    """:func:`project_l1_epigraph`'s composed path on every lane (the
+    default reductions per row)."""
+    dt = z0.dtype
+    t0 = torch.as_tensor(t0, dtype=dt, device=z0.device).expand(
+        z0.shape[0])
+    az = torch.abs(z0)
+    abs_sum = torch.sum(az, -1)
+    hi0 = torch.amax(az, -1)
+    inside = abs_sum <= t0
+    apex = (-t0 - hi0) > 0
+    lo = torch.zeros_like(hi0)
+    if rounds:
+        lo, _ = _lane_bracket(az, lo, hi0, rounds, B, t0, True)
+
+    def propose(th):
+        d = az - th[:, None]
+        hv = torch.clamp_min(d, 0.0).sum(-1) - t0 - th
+        return torch.maximum(th + hv / ((d > 0).to(dt).sum(-1) + 1.0), th)
+
+    def step(state):
+        th, _ = state
+        new = propose(th)
+        return (new, th), new > th
+
+    theta0 = propose(lo)
+    theta, _ = _masked_loop(step, (theta0, lo), theta0 > lo, 1, cap)
+    theta = torch.where(inside, 0.0, theta)
+    to_apex = apex & ~inside
+    z = torch.where(to_apex[:, None], 0.0,
+                    torch.sign(z0) * torch.clamp_min(az - theta[:, None],
+                                                     0.0))
+    t = torch.where(to_apex, torch.clamp_min(t0, 0.0), t0 + theta)
+    return z, t
+
+
+def _support_lanes(z, kappa, rounds, B, cap):
+    """:func:`support_skappa_ladder`'s composed path on every lane."""
+    az = torch.abs(z)
+    dt = az.dtype
+    kap = torch.as_tensor(kappa, device=z.device).to(dt).expand(z.shape[0])
+    hi0 = torch.amax(az, -1)
+    c0 = (az > 0).to(dt).sum(-1)
+    all_in = c0 <= kap
+    lo, hi = torch.zeros_like(hi0), hi0
+    if rounds:
+        lo, hi = _lane_bracket(az, lo, hi, rounds, B, kap, False)
+    neg_inf = torch.full_like(hi0, -math.inf)
+    pos_inf = torch.full_like(hi0, math.inf)
+
+    def count(x):
+        return ((az - x[:, None]) > 0).to(dt).sum(-1)
+
+    def step(state):
+        lo, hi, _, _, _ = state
+        band = (az > lo[:, None]) & (az <= hi[:, None])
+        a = (torch.where(band, az, 0.0).sum(-1)
+             / torch.clamp_min(band.to(dt).sum(-1), 1.0))
+        a = torch.minimum(torch.maximum(a, torch.nextafter(lo, pos_inf)), hi)
+        am = torch.nextafter(a, neg_inf)
+        ap = torch.nextafter(a, pos_inf)
+        cm, ca, cp = count(am), count(a), count(ap)
+        done1 = (cm > kap) & (kap >= ca)
+        done2 = (ca > kap) & (kap >= cp)
+        done = done1 | done2
+        tau = torch.where(done2, ap, a)
+        c_tau = torch.where(done2, cp, ca)
+        ceq = torch.where(done2, ca - cp, cm - ca)
+        go_lo = (~done) & (ca > kap)
+        lo_n = torch.where(go_lo, a, lo)
+        hi_n = torch.where((~done) & (~go_lo), am, hi)
+        return (lo_n, hi_n, tau, c_tau, ceq), ~done
+
+    zero = torch.zeros_like(c0)
+    _, _, tau, c_tau, ceq = _masked_loop(step, (lo, hi, hi, zero, zero),
+                                         ~all_in, 0, cap)
+    tau = torch.where(all_in, 0.0, tau)
+    c_tau = torch.where(all_in, c0, c_tau)
+    ceq = torch.where(all_in, 0.0, ceq)
+    above = (az > tau[:, None]).to(dt)
+    at_tau = ((az == tau[:, None]) & (tau[:, None] > 0)).to(dt)
+    leftover = torch.minimum(torch.clamp_min(kap - c_tau, 0.0),
+                             torch.clamp_min(ceq, 0.0))
+    bnd_w = torch.where(ceq > 0, leftover / torch.where(ceq > 0, ceq, 1.0),
+                        0.0)
+    w = above + bnd_w[:, None] * at_tau
+    return torch.sum(az * w, -1), torch.sign(z) * w

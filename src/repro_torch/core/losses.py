@@ -14,10 +14,17 @@ feature-split sub-solver), and the inference maps ``decision`` and
 so leading axes (the nodes) pass through. The per-sample Newton loops of
 the logistic and softmax prox keep the JAX package's fixed iteration
 counts (25 and 20).
+
+The fleet maps ``value_many`` / ``decision_many`` / ``predict_many`` take a
+leading problem axis (``(B, m)`` scores or ``(B, m, C)`` logits): each
+registry loss sums its per-sample terms over every axis but the first
+(each problem's sum over its own row, as ``value`` sums it), and the
+inference maps act elementwise or on the trailing class axis already.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable
 
 import torch
@@ -49,10 +56,37 @@ class Loss:
     decision: Callable[[torch.Tensor], torch.Tensor] = _identity
     predict: Callable[[torch.Tensor], torch.Tensor] = _identity
 
+    def predict_dim(self, n_features: int) -> int:
+        return n_features * self.n_classes
+
+    def value_many(self, preds: torch.Tensor,
+                   bs: torch.Tensor) -> torch.Tensor:
+        """Per-problem training losses of a stacked fleet: ``preds`` (B, m)
+        or (B, m, C), ``bs`` (B, m) -> (B,), ``value(preds[i], bs[i])``
+        each. A loss whose ``value`` takes no ``many`` keyword is summed
+        problem by problem."""
+        if "many" in inspect.signature(self.value).parameters:
+            return self.value(preds, bs, many=True)
+        return torch.stack([self.value(p, b) for p, b in zip(preds, bs)])
+
+    def decision_many(self, preds: torch.Tensor) -> torch.Tensor:
+        """Batched ``decision`` map (it acts per score already)."""
+        return self.decision(preds)
+
+    def predict_many(self, preds: torch.Tensor) -> torch.Tensor:
+        """Batched ``predict`` map: (B, m[, C]) scores to per-problem
+        predicted targets."""
+        return self.predict(preds)
+
+
+def _total(x: torch.Tensor, many: bool) -> torch.Tensor:
+    """The sum of x, or with ``many`` each problem's (the leading axis)."""
+    return x.flatten(1).sum(1) if many else torch.sum(x)
+
 
 # ----------------------------------------------------------------- squared --
-def _sq_value(pred, b):
-    return 0.5 * torch.sum((pred - b) ** 2)
+def _sq_value(pred, b, many=False):
+    return 0.5 * _total((pred - b) ** 2, many)
 
 
 def _sq_grad(pred, b):
@@ -68,9 +102,9 @@ squared = Loss("squared", _sq_value, _sq_grad, _sq_prox)
 
 
 # ---------------------------------------------------------------- logistic --
-def _log_value(pred, b):
+def _log_value(pred, b, many=False):
     # labels b in {-1, +1}; sum_i log(1 + exp(-b_i pred_i))
-    return torch.sum(F.softplus(-b * pred))
+    return _total(F.softplus(-b * pred), many)
 
 
 def _log_grad(pred, b):
@@ -95,8 +129,8 @@ logistic = Loss("logistic", _log_value, _log_grad, _log_prox,
 
 
 # ------------------------------------------------------------------- hinge --
-def _hinge_value(pred, b):
-    return torch.sum(torch.clamp_min(1.0 - b * pred, 0.0))
+def _hinge_value(pred, b, many=False):
+    return _total(torch.clamp_min(1.0 - b * pred, 0.0), many)
 
 
 def _hinge_grad(pred, b):
@@ -117,13 +151,13 @@ hinge = Loss("hinge", _hinge_value, _hinge_grad, _hinge_prox,
 
 
 # ---------------------------------------------------------- smoothed hinge --
-def _shinge_value(pred, b, eps: float = 0.5):
+def _shinge_value(pred, b, eps: float = 0.5, many=False):
     """Huberized hinge (quadratic smoothing on [1-eps, 1])."""
     m = b * pred
     quad = 0.5 / eps * (1.0 - m) ** 2
     lin = 1.0 - m - 0.5 * eps
-    return torch.sum(torch.where(m >= 1.0, 0.0,
-                                 torch.where(m >= 1.0 - eps, quad, lin)))
+    return _total(torch.where(m >= 1.0, 0.0,
+                              torch.where(m >= 1.0 - eps, quad, lin)), many)
 
 
 def _shinge_grad(pred, b, eps: float = 0.5):
@@ -158,10 +192,10 @@ def make_softmax(n_classes: int) -> Loss:
     def onehot(b, like):
         return F.one_hot(b.long(), C).to(like.dtype)
 
-    def value(pred, b):
+    def value(pred, b, many=False):
         lse = torch.logsumexp(pred, dim=-1)
         picked = torch.gather(pred, -1, b.long()[..., None])[..., 0]
-        return torch.sum(lse - picked)
+        return _total(lse - picked, many)
 
     def grad(pred, b):
         return torch.softmax(pred, dim=-1) - onehot(b, pred)

@@ -8,15 +8,21 @@ model.
   the previous point's full ADMM state ``(x, u, z, t, s, v)``
   (``warm_start=False`` starts every point from the zero state: the
   sequential cold baseline, with the same numerics).
-* :func:`fit_grid` solves every point from the zero state. The JAX package
-  batches these fits on a ``vmap`` lane axis; the port has no lane axis
-  yet, so it runs them as the sequential cold scan, as the JAX package's
-  sharded engine does, and the result says so (``strategy="cold-scan"``).
+* :func:`fit_grid` solves every point from the zero state, all points at
+  once on a lane axis (``strategy="vmap"``, the JAX package's ``vmap``):
+  one masked loop over ``BiCADMM._lane_step`` until every point has
+  stopped, each outer iteration's projections one launch for all points.
+  The points share the dataset and its factors; the x-update takes every
+  point's prox center as a column of one K = P product
+  (``prox.x_solve_columns``), so A is never copied per point. Under the
+  feature split (whose inner state and factors are per point) the grid
+  runs as the sequential cold scan (``strategy="cold-scan"``).
 
 The JAX package scans the points in one compiled ``lax.scan``; here the
 scan is a Python loop over ``BiCADMM._run_while``. The grids stay on the
 host, as tensors of the data dtype, and each point's kappa, gamma and rho_c
-are read from there: the projection kernels take kappa as a number.
+are read from there: the solo projection kernels take kappa as a number
+(the grid's lanes read theirs on the device).
 
 ``gammas`` / ``rho_cs`` grids switch the squared loss's x-update to its
 spectral factors (``NodeProxEngine(dynamic=True)``), set up once for the
@@ -36,7 +42,8 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from .bicadmm import BiCADMM, reset_for_resume
+from .bicadmm import BiCADMM, BiCADMMState, SolveParams, reset_for_resume
+from .prox import newton_cg_prox_columns, x_solve_columns
 from .results import SparsePath
 from ..kernels.ops import matvec_auto
 
@@ -69,7 +76,12 @@ def _grids(solver: BiCADMM, kappas, gammas, rho_cs, dtype):
 def _point_outputs(solver: BiCADMM, As, bs, st, params) -> dict:
     """Finalize one grid point (threshold, polish, status) as the JAX
     package's compiled scan does, and its training loss; the predictions go
-    through the matvec kernel, which reads bf16 / fp16 data in place."""
+    through the matvec kernel, which reads bf16 / fp16 data in place. A
+    lane state over per-lane data ``As`` (B, N, m, n) (the fleet) is
+    finalized lane by lane in one pass: the outputs then carry the lane
+    axis."""
+    if st.z.ndim == 2:
+        return _lane_outputs(solver, As, bs, st, params)
     res = solver._finalize(As, bs, st, params, compiled=True)
     n = As.shape[2]
     pred = matvec_auto(As.reshape(-1, n), res.coef)
@@ -79,6 +91,21 @@ def _point_outputs(solver: BiCADMM, As, bs, st, params) -> dict:
                 cardinality=torch.sum(res.support, dtype=torch.int32),
                 status=res.status,
                 train_loss=solver.loss.value(pred, bs.reshape(-1)))
+
+
+def _lane_outputs(solver: BiCADMM, As, bs, st, params) -> dict:
+    B, N, m, n = As.shape
+    K = solver.loss.n_classes
+    x, support, status = solver._finalize_lanes(As, bs, st, params)
+    A_all = As.reshape(B, N * m, n)
+    pred = matvec_auto(A_all, x.reshape(B, n, K))
+    pred = pred[..., 0] if K == 1 else pred
+    return dict(x=x, z=st.z, support=support, iters=st.k, p_r=st.p_r,
+                d_r=st.d_r, b_r=st.b_r,
+                cardinality=torch.sum(support, dim=1, dtype=torch.int32),
+                status=status,
+                train_loss=solver.loss.value_many(pred,
+                                                  bs.reshape(B, N * m)))
 
 
 def _pack(solver: BiCADMM, outs: list, kaps, gams, rhos, *, state=None,
@@ -127,12 +154,70 @@ def fit_path(solver: BiCADMM, As, bs, kappas, *, gammas=None, rho_cs=None,
 
 def fit_grid(solver: BiCADMM, As, bs, kappas, *, gammas=None,
              rho_cs=None) -> SparsePath:
-    """Independent cold fits of every grid point, run as the sequential
-    cold scan (no lane axis in the port yet): the same numerics as
-    ``fit_path(..., warm_start=False)``, no state returned."""
-    outs, grids, _ = _scan(solver, As, bs, kappas, gammas, rho_cs,
-                           warm_start=False)
-    return _pack(solver, outs, *grids, strategy="cold-scan")
+    """Independent cold fits of every grid point, all points on a lane
+    axis (``strategy="vmap"``; the sequential cold scan under the feature
+    split). No state is returned."""
+    if solver.cfg.use_feature_split:
+        outs, grids, _ = _scan(solver, As, bs, kappas, gammas, rho_cs,
+                               warm_start=False)
+        return _pack(solver, outs, *grids, strategy="cold-scan")
+    kaps, gams, rhos, dyn = _grids(solver, kappas, gammas, rho_cs, As.dtype)
+    factors, N, n = solver._setup(As, bs, dynamic_penalties=dyn)
+    P = kaps.shape[0]
+    st0 = solver._init_state(As, n, solver.loss.n_classes)
+    lanes = BiCADMMState(*(None if f is None else
+                           f.expand((P,) + f.shape).clone() for f in st0))
+    dt, dev = st0.z.dtype, As.device
+    if dyn:   # formed in the grid dtype, as the scan's _make_params forms them
+        cfg = solver.cfg
+        rho_b = (torch.full_like(rhos, cfg.rho_b) if cfg.rho_b is not None
+                 else cfg.alpha * rhos)
+        params = SolveParams(kappa=kaps.to(dev, dt), rho_c=rhos.to(dev, dt),
+                             rho_b=rho_b.to(dev, dt),
+                             sigma=(1.0 / (N * gams)).to(dev, dt))
+    else:
+        params = solver._make_params(N)._replace(kappa=kaps.to(dev, dt))
+    update = _grid_x_update(solver, factors, As, bs, params, P)
+    st = solver._run_while_lanes(
+        lambda s: solver._lane_step(update, params, s), lanes)
+    outs = []
+    for i in range(P):
+        kappa = kaps[i].item()
+        kappa = int(kappa) if float(kappa).is_integer() else kappa
+        pen = dict(gamma=gams[i], rho_c=rhos[i]) if dyn else {}
+        outs.append(_point_outputs(
+            solver, As, bs, BiCADMMState(*(None if f is None else f[i]
+                                           for f in st)),
+            solver._make_params(N, kappa=kappa, **pen)))
+    return _pack(solver, outs, kaps, gams, rhos, strategy="vmap")
+
+
+def _grid_x_update(solver: BiCADMM, factors, As, bs, params, P: int):
+    """The (7a) step of P grid points over one dataset ``As`` (N, m, n):
+    the prox centers (P, N, d) as the columns of the shared factors'
+    solves (squared loss) or of Newton-CG's products."""
+    loss = solver.loss
+    N, m, n = As.shape
+    K = loss.n_classes
+
+    def to_columns(v):            # (P, N, n K) -> (N, n, K P)
+        return v.reshape(P, N, n, K).permute(1, 2, 3, 0).reshape(N, n, -1)
+
+    def from_columns(v):          # (N, n, K P) -> (P, N, n K)
+        return v.reshape(N, n, K, P).permute(3, 0, 1, 2).reshape(P, N, -1)
+
+    if loss.name == "squared":
+        def update(q, x_prev):
+            return from_columns(x_solve_columns(
+                factors, to_columns(q), params.rho_c, params.sigma,
+                to_columns(x_prev)))
+        return update
+
+    def update(q, x_prev):
+        return from_columns(newton_cg_prox_columns(
+            loss, As, bs, to_columns(q), params.sigma, params.rho_c,
+            newton_iters=solver.cfg.newton_iters))
+    return update
 
 
 # ------------------------------------------------------------ kappa_ladder --
@@ -142,9 +227,14 @@ def fit_grid(solver: BiCADMM, As, bs, kappas, *, gammas=None,
 # logf), log10 as log(x) * f32(1/ln 10), the linspace as XLA's simplifier
 # rewrites it (the division by num - 1 becomes a product with its f32
 # reciprocal, stop * step is reassociated to iota * (log(stop) * f32(c/div)))
-# with the fused multiply-adds of its code for the host (the grid up to 17
-# steps unrolled with constant lanes; past that a vector loop and a scalar
-# tail of (num - 1) % 4 steps), and the C library's powf.
+# with the fused multiply-adds of its code for the host, and the C library's
+# powf. That code depends on div = num - 1. Up to 17 steps it is unrolled
+# with constant lanes. Up to 79 the vector part is unrolled too: 8 lanes a
+# vector, and below 56 steps one more vector of 4, so the compiler folds
+# each lane's 1 - i * r into a constant (two roundings); the scalar tail
+# after it computes that term with a fused multiply-add. From 80 steps on
+# the vector part is a loop of 16 lanes a trip, which computes the term at
+# run time with a fused multiply-add in every lane.
 _F = np.float32
 _LOG10_E = _F(0.4342944819032518)
 _CEPHES_LOG = tuple(_F(c) for c in (
@@ -152,6 +242,10 @@ _CEPHES_LOG = tuple(_F(c) for c in (
     1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
     3.3333331174e-1))
 _UNROLLED = 17
+# the folded vector lanes: div - div % 4 below this many steps, div - div %
+# 8 from it, none from _VECTOR_LOOP on
+_FOLD_BY_8 = 56
+_VECTOR_LOOP = 80
 
 
 def _f32_bits(x) -> int:
@@ -214,11 +308,18 @@ def _geomspace_f32(lo: int, hi: int, num: int) -> list:
         div = num - 1
         r = _F(_F(1) / _F(div))
         xs = _F(log_hi * _F(_LOG10_E * r))
-        vector = div - div % 4 if div > _UNROLLED else div
+        if div <= _UNROLLED:
+            folded = div
+        elif div < _FOLD_BY_8:
+            folded = div - div % 4
+        elif div < _VECTOR_LOOP:
+            folded = div - div % 8
+        else:
+            folded = 0
         lin = []
         for i in range(div):
             it = _F(i)
-            if i >= vector:            # the scalar tail
+            if i >= folded:            # computed at run time
                 lin.append(_fma(it, xs, _F(a * _fma(-it, r, _F(1)))))
                 continue
             sub = _F(_F(1) - _F(it * r))

@@ -317,6 +317,34 @@ def _cg(matvec: Callable, rhs: torch.Tensor, iters: int,
     return x
 
 
+# the losses whose gradient is elementwise in pred: the directional
+# derivative of that gradient is the same expression by reverse mode as by
+# forward mode, op for op (each op's reverse formula is its forward formula,
+# a product by a constant commutes), so the two agree bit for bit
+# (tests/test_torch_leftovers.py); reverse mode runs in C++, where
+# torch.func.jvp takes Python decompositions of each op (~20 times slower a
+# product, most of a Newton-CG fit's host time)
+_ELEMENTWISE_GRADS = ("squared", "logistic", "hinge", "smoothed_hinge")
+
+
+def grad_tangent(loss, pred: torch.Tensor, b: torch.Tensor) -> Callable:
+    """``t -> (d loss.grad / d pred)[t]`` at ``pred``: the second
+    derivative in a Gauss-Newton Hessian-vector product, as the JAX package
+    takes it by ``jax.jvp``. For the elementwise registry losses one
+    recorded graph of the gradient serves every product (reverse mode, the
+    same bits as forward mode); else ``torch.func.jvp`` a product."""
+    if loss.name not in _ELEMENTWISE_GRADS:
+        return lambda t: torch.func.jvp(lambda pr: loss.grad(pr, b),
+                                        (pred,), (t,))[1]
+    leaf = pred.detach().requires_grad_(True)
+    with torch.enable_grad():
+        g = loss.grad(leaf, b)
+    if not g.requires_grad:          # a piecewise-constant gradient
+        return torch.zeros_like
+    return lambda t: torch.autograd.grad(g, leaf, grad_outputs=t,
+                                         retain_graph=True)[0]
+
+
 def newton_cg_prox(loss, A, b, q, sigma: float, rho_c: float,
                    newton_iters: int = 15, cg_iters: int = 50
                    ) -> torch.Tensor:
@@ -326,19 +354,19 @@ def newton_cg_prox(loss, A, b, q, sigma: float, rho_c: float,
     ``A`` (N, m, n), ``b`` (N, m), ``q`` (N, n) or (N, n, C) for a C-class
     loss. The Hessian-vector product is the Gauss form
     A^T (d grad / d pred)[A p] + (sigma + rho_c) p, with the loss's second
-    derivative taken by forward-mode AD (``torch.func.jvp``) of its
-    gradient, as the JAX package takes ``jax.jvp``. Every A-product runs
-    through the ``matvec`` / ``rmatvec`` kernels.
+    derivative taken by :func:`grad_tangent`, as the JAX package takes
+    ``jax.jvp``. Every A-product runs through the ``matvec`` / ``rmatvec``
+    kernels.
     """
     x = q
     for _ in range(newton_iters):
         pred = matvec_auto(A, x)
         g = rmatvec_auto(A, loss.grad(pred, b)) + sigma * x + rho_c * (x - q)
+        dgrad = grad_tangent(loss, pred, b)
 
-        def hvp(p, pred=pred):
-            _, dlg = torch.func.jvp(lambda pr: loss.grad(pr, b), (pred,),
-                                    (matvec_auto(A, p),))
-            return rmatvec_auto(A, dlg) + (sigma + rho_c) * p
+        def hvp(p, dgrad=dgrad):
+            return rmatvec_auto(A, dgrad(matvec_auto(A, p))) + (
+                sigma + rho_c) * p
 
         x = x - _cg(hvp, g, cg_iters)
     return x
@@ -353,6 +381,109 @@ def direct_prox(loss, A, b, q, sigma: float, rho_c: float,
             raise ValueError("the squared loss needs ridge_setup factors")
         return ridge_prox_factorized(ridge, q, rho_c)
     return newton_cg_prox(loss, A, b, q, sigma, rho_c)
+
+
+# ------------------------------------------ shared factors, many points ----
+def _columns(v):
+    """A per-point (P,) tensor as a (1, 1, P) row over column-form
+    operands (N, k, P); a Python scalar as is."""
+    return v.reshape(1, 1, -1) if torch.is_tensor(v) else v
+
+
+def x_solve_columns(factors, Q, rho_c, sigma, X0=None) -> torch.Tensor:
+    """:func:`x_solve` of P problems that share one dataset (a grid's
+    points): the prox centers in column form ``Q`` (N, n, P), each point's
+    ``rho_c`` / ``sigma`` a Python scalar shared by all or a (P,) tensor.
+    The factors are the dataset's own, set up once; every A-product takes
+    the P columns at once (the ``matvec`` / ``rmatvec`` kernels' K > 1
+    form), so the data is never copied per point. Returns (N, n, P)."""
+    rc, sg = _columns(rho_c), _columns(sigma)
+    if isinstance(factors, (RidgeFactors, EighRidgeFactors,
+                            WoodburyFactors, WoodburyEighFactors,
+                            CGFactors)):
+        rhs = factors.Atb[..., None] + rc * Q
+    if isinstance(factors, RidgeFactors):
+        y = torch.linalg.solve_triangular(factors.chol, rhs, upper=False)
+        return torch.linalg.solve_triangular(factors.chol.mT, y, upper=True)
+    if isinstance(factors, EighRidgeFactors):
+        V = factors.V
+        return V @ ((V.mT @ rhs) / (factors.evals[..., None] + sg + rc))
+    if isinstance(factors, WoodburyFactors):
+        t = matvec_auto(factors.A, rhs)
+        y = torch.linalg.solve_triangular(factors.chol, t, upper=False)
+        y = torch.linalg.solve_triangular(factors.chol.mT, y, upper=True)
+        return (rhs - rmatvec_auto(factors.A, y)) / factors.c
+    if isinstance(factors, WoodburyEighFactors):
+        c = sg + rc
+        U, A = factors.U, factors.A
+
+        def solve(r):
+            y = U @ ((U.mT @ matvec_auto(A, r)) / (factors.evals[..., None]
+                                                   + c))
+            return (r - rmatvec_auto(A, y)) / c
+
+        x0 = solve(rhs)
+        return x0 + solve(rhs - normal_matvec_auto(A, x0, c))
+    if isinstance(factors, CGFactors):
+        c = sg + rc
+        c_sys = c.reshape(1, -1, 1) if torch.is_tensor(c) else c
+        inv = 1.0 / (factors.diag[:, None, :] + c_sys)     # (N, P, n)
+        x0 = (Q if X0 is None else X0).mT
+        x = pcg(lambda p: normal_matvec_auto(factors.A, p.mT, c).mT,
+                rhs.mT, x0, lambda r: inv * r, factors.iters, factors.tol)
+        return x.mT
+    raise TypeError(f"unknown x-update factor type {type(factors)!r}")
+
+
+def newton_cg_prox_columns(loss, A, b, Q, sigma, rho_c,
+                           newton_iters: int = 15, cg_iters: int = 50
+                           ) -> torch.Tensor:
+    """:func:`newton_cg_prox` of P points that share one dataset: ``Q``
+    (N, n, C P) in column form (point p of class c in column c P + p; C = 1
+    for the margin losses), per-point ``sigma`` / ``rho_c`` scalars or
+    (P,) tensors. Every A-product is one K = C P product; each (node,
+    point) is its own CG system, as the JAX package's vmapped loops leave
+    it."""
+    N, n, CP = Q.shape
+    C = loss.n_classes
+    P = CP // C
+
+    def per_col(v):
+        return v.repeat(C).reshape(1, 1, CP) if torch.is_tensor(v) else v
+
+    sg, rc = per_col(sigma), per_col(rho_c)
+    bb = b[:, :, None]
+
+    def classes_last(cols):       # (N, m, C P) -> (N, m, P[, C])
+        v = cols.reshape(N, -1, C, P).permute(0, 1, 3, 2)
+        return v[..., 0] if C == 1 else v
+
+    def columns(v):               # (N, m, P[, C]) -> (N, m, C P)
+        v = v[..., None] if C == 1 else v
+        return v.permute(0, 1, 3, 2).reshape(N, -1, CP)
+
+    def grad(pred_cols):
+        return columns(loss.grad(classes_last(pred_cols), bb))
+
+    def systems(X):               # (N, n, C P) -> (N P, n C)
+        return X.reshape(N, n, C, P).permute(0, 3, 1, 2).reshape(N * P, -1)
+
+    def unsystems(S):
+        return S.reshape(N, P, n, C).permute(0, 2, 3, 1).reshape(N, n, CP)
+
+    x = Q
+    for _ in range(newton_iters):
+        pred = matvec_auto(A, x)
+        g = rmatvec_auto(A, grad(pred)) + sg * x + rc * (x - Q)
+        dgrad = grad_tangent(loss, classes_last(pred), bb)
+
+        def hvp(p, dgrad=dgrad):
+            pc = unsystems(p)
+            dlg = columns(dgrad(classes_last(matvec_auto(A, pc))))
+            return systems(rmatvec_auto(A, dlg) + (sg + rc) * pc)
+
+        x = x - unsystems(_cg(hvp, systems(g), cg_iters))
+    return x
 
 
 # ------------------------------------------------- the unified engine ----

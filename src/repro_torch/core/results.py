@@ -1,7 +1,8 @@
 """Result types of the port's solver (counterpart of
 ``repro.core.results``): :class:`SolveStatus`, the in-loop
-:func:`divergence_probe`, :func:`classify_status`, :class:`FitResult` and
-the stacked :class:`SparsePath` of a hyperparameter sweep.
+:func:`divergence_probe`, :func:`classify_status`, :func:`mark_aborted`,
+:class:`FitResult`, the fleet's :class:`FleetResult` and the stacked
+:class:`SparsePath` of a hyperparameter sweep.
 """
 from __future__ import annotations
 
@@ -45,6 +46,17 @@ def classify_status(iters, p_r, d_r, b_r, *, tol,
     return code.to(torch.int32)
 
 
+def mark_aborted(status, iters, iter_caps, max_iter) -> torch.Tensor:
+    """Reclassify ``MAX_ITER`` lanes that a per-lane external iteration cap
+    stopped (deadline caps, inert cap-0 padding) as ``ABORTED``.
+    Elementwise, no device sync."""
+    budget = torch.clamp_max(torch.as_tensor(iter_caps,
+                                             device=status.device), max_iter)
+    hit = ((status == int(SolveStatus.MAX_ITER)) & (budget < max_iter)
+           & (iters >= budget))
+    return torch.where(hit, int(SolveStatus.ABORTED), status).to(torch.int32)
+
+
 def status_name(status) -> str:
     """Human-readable name of a scalar status code (syncs the scalar)."""
     return SolveStatus(int(status)).name
@@ -84,6 +96,47 @@ class FitResult(NamedTuple):
     def status_name(self) -> str | None:
         """Name of the status code (``"CONVERGED"`` …), or ``None``."""
         return None if self.status is None else status_name(self.status)
+
+
+class FleetResult(NamedTuple):
+    """B independent problems solved together (:mod:`.fleet`,
+    ``repro_torch.api.fit_many``); leading axis = problem. Each lane has
+    its own data, hyperparameters and stopping point. ``result[i]`` is the
+    i-th problem's :class:`FitResult`, with its slice of the batched state
+    (a solo ``run_from`` can resume from it)."""
+    coef: torch.Tensor         # (B, n, K) sparse solutions
+    z: torch.Tensor            # (B, n*K) consensus iterates
+    support: torch.Tensor      # (B, n*K) bool
+    iters: torch.Tensor        # (B,) outer iterations spent per problem
+    p_r: torch.Tensor          # (B,)
+    d_r: torch.Tensor          # (B,)
+    b_r: torch.Tensor          # (B,)
+    cardinality: torch.Tensor  # (B,) int32 ||coef_b||_0
+    kappas: torch.Tensor       # (B,)
+    gammas: torch.Tensor       # (B,)
+    rho_cs: torch.Tensor       # (B,)
+    train_loss: Any = None     # (B,) per-problem training loss
+    state: Any = None          # batched solver state: warm-start the refit
+    strategy: str | None = None  # "fleet-vmap"
+    status: Any = None         # (B,) int32 SolveStatus codes
+
+    def __len__(self) -> int:
+        return int(self.coef.shape[0])
+
+    def __getitem__(self, i: int) -> FitResult:
+        """The i-th problem's solo-shaped :class:`FitResult` view."""
+        state = None if self.state is None else type(self.state)(
+            *(None if f is None else f[i] for f in self.state))
+        status = None if self.status is None else self.status[i]
+        return FitResult(self.coef[i], self.z[i], self.support[i],
+                         self.iters[i], self.p_r[i], self.d_r[i],
+                         self.b_r[i], history=None, state=state,
+                         status=status)
+
+    @property
+    def x(self) -> torch.Tensor:
+        """Flat ``(B, n*K)`` view of ``coef``."""
+        return self.coef.reshape(self.coef.shape[0], -1)
 
 
 class SparsePath(NamedTuple):

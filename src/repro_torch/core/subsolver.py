@@ -34,6 +34,17 @@ from ..kernels.ops import block_matvec_auto, block_rmatvec_auto, gram_auto
 from ..kernels.ref import block_widths
 
 
+def pad_features(A: torch.Tensor, M: int) -> tuple[torch.Tensor, int]:
+    """A (m, n) with zero columns appended so that M divides its width,
+    and the block width nb = ceil(n / M) (``repro.core.subsolver
+    .pad_features``). The solver itself never pads A (see above): this is
+    the JAX package's helper, for callers that want the padded layout."""
+    n = A.shape[-1]
+    nb = -(-n // M)
+    pad = M * nb - n
+    return (F.pad(A, (0, pad)) if pad else A), nb
+
+
 def split_blocks(x: torch.Tensor, M: int, nb: int) -> torch.Tensor:
     """(N, n, K) -> (N, M, nb, K), zero-padding the feature axis."""
     N, n, K = x.shape

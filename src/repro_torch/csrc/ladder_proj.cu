@@ -50,6 +50,23 @@
 // fixed tree moved with the cluster size, and with it the card-vs-CPU
 // parity fits' stopping iteration; PERF.md section 6.) s* depends on
 // counts alone and equals the plain version's bit for bit.
+//
+// The lane kernels (l1_lanes_kernel, skappa_lanes_kernel) project B
+// independent vectors of one width d in ONE launch: row b of a (B, d)
+// operand with its own t0[b] or kappa[b], read from device memory. They
+// run the same algorithm, with the same f32 operations, as the solo
+// kernels (one body, templated on the cluster size C and the threads a CTA
+// T), so a lane's output is the solo kernel's on that row, but for the f32
+// ties above (the rung sums' f64 order follows the layout). The layout
+// follows d (kernels/bisect_proj.py, lane_plan): where plan(d) takes a
+// cluster (d >= 1,000) each lane is that cluster of 1,024-thread CTAs, the
+// lanes on gridDim.y; below it one CTA a lane, of 32 threads up to d = 64,
+// 128 up to 256 and 1,024 beyond, so that a thread's share of a rung pass
+// stays at most 256 terms (128 rungs / 32 threads x 64 entries, one rung x
+// 256 entries, one rung x d / 8 < 125 entries) and a narrow lane does not
+// hold a 1,024-thread CTA of which 98 % idles (d = 16: a warp a lane,
+// 32 CTAs an SM). A grid's y extent is capped at 65,535; a CTA then takes
+// lanes y, y + gridDim.y, ...
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,9 +76,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRungs = 128;                  // B, one rung a thread
-constexpr int kGroups = kThreads / kRungs;   // |z| split eight ways a round
+constexpr int kMaxLaneGrid = 65535;          // gridDim.y's limit
 constexpr int kMaxPerCta = 51200;            // |z| entries a CTA holds
 constexpr int kMaxCtas = 8;                  // the portable cluster size
 
@@ -82,7 +98,7 @@ __device__ long long g_trace_clock[kTraceMax];
 __device__ int g_trace_code[kTraceMax];
 __device__ int g_trace_n;
 __device__ __forceinline__ void stamp(Stamp code) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  if (threadIdx.x != 0 || blockIdx.x != 0 || blockIdx.y != 0) return;
   const int i = code == kStart ? 0 : g_trace_n;
   if (i < kTraceMax) {
     g_trace_clock[i] = clock64();
@@ -101,14 +117,24 @@ struct Part {
   float mx;
 };
 
+// A CTA of T threads: its warps, and the groups that split |z| in a
+// bracketing round (T >= 128: thread t owns rung t % 128 over one group's
+// share of |z|; T < 128: one group, thread t owns rungs t, t + T, ...).
+template <int T>
+struct Layout {
+  static constexpr int kWarps = T / 32;
+  static constexpr int kGroups = T >= kRungs ? T / kRungs : 1;
+};
+
+template <int T>
 struct Shared {
   float th[kRungs];                 // the round's rungs
-  double gsum[kGroups][kRungs];     // per group, per rung
-  int gcnt[kGroups][kRungs];
+  double gsum[Layout<T>::kGroups][kRungs];  // per group, per rung
+  int gcnt[Layout<T>::kGroups][kRungs];
   double rsum[2][kRungs];           // this CTA's per-rung partials
   int rcnt[2][kRungs];              //   (double-buffered across rounds)
   int cross[kRungs / 32];
-  Part wpart[kWarps];
+  Part wpart[Layout<T>::kWarps];
   Part slot[2];                     // this CTA's partial (double-buffered)
   Part total[2];                    // the cluster's total (double-buffered)
 };
@@ -169,8 +195,8 @@ __device__ __forceinline__ void add(Part& a, const Part& b) {
 
 // Every thread's partial -> the cluster's total, the same in every thread
 // of every CTA: lanes, then warps in order, then CTAs in rank order.
-template <int C>
-__device__ Part reduce(Part p, Shared& sh, int& buf) {
+template <int C, int T>
+__device__ Part reduce(Part p, Shared<T>& sh, int& buf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   stamp(kReduceEnter);
   p = warp_reduce(p);
@@ -178,7 +204,8 @@ __device__ Part reduce(Part p, Shared& sh, int& buf) {
   __syncthreads();
   stamp(kReduceCta);
   if (warp == 0) {
-    Part q = warp_reduce(sh.wpart[lane]);
+    const Part none = {0.0, {0, 0, 0}, 0.f};
+    Part q = warp_reduce(lane < Layout<T>::kWarps ? sh.wpart[lane] : none);
     if (lane == 0) sh.slot[buf] = q;
   }
   cluster_sync<C>();
@@ -205,22 +232,11 @@ __device__ Part reduce(Part p, Shared& sh, int& buf) {
 // hv_b = (sum_b - t0) - th_b > 0 (ladder_refine); else count_b > kappa
 // (support_skappa_ladder), where only the counts are needed. On return
 // [lo, hi] is the narrowed bracket.
-template <int C, bool kL1>
-__device__ void ladder_round(const float* zs, int len, float target,
-                             float& lo, float& hi, Shared& sh, int& rbuf) {
-  const int tid = threadIdx.x, b = tid % kRungs, g = tid / kRungs;
-  stamp(kRoundEnter);
-  __syncthreads();                 // the last round's readers of th are done
-  if (tid < kRungs) {
-    sh.th[tid] = lo + (hi - lo) * (float)(tid + 1) / (float)kRungs;
-  }
-  __syncthreads();
-  stamp(kRoundRungs);
-  const int per = (((len + kGroups - 1) / kGroups) + 3) & ~3;
-  const int i0 = min(len, g * per), i1 = min(len, i0 + per);
-  const float th = sh.th[b];
-  double s = 0.0;
-  int c = 0;
+// One rung's sum max(|z| - th, 0) (kL1) or count(|z| > th) over
+// zs[i0, i1), i0 a multiple of 4.
+template <bool kL1>
+__device__ __forceinline__ void rung_pass(const float* zs, int i0, int i1,
+                                          float th, double& s, int& c) {
   int i = i0;
   for (; i + 3 < i1; i += 4) {
     const float4 v = *reinterpret_cast<const float4*>(zs + i);
@@ -243,36 +259,68 @@ __device__ void ladder_round(const float* zs, int len, float target,
       c += d > 0.f;
     }
   }
-  stamp(kRoundPass);
-  sh.gsum[g][b] = s;
-  sh.gcnt[g][b] = c;
+}
+
+template <int C, int T, bool kL1>
+__device__ void ladder_round(const float* zs, int len, float target,
+                             float& lo, float& hi, Shared<T>& sh,
+                             int& rbuf) {
+  constexpr int kGroups = Layout<T>::kGroups;
+  const int tid = threadIdx.x;
+  stamp(kRoundEnter);
+  __syncthreads();                 // the last round's readers of th are done
+  for (int b = tid; b < kRungs; b += T) {
+    sh.th[b] = lo + (hi - lo) * (float)(b + 1) / (float)kRungs;
+  }
   __syncthreads();
-  if (tid < kRungs) {
+  stamp(kRoundRungs);
+  if constexpr (T >= kRungs) {
+    const int b = tid % kRungs, g = tid / kRungs;
+    const int per = (((len + kGroups - 1) / kGroups) + 3) & ~3;
+    const int i0 = min(len, g * per), i1 = min(len, i0 + per);
+    double s = 0.0;
+    int c = 0;
+    rung_pass<kL1>(zs, i0, i1, sh.th[b], s, c);
+    stamp(kRoundPass);
+    sh.gsum[g][b] = s;
+    sh.gcnt[g][b] = c;
+  } else {
+    for (int b = tid; b < kRungs; b += T) {
+      double s = 0.0;
+      int c = 0;
+      rung_pass<kL1>(zs, 0, len, sh.th[b], s, c);
+      sh.gsum[0][b] = s;
+      sh.gcnt[0][b] = c;
+    }
+    stamp(kRoundPass);
+  }
+  __syncthreads();
+  for (int b = tid; b < kRungs; b += T) {
     double ss = 0.0;
     int cc = 0;
 #pragma unroll
     for (int j = 0; j < kGroups; ++j) {
-      ss += sh.gsum[j][tid];
-      cc += sh.gcnt[j][tid];
+      ss += sh.gsum[j][b];
+      cc += sh.gcnt[j][b];
     }
-    sh.rsum[rbuf][tid] = ss;
-    sh.rcnt[rbuf][tid] = cc;
+    sh.rsum[rbuf][b] = ss;
+    sh.rcnt[rbuf][b] = cc;
   }
   stamp(kRoundGroups);
   cluster_sync<C>();
   stamp(kRoundBarrier);
-  if (tid < kRungs) {
+  for (int b = tid; b < kRungs; b += T) {   // whole warps (kRungs % 32 == 0)
     double ss = 0.0;
     int cc = 0;
 #pragma unroll
     for (int r = 0; r < C; ++r) {
-      ss += at_rank<C>(&sh.rsum[rbuf][0], r)[tid];
-      cc += at_rank<C>(&sh.rcnt[rbuf][0], r)[tid];
+      ss += at_rank<C>(&sh.rsum[rbuf][0], r)[b];
+      cc += at_rank<C>(&sh.rcnt[rbuf][0], r)[b];
     }
-    const bool flag = kL1 ? (((float)ss - target) - sh.th[tid]) > 0.f
+    const bool flag = kL1 ? (((float)ss - target) - sh.th[b]) > 0.f
                           : (float)cc > target;
     const unsigned m = __ballot_sync(0xffffffffu, flag);
-    if ((tid & 31) == 0) sh.cross[tid >> 5] = __popc(m);
+    if ((b & 31) == 0) sh.cross[b >> 5] = __popc(m);
   }
   __syncthreads();
   int idx = 0;
@@ -288,12 +336,13 @@ __device__ void ladder_round(const float* zs, int len, float target,
 
 // This CTA's slice of z: [rank * chunk, rank * chunk + len), into shared
 // memory as it is (the sign is needed for the output).
+template <int T>
 __device__ __forceinline__ int load_slice(const float* __restrict__ z,
                                           float* zs, int n, int chunk,
                                           int rank) {
   const int start = rank * chunk;
   const int len = max(0, min(chunk, n - start));
-  for (int i = threadIdx.x; i < len; i += kThreads) zs[i] = z[start + i];
+  for (int i = threadIdx.x; i < len; i += T) zs[i] = z[start + i];
   return len;
 }
 
@@ -307,42 +356,41 @@ __device__ __forceinline__ int cta_rank() {
 }
 
 // (sum max(|z| - theta, 0) in f64; count(|z| > theta)) over the cluster.
-template <int C>
+template <int C, int T>
 __device__ Part point_stats(const float* zs, int len, float theta,
-                            Shared& sh, int& buf) {
+                            Shared<T>& sh, int& buf) {
   Part p = {0.0, {0, 0, 0}, 0.f};
-  for (int i = threadIdx.x; i < len; i += kThreads) {
+  for (int i = threadIdx.x; i < len; i += T) {
     const float d = fabsf(zs[i]) - theta;
     p.sum += (double)clamp0(d);
     p.cnt[0] += d > 0.f;
   }
-  return reduce<C>(p, sh, buf);
+  return reduce<C, T>(p, sh, buf);
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, 1)
-l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
-               float* __restrict__ z, float* __restrict__ t,
-               float* __restrict__ theta_out, int* __restrict__ steps, int n,
-               int chunk, int rounds, int cap) {
-  extern __shared__ float4 smem4[];
-  float* zs = reinterpret_cast<float*>(smem4);
-  __shared__ Shared sh;
-  stamp(kStart);
+// The l1-epigraph projection of one vector z0 (n,) by one CTA (C = 1) or
+// one cluster of C CTAs of T threads: z (n,), *t and, where not null,
+// *theta_out and *steps. zs is the CTA's dynamic shared memory, chunk the
+// entries a CTA holds.
+template <int C, int T>
+__device__ __forceinline__ void l1_body(
+    const float* __restrict__ z0, float t0, float* __restrict__ z,
+    float* __restrict__ t, float* __restrict__ theta_out,
+    int* __restrict__ steps, int n, int chunk, int rounds, int cap,
+    float* zs, Shared<T>& sh) {
   const int rank = cta_rank<C>();
-  const int len = load_slice(z0, zs, n, chunk, rank);
+  const int len = load_slice<T>(z0, zs, n, chunk, rank);
   stamp(kLoaded);
-  const float t0 = *t0p;
   int buf = 0, rbuf = 0;
 
   // sum |z0| (f64) and max |z0|: the inside and apex tests
   Part p = {0.0, {0, 0, 0}, 0.f};
-  for (int i = threadIdx.x; i < len; i += kThreads) {
+  for (int i = threadIdx.x; i < len; i += T) {
     const float a = fabsf(zs[i]);
     p.sum += (double)a;
     p.mx = nan_max(p.mx, a);
   }
-  const Part tot = reduce<C>(p, sh, buf);
+  const Part tot = reduce<C, T>(p, sh, buf);
   const float abs_sum = (float)tot.sum, hi0 = tot.mx;
   const bool inside = abs_sum <= t0;
   const bool apex = (-t0 - hi0) > 0.f;
@@ -354,7 +402,7 @@ l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
   if (!inside && !apex) {
     float lo = 0.f, hi = hi0;
     for (int r = 0; r < rounds; ++r) {
-      ladder_round<C, true>(zs, len, t0, lo, hi, sh, rbuf);
+      ladder_round<C, T, true>(zs, len, t0, lo, hi, sh, rbuf);
     }
     // the monotone closed-form polish to its fixpoint (ladder_refine:
     // k = 1, (theta, prev) = (propose(lo), lo); step while theta > prev)
@@ -362,7 +410,7 @@ l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
     float th = lo;
     do {
       prev = th;
-      const Part q = point_stats<C>(zs, len, th, sh, buf);
+      const Part q = point_stats<C, T>(zs, len, th, sh, buf);
       const float hv = ((float)q.sum - t0) - th;
       th = nan_max(th + hv / ((float)q.cnt[0] + 1.f), th);
       ++k;
@@ -372,7 +420,7 @@ l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
 
   const bool to_apex = apex && !inside;
   float* out = z + (size_t)rank * chunk;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
+  for (int i = threadIdx.x; i < len; i += T) {
     const float v = zs[i];
     out[i] = to_apex ? 0.f : sgn(v) * clamp0(fabsf(v) - theta);
   }
@@ -382,33 +430,29 @@ l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
     if (theta_out != nullptr) *theta_out = theta;
     if (steps != nullptr) *steps = k;
   }
-  if constexpr (C > 1) cg::this_cluster().sync();  // no CTA leaves early
-  stamp(kEnd);
+  cluster_sync<C>();   // no CTA leaves early; zs and sh are free again
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, 1)
-skappa_kernel(const float* __restrict__ zin, float kap,
-              float* __restrict__ s_star, float* __restrict__ u_max,
-              int* __restrict__ steps, int n, int chunk, int rounds,
-              int cap) {
-  extern __shared__ float4 smem4[];
-  float* zs = reinterpret_cast<float*>(smem4);
-  __shared__ Shared sh;
-  stamp(kStart);
+// The S^kappa support of one vector z (n,): s_star (n,), *u_max and, where
+// not null, *steps; the layout as in l1_body.
+template <int C, int T>
+__device__ __forceinline__ void skappa_body(
+    const float* __restrict__ zin, float kap, float* __restrict__ s_star,
+    float* __restrict__ u_max, int* __restrict__ steps, int n, int chunk,
+    int rounds, int cap, float* zs, Shared<T>& sh) {
   const int rank = cta_rank<C>();
-  const int len = load_slice(zin, zs, n, chunk, rank);
+  const int len = load_slice<T>(zin, zs, n, chunk, rank);
   stamp(kLoaded);
   int buf = 0, rbuf = 0;
 
   // max |z| and c0 = count(|z| > 0)
   Part p = {0.0, {0, 0, 0}, 0.f};
-  for (int i = threadIdx.x; i < len; i += kThreads) {
+  for (int i = threadIdx.x; i < len; i += T) {
     const float a = fabsf(zs[i]);
     p.mx = nan_max(p.mx, a);
     p.cnt[0] += a > 0.f;
   }
-  const Part init = reduce<C>(p, sh, buf);
+  const Part init = reduce<C, T>(p, sh, buf);
   const float c0 = (float)init.cnt[0];
   const bool all_in = c0 <= kap;     // fewer than kappa nonzeros: tau* = 0
 
@@ -417,7 +461,7 @@ skappa_kernel(const float* __restrict__ zin, float kap,
   if (!all_in) {
     float lo = 0.f, hi = init.mx;
     for (int r = 0; r < rounds; ++r) {
-      ladder_round<C, false>(zs, len, kap, lo, hi, sh, rbuf);
+      ladder_round<C, T, false>(zs, len, kap, lo, hi, sh, rbuf);
     }
     // the mean-pivot search (support_skappa_ladder's while_loop)
     tau = hi;
@@ -425,26 +469,26 @@ skappa_kernel(const float* __restrict__ zin, float kap,
     bool done = false;
     while (!done && k < cap) {
       Part q = {0.0, {0, 0, 0}, 0.f};           // (sum, count) in (lo, hi]
-      for (int i = threadIdx.x; i < len; i += kThreads) {
+      for (int i = threadIdx.x; i < len; i += T) {
         const float a = fabsf(zs[i]);
         if (a > lo && a <= hi) {
           q.sum += (double)a;
           q.cnt[0] += 1;
         }
       }
-      q = reduce<C>(q, sh, buf);
+      q = reduce<C, T>(q, sh, buf);
       float a = (float)q.sum / fmaxf((float)q.cnt[0], 1.f);
       a = nan_min(nan_max(a, nextafterf(lo, INFINITY)), hi);
       const float am = nextafterf(a, -INFINITY);
       const float ap = nextafterf(a, INFINITY);
       Part r = {0.0, {0, 0, 0}, 0.f};
-      for (int i = threadIdx.x; i < len; i += kThreads) {
+      for (int i = threadIdx.x; i < len; i += T) {
         const float x = fabsf(zs[i]);
         r.cnt[0] += x > am;
         r.cnt[1] += x > a;
         r.cnt[2] += x > ap;
       }
-      r = reduce<C>(r, sh, buf);
+      r = reduce<C, T>(r, sh, buf);
       const float cm = (float)r.cnt[0], ca = (float)r.cnt[1];
       const float cp = (float)r.cnt[2];
       const bool done1 = (cm > kap) && (kap >= ca);  // crossing in (am, a]
@@ -464,7 +508,7 @@ skappa_kernel(const float* __restrict__ zin, float kap,
   const float bnd_w = ceq > 0.f ? leftover / ceq : 0.f;
   Part u = {0.0, {0, 0, 0}, 0.f};
   float* out = s_star + (size_t)rank * chunk;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
+  for (int i = threadIdx.x; i < len; i += T) {
     const float v = zs[i], x = fabsf(v);
     const float above = x > tau ? 1.f : 0.f;
     const float at_tau = (x == tau && tau > 0.f) ? 1.f : 0.f;
@@ -473,20 +517,88 @@ skappa_kernel(const float* __restrict__ zin, float kap,
     u.sum += (double)(x * w);
   }
   stamp(kOutput);
-  u = reduce<C>(u, sh, buf);
+  u = reduce<C, T>(u, sh, buf);
   if (rank == 0 && threadIdx.x == 0) {
     *u_max = (float)u.sum;
     if (steps != nullptr) *steps = k;
   }
-  if constexpr (C > 1) cg::this_cluster().sync();  // no CTA leaves early
+  cluster_sync<C>();   // no CTA leaves early; zs and sh are free again
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
+               float* __restrict__ z, float* __restrict__ t,
+               float* __restrict__ theta_out, int* __restrict__ steps, int n,
+               int chunk, int rounds, int cap) {
+  extern __shared__ float4 smem4[];
+  __shared__ Shared<kThreads> sh;
+  stamp(kStart);
+  l1_body<C, kThreads>(z0, *t0p, z, t, theta_out, steps, n, chunk, rounds,
+                       cap, reinterpret_cast<float*>(smem4), sh);
   stamp(kEnd);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+skappa_kernel(const float* __restrict__ zin, float kap,
+              float* __restrict__ s_star, float* __restrict__ u_max,
+              int* __restrict__ steps, int n, int chunk, int rounds,
+              int cap) {
+  extern __shared__ float4 smem4[];
+  __shared__ Shared<kThreads> sh;
+  stamp(kStart);
+  skappa_body<C, kThreads>(zin, kap, s_star, u_max, steps, n, chunk, rounds,
+                           cap, reinterpret_cast<float*>(smem4), sh);
+  stamp(kEnd);
+}
+
+// Lane b = blockIdx.y, blockIdx.y + gridDim.y, ... of a (lanes, n) operand:
+// row b with t0[b]; z row b, t[b] and, where not null, theta[b], steps[b].
+template <int C, int T>
+__global__ void __launch_bounds__(T)
+l1_lanes_kernel(const float* __restrict__ z0, const float* __restrict__ t0,
+                float* __restrict__ z, float* __restrict__ t,
+                float* __restrict__ theta, int* __restrict__ steps,
+                int lanes, int n, int chunk, int rounds, int cap) {
+  extern __shared__ float4 smem4[];
+  __shared__ Shared<T> sh;
+  for (int b = blockIdx.y; b < lanes; b += gridDim.y) {
+    const size_t row = (size_t)b * n;
+    l1_body<C, T>(z0 + row, t0[b], z + row, t + b,
+                  theta == nullptr ? nullptr : theta + b,
+                  steps == nullptr ? nullptr : steps + b, n, chunk, rounds,
+                  cap, reinterpret_cast<float*>(smem4), sh);
+  }
+}
+
+// The S^kappa support of each lane: row b of z with kappa[b]; s_star row b,
+// u_max[b] and, where not null, steps[b].
+template <int C, int T>
+__global__ void __launch_bounds__(T)
+skappa_lanes_kernel(const float* __restrict__ zin,
+                    const float* __restrict__ kappa,
+                    float* __restrict__ s_star, float* __restrict__ u_max,
+                    int* __restrict__ steps, int lanes, int n, int chunk,
+                    int rounds, int cap) {
+  extern __shared__ float4 smem4[];
+  __shared__ Shared<T> sh;
+  for (int b = blockIdx.y; b < lanes; b += gridDim.y) {
+    const size_t row = (size_t)b * n;
+    skappa_body<C, T>(zin + row, kappa[b], s_star + row, u_max + b,
+                      steps == nullptr ? nullptr : steps + b, n, chunk,
+                      rounds, cap, reinterpret_cast<float*>(smem4), sh);
+  }
 }
 
 __global__ void empty_kernel() {}
 
+// A launch of ``kern`` on a grid of (ctas, ys) CTAs of ``threads`` threads
+// in clusters of ``ctas`` along x, with chunk floats of dynamic shared
+// memory (the attribute raised to kMaxPerCta floats on first use).
 template <typename... Params, typename... Args>
-int launch(void (*kern)(Params...), bool& configured, int ctas, int chunk,
-           cudaStream_t stream, Args... args) {
+int launch_grid(void (*kern)(Params...), bool& configured, int ctas, int ys,
+                int threads, int chunk, cudaStream_t stream, Args... args) {
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -495,8 +607,8 @@ int launch(void (*kern)(Params...), bool& configured, int ctas, int chunk,
     configured = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = dim3(ctas, ys);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = (size_t)chunk * sizeof(float);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -509,6 +621,13 @@ int launch(void (*kern)(Params...), bool& configured, int ctas, int chunk,
   cudaError_t err = cudaLaunchKernelEx(&cfg, kern, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename... Params, typename... Args>
+int launch(void (*kern)(Params...), bool& configured, int ctas, int chunk,
+           cudaStream_t stream, Args... args) {
+  return launch_grid(kern, configured, ctas, 1, kThreads, chunk, stream,
+                     args...);
 }
 
 // The cluster size as a template argument (ctas in {1, 2, 4, 8}).
@@ -534,6 +653,39 @@ int launch_skappa(int ctas, int chunk, cudaStream_t s, Args... args) {
     case 8: return launch(skappa_kernel<8>, cfg[3], 8, chunk, s, args...);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The lane kernels' layouts (ctas, threads): (1, 32), (1, 128) and
+// (1, 2, 4 or 8, 1,024), each instantiation configured once.
+template <bool kL1, typename... Args>
+int launch_lanes(int ctas, int threads, int ys, int chunk, cudaStream_t s,
+                 Args... args) {
+  static bool cfg[6] = {false, false, false, false, false, false};
+#define LANES(C, T, I)                                                    \
+  if constexpr (kL1) {                                                    \
+    return launch_grid(l1_lanes_kernel<C, T>, cfg[I], C, ys, T, chunk, s, \
+                       args...);                                          \
+  } else {                                                                \
+    return launch_grid(skappa_lanes_kernel<C, T>, cfg[I], C, ys, T,       \
+                       chunk, s, args...);                                \
+  }
+  if (threads == 32 && ctas == 1) {
+    LANES(1, 32, 0)
+  }
+  if (threads == 128 && ctas == 1) {
+    LANES(1, 128, 1)
+  }
+  if (threads == kThreads) {
+    switch (ctas) {
+      case 1: LANES(1, kThreads, 2)
+      case 2: LANES(2, kThreads, 3)
+      case 4: LANES(4, kThreads, 4)
+      case 8: LANES(8, kThreads, 5)
+      default: break;
+    }
+  }
+#undef LANES
+  return (int)cudaErrorInvalidValue;
 }
 
 bool valid(int n, int ctas) {
@@ -571,6 +723,51 @@ extern "C" int skappa_support_f32(const float* z, float kappa, float* s_star,
   const int chunk = (n + ctas - 1) / ctas;
   return launch_skappa(ctas, chunk, static_cast<cudaStream_t>(stream), z,
                        kappa, s_star, u_max, steps, n, chunk, rounds, cap);
+}
+
+// Whether (ctas, threads) is a lane layout for n entries, and the entries
+// a CTA holds.
+static bool valid_lanes(int lanes, int n, int ctas, int threads) {
+  return lanes >= 1 && valid(n, ctas) &&
+         ((threads == kThreads) || (ctas == 1 && (threads == 32 ||
+                                                  threads == 128)));
+}
+
+// z0 (lanes, n) row-major and t0 (lanes,) f32 on the device -> z (lanes, n),
+// t (lanes,); theta (lanes,) and steps (lanes,), each may be null, as in
+// l1_epigraph_proj_f32 per lane. (ctas, threads): (1, 32), (1, 128) or
+// (1, 2, 4, 8 with ceil(n / ctas) <= ladder_proj_max_per_cta(), 1024).
+extern "C" int l1_epigraph_proj_lanes_f32(const float* z0, const float* t0,
+                                          float* z, float* t, float* theta,
+                                          int* steps, int lanes, int n,
+                                          int ctas, int threads, int rounds,
+                                          int cap, void* stream) {
+  if (!valid_lanes(lanes, n, ctas, threads)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int chunk = (n + ctas - 1) / ctas;
+  const int ys = lanes < kMaxLaneGrid ? lanes : kMaxLaneGrid;
+  return launch_lanes<true>(ctas, threads, ys, chunk,
+                            static_cast<cudaStream_t>(stream), z0, t0, z, t,
+                            theta, steps, lanes, n, chunk, rounds, cap);
+}
+
+// z (lanes, n) and kappa (lanes,) f32 on the device -> s_star (lanes, n),
+// u_max (lanes,); steps (lanes,) may be null. Layouts as above.
+extern "C" int skappa_support_lanes_f32(const float* z, const float* kappa,
+                                        float* s_star, float* u_max,
+                                        int* steps, int lanes, int n,
+                                        int ctas, int threads, int rounds,
+                                        int cap, void* stream) {
+  if (!valid_lanes(lanes, n, ctas, threads)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int chunk = (n + ctas - 1) / ctas;
+  const int ys = lanes < kMaxLaneGrid ? lanes : kMaxLaneGrid;
+  return launch_lanes<false>(ctas, threads, ys, chunk,
+                             static_cast<cudaStream_t>(stream), z, kappa,
+                             s_star, u_max, steps, lanes, n, chunk, rounds,
+                             cap);
 }
 
 #ifdef LADDER_PROJ_TRACE

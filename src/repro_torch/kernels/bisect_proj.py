@@ -15,6 +15,11 @@ that drive it).
   :func:`stats_plan`; the last CTA to arrive adds the CTAs' partials in
   order). It carries the bracketing rounds of a projection too large for
   one launch, whose polish ``core.bilinear`` composes from PyTorch ops.
+* ``l1_epigraph_proj_lanes(z0 (B, d), t0 (B,))`` and
+  ``skappa_support_lanes(z (B, d), kappa (B,))`` project every row of a
+  lane-stacked operand (the fleet driver's B problems, a grid's P points)
+  in ONE launch of the same source, each row with its own t0 or kappa read
+  on the device; the layout (:func:`lane_plan`) follows d.
 
 On a CPU tensor each function is its plain version in
 :mod:`repro_torch.kernels.ref`.
@@ -27,8 +32,9 @@ import torch
 
 from . import build
 from .matvec import sm_count
-from .ref import (LADDER_CAP, l1_epigraph_proj_ref, ladder_stats_ref,
-                  skappa_support_ref)
+from .ref import (LADDER_CAP, l1_epigraph_proj_lanes_ref,
+                  l1_epigraph_proj_ref, ladder_stats_ref,
+                  skappa_support_lanes_ref, skappa_support_ref)
 
 _SIGNATURES = {
     "ladder_stats_f32": [build.P, build.P, build.I, build.I, build.I,
@@ -42,6 +48,13 @@ _PROJ_SIGNATURES = {
     "skappa_support_f32": [build.P, build.F, build.P, build.P, build.P,
                            build.I, build.I, build.I, build.I, build.P],
     "ladder_proj_empty": [build.P],
+    "l1_epigraph_proj_lanes_f32": [build.P, build.P, build.P, build.P,
+                                   build.P, build.P, build.I, build.I,
+                                   build.I, build.I, build.I, build.I,
+                                   build.P],
+    "skappa_support_lanes_f32": [build.P, build.P, build.P, build.P,
+                                 build.P, build.I, build.I, build.I, build.I,
+                                 build.I, build.I, build.P],
 }
 MAX_RUNGS = 8192   # kMaxRungs: the ladder sits in shared memory
 # ladder_stats' grid (stats_plan): a CTA takes at least STATS_MIN_PER_CTA
@@ -60,6 +73,14 @@ MAX_N = MAX_PER_CTA * MAX_CTAS   # 409,600: the largest one-launch projection
 # H100: 1 CTA is fastest at n = 250 and 500, 4 about as fast as any at
 # n = 1,000, 8 from n = 2,500; 2 CTAs never were (PERF.md section 6).
 CLUSTER_FROM = ((4, 1_000), (8, 2_500))
+
+
+# The lane kernels' CTA sizes below a cluster's width: 32 threads up to
+# LANE_WARP_MAX_N entries, 128 up to LANE_SMALL_MAX_N, THREADS beyond (the
+# header of csrc/ladder_proj.cu says why).
+LANE_WARP_MAX_N = 64
+LANE_SMALL_MAX_N = 256
+LANE_THREADS = (32, 128, THREADS)
 
 
 class Plan(NamedTuple):
@@ -84,6 +105,58 @@ def plan(n: int) -> Plan:
     while -(-n // ctas) > MAX_PER_CTA:     # the slices must fit
         ctas *= 2
     return Plan(True, ctas)
+
+
+class LanePlan(NamedTuple):
+    """The layout of a lane launch: each lane a cluster of ``ctas`` CTAs
+    of ``threads`` threads."""
+    ctas: int
+    threads: int
+
+
+def lane_plan(d: int) -> LanePlan:
+    """The layout of a lane launch over rows of ``d`` entries (a pure
+    function of d): where :func:`plan` takes a cluster, that cluster of
+    THREADS-thread CTAs a lane; below it one CTA a lane, of 32, 128 or
+    THREADS threads by d."""
+    p = plan(d)
+    if not p.one_launch:
+        raise ValueError(f"a lane of d={d} entries is past the one-launch "
+                         f"limit {MAX_N}")
+    if p.ctas > 1 or d > LANE_SMALL_MAX_N:
+        return LanePlan(p.ctas, THREADS)
+    return LanePlan(1, 32 if d <= LANE_WARP_MAX_N else 128)
+
+
+def _lanes_operand(name: str, z: torch.Tensor, per_lane: torch.Tensor,
+                   what: str, ctas, threads):
+    """The contiguous (B, d) f32 rows, the (B,) f32 per-lane values on
+    their device, and the layout."""
+    build.require_cuda(name, z, per_lane)
+    if z.ndim != 2 or z.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes a (B, d) float32 "
+                         f"operand, got {tuple(z.shape)} {z.dtype}")
+    B, d = z.shape
+    if B < 1 or not 1 <= d <= MAX_N:
+        raise ValueError(f"{name}: B={B}, d={d} outside B >= 1, "
+                         f"1 <= d <= {MAX_N}")
+    if B >= 2 ** 31 or B * d >= 2 ** 62:
+        raise ValueError(f"{name}: B={B} lanes exceed the index range")
+    if tuple(per_lane.shape) != (B,):
+        raise ValueError(f"{name}: {what} must be ({B},), got "
+                         f"{tuple(per_lane.shape)}")
+    if per_lane.dtype == torch.int32:
+        per_lane = per_lane.to(torch.float32)     # exact below 2^24
+    if per_lane.dtype != torch.float32:
+        raise ValueError(f"{name}: {what} must be float32 or int32, got "
+                         f"{per_lane.dtype}")
+    lp = lane_plan(d)
+    ctas = lp.ctas if ctas is None else ctas
+    threads = lp.threads if threads is None else threads
+    if threads not in LANE_THREADS or (threads < THREADS and ctas != 1):
+        raise ValueError(f"{name}: no lane layout of {ctas} CTAs of "
+                         f"{threads} threads")
+    return z.contiguous(), per_lane.contiguous(), ctas, threads
 
 
 def _operand(name: str, z: torch.Tensor, ctas) -> tuple[torch.Tensor, int]:
@@ -173,6 +246,68 @@ def skappa_support(z: torch.Tensor, kappa, *, rounds: int = 2,
         _ptr(k), z.shape[0], ctas, rounds, cap, build.stream(z))
     build.check(rc, "skappa_support")
     build.LAUNCHES["skappa_support"] += 1
+    return (u_max, s_star, k) if stats else (u_max, s_star)
+
+
+def l1_epigraph_proj_lanes(z0: torch.Tensor, t0: torch.Tensor, *,
+                           rounds: int = 2, cap: int = LADDER_CAP,
+                           ctas: int | None = None,
+                           threads: int | None = None, stats: bool = False):
+    """Row b of ``z0`` (B, d) projected with ``t0[b]`` (a (B,) tensor on
+    z0's device) onto {(z, t): ||z||_1 <= t}, every row in one launch: z
+    (B, d), t (B,); with ``stats`` theta (B,) and the polish steps (B,)
+    follow. ``ctas`` / ``threads`` override :func:`lane_plan`."""
+    if z0.device.type == "cpu":
+        return l1_epigraph_proj_lanes_ref(z0, t0, rounds=rounds, cap=cap,
+                                          stats=stats)
+    if z0.device.type != "cuda":
+        raise ValueError(f"l1_epigraph_proj_lanes: no kernel for device "
+                         f"{z0.device}")
+    z0, t0, ctas, threads = _lanes_operand("l1_epigraph_proj_lanes", z0, t0,
+                                           "t0", ctas, threads)
+    B, d = z0.shape
+    z = torch.empty_like(z0)
+    t = torch.empty(B, dtype=torch.float32, device=z0.device)
+    theta, k = ((torch.empty(B, dtype=torch.float32, device=z0.device),
+                 torch.empty(B, dtype=torch.int32, device=z0.device))
+                if stats else (None, None))
+    lib = build.library("ladder_proj", _PROJ_SIGNATURES)
+    rc = lib.l1_epigraph_proj_lanes_f32(
+        z0.data_ptr(), t0.data_ptr(), z.data_ptr(), t.data_ptr(),
+        _ptr(theta), _ptr(k), B, d, ctas, threads, rounds, cap,
+        build.stream(z0))
+    build.check(rc, "l1_epigraph_proj_lanes")
+    build.LAUNCHES["l1_epigraph_proj_lanes"] += 1
+    return (z, t, theta, k) if stats else (z, t)
+
+
+def skappa_support_lanes(z: torch.Tensor, kappa: torch.Tensor, *,
+                         rounds: int = 2, cap: int = LADDER_CAP,
+                         ctas: int | None = None, threads: int | None = None,
+                         stats: bool = False):
+    """Per row b of ``z`` (B, d): max over S^kappa[b] of z_b^T s (B,) and
+    an argmax s* (B, d), every row in one launch; ``kappa`` a (B,) float32
+    or int32 tensor on z's device (read there: no host read). With
+    ``stats`` the search steps (B,) follow."""
+    if z.device.type == "cpu":
+        return skappa_support_lanes_ref(z, kappa, rounds=rounds, cap=cap,
+                                        stats=stats)
+    if z.device.type != "cuda":
+        raise ValueError(f"skappa_support_lanes: no kernel for device "
+                         f"{z.device}")
+    z, kappa, ctas, threads = _lanes_operand("skappa_support_lanes", z,
+                                             kappa, "kappa", ctas, threads)
+    B, d = z.shape
+    s_star = torch.empty_like(z)
+    u_max = torch.empty(B, dtype=torch.float32, device=z.device)
+    k = (torch.empty(B, dtype=torch.int32, device=z.device) if stats
+         else None)
+    lib = build.library("ladder_proj", _PROJ_SIGNATURES)
+    rc = lib.skappa_support_lanes_f32(
+        z.data_ptr(), kappa.data_ptr(), s_star.data_ptr(), u_max.data_ptr(),
+        _ptr(k), B, d, ctas, threads, rounds, cap, build.stream(z))
+    build.check(rc, "skappa_support_lanes")
+    build.LAUNCHES["skappa_support_lanes"] += 1
     return (u_max, s_star, k) if stats else (u_max, s_star)
 
 

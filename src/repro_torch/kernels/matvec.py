@@ -231,12 +231,30 @@ def normal_matvec(a: torch.Tensor, p: torch.Tensor, shift) -> torch.Tensor:
     """(A^T A + diag(shift)) p: w = A p and A^T w plus the shifted axpy, all
     in f32. ``a`` (m, n) with ``p`` (n,), or (N, m, n) with ``p`` (N, n);
     ``shift`` a Python scalar, a 0-d tensor or an (n,) vector (broadcast
-    over the nodes)."""
+    over the nodes). A shift with one value per system (a tensor of two or
+    more axes that broadcasts against ``p``: (N, 1) a node, (N, n) a node
+    and entry; the fleet's per-lane penalties, a grid's per-point columns)
+    takes the composed matvec + rmatvec kernels."""
     if a.device.type == "cpu":
         return normal_matvec_ref(a, p, shift)
     if a.device.type != "cuda":
         raise ValueError(f"normal_matvec: no kernel for device {a.device}")
+    if per_system_shift(shift):
+        build.require_cuda("normal_matvec", a, p, shift)
+        try:
+            torch.broadcast_shapes(shift.shape, p.shape)
+        except RuntimeError:
+            raise ValueError(f"normal_matvec: shift of shape "
+                             f"{tuple(shift.shape)} does not fit p of shape "
+                             f"{tuple(p.shape)}") from None
+        return rmatvec(a, matvec(a, p)) + shift * p
     return _launch_normal(a, p, shift)
+
+
+def per_system_shift(shift) -> bool:
+    """Whether ``shift`` is a tensor of two or more axes: one value per
+    system, which the one-pass kernel does not take."""
+    return torch.is_tensor(shift) and shift.ndim >= 2
 
 
 @functools.cache

@@ -13,6 +13,10 @@ normal_matvec      csrc/normal_matvec.cu       plain composition
 ladder_stats       csrc/ladder_stats.cu        plain broadcast
 l1_epigraph_proj   csrc/ladder_proj.cu         plain projection (f64 sums)
 skappa_support     csrc/ladder_proj.cu         plain support (f64 sums)
+l1_epigraph_proj_  csrc/ladder_proj.cu         plain projection per lane
+lanes
+skappa_support_    csrc/ladder_proj.cu         plain support per lane
+lanes
 block_matvec /     csrc/block_matvec.cu        plain products per block
 block_rmatvec
 flash_attention    csrc/flash_attention.cu     plain softmax attention
@@ -30,7 +34,8 @@ operands the two rules agree.)
 :func:`launch_counts` reads how many CUDA kernels each wrapper launched
 since :func:`reset_launch_counts`: device launches, so a ``ladder_stats``
 call or a one-launch projection counts 1, a ``normal_matvec`` call 1 or 2
-(``matvec.normal_plan``; the CPU rows count nothing).
+(``matvec.normal_plan``; the CPU rows count nothing), and a lane
+projection 1 whatever its number of lanes.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ import torch
 
 from .. import runtime
 from . import build, ref
-from .bisect_proj import l1_epigraph_proj, ladder_stats, skappa_support
+from .bisect_proj import (l1_epigraph_proj, l1_epigraph_proj_lanes,
+                          ladder_stats, skappa_support, skappa_support_lanes)
 from .block_matvec import block_matvec, block_rmatvec
 from .flash_attention import check_flat, flash_attention_flat
 from .gram import gram, gram_xy
@@ -47,16 +53,20 @@ from .matvec import matvec, normal_matvec, rmatvec
 __all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
            "block_rmatvec_auto", "flash_attention", "flash_attention_auto",
            "flash_attention_flat", "gram", "gram_auto", "gram_xy",
-           "l1_epigraph_proj", "l1_epigraph_proj_auto", "ladder_stats",
+           "l1_epigraph_proj", "l1_epigraph_proj_auto",
+           "l1_epigraph_proj_lanes", "l1_epigraph_proj_lanes_auto",
+           "ladder_stats",
            "ladder_stats_auto", "launch_counts", "launch_counts_by_type",
            "matvec", "matvec_auto",
            "normal_matvec", "normal_matvec_auto", "reset_launch_counts",
            "rmatvec", "rmatvec_auto", "skappa_support",
-           "skappa_support_auto"]
+           "skappa_support_auto", "skappa_support_lanes",
+           "skappa_support_lanes_auto"]
 
 KERNELS = ("ladder_stats", "l1_epigraph_proj", "skappa_support", "gram",
            "matvec", "rmatvec", "normal_matvec", "block_matvec",
-           "block_rmatvec", "flash_attention")
+           "block_rmatvec", "flash_attention", "l1_epigraph_proj_lanes",
+           "skappa_support_lanes")
 
 
 def _out(x: torch.Tensor, a: torch.Tensor, v: torch.Tensor,
@@ -65,13 +75,16 @@ def _out(x: torch.Tensor, a: torch.Tensor, v: torch.Tensor,
                 else torch.promote_types(a.dtype, v.dtype))
 
 
-for _dev, _gram, _mv, _rmv, _nmv, _ls, _l1, _sk, _bmv, _brmv in (
+for (_dev, _gram, _mv, _rmv, _nmv, _ls, _l1, _sk, _bmv, _brmv, _l1l,
+     _skl) in (
         ("cuda", gram, matvec, rmatvec, normal_matvec, ladder_stats,
-         l1_epigraph_proj, skappa_support, block_matvec, block_rmatvec),
+         l1_epigraph_proj, skappa_support, block_matvec, block_rmatvec,
+         l1_epigraph_proj_lanes, skappa_support_lanes),
         ("cpu", ref.gram_ref, ref.matvec_ref, ref.rmatvec_ref,
          ref.normal_matvec_ref, ref.ladder_stats_ref,
          ref.l1_epigraph_proj_ref, ref.skappa_support_ref,
-         ref.block_matvec_ref, ref.block_rmatvec_ref)):
+         ref.block_matvec_ref, ref.block_rmatvec_ref,
+         ref.l1_epigraph_proj_lanes_ref, ref.skappa_support_lanes_ref)):
     runtime.register_kernel(
         "gram", _dev,
         lambda a, out_dtype=None, _f=_gram: _out(_f(a), a, a, out_dtype))
@@ -86,6 +99,8 @@ for _dev, _gram, _mv, _rmv, _nmv, _ls, _l1, _sk, _bmv, _brmv in (
     runtime.register_kernel("ladder_stats", _dev, _ls)
     runtime.register_kernel("l1_epigraph_proj", _dev, _l1)
     runtime.register_kernel("skappa_support", _dev, _sk)
+    runtime.register_kernel("l1_epigraph_proj_lanes", _dev, _l1l)
+    runtime.register_kernel("skappa_support_lanes", _dev, _skl)
     runtime.register_kernel(
         "block_matvec", _dev,
         lambda a, x, M, out_dtype=None, _f=_bmv: _out(_f(a, x, M), a, x,
@@ -168,6 +183,24 @@ def skappa_support_auto(z: torch.Tensor, kappa, *, rounds: int,
     """(u_max, s_star) of the S^kappa support function, one launch on the
     card."""
     return runtime.kernel("skappa_support", z.device.type)(
+        z, kappa, rounds=rounds, cap=cap)
+
+
+def l1_epigraph_proj_lanes_auto(z0: torch.Tensor, t0: torch.Tensor, *,
+                                rounds: int, cap: int
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every row of z0 (B, d) projected with its t0 (B,): (z, t), one
+    launch on the card for all B rows."""
+    return runtime.kernel("l1_epigraph_proj_lanes", z0.device.type)(
+        z0, t0, rounds=rounds, cap=cap)
+
+
+def skappa_support_lanes_auto(z: torch.Tensor, kappa: torch.Tensor, *,
+                              rounds: int, cap: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(u_max (B,), s_star (B, d)) of every row of z with its kappa (B,),
+    one launch on the card for all B rows."""
+    return runtime.kernel("skappa_support_lanes", z.device.type)(
         z, kappa, rounds=rounds, cap=cap)
 
 

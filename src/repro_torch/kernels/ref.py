@@ -56,98 +56,159 @@ def _sum_once(x: torch.Tensor, dim=None) -> torch.Tensor:
     return (x.sum() if dim is None else x.sum(dim)).float()
 
 
-def _bracket(az, lo, hi, rounds, crossing):
-    """``rounds`` bracketing rounds of [lo, hi] over the rungs
-    lo + (hi - lo) * b / B, b = 1..B; ``crossing(th)`` is the number of
-    leading rungs on the h > 0 / count > kappa side."""
-    B = LADDER_RUNGS
-    ar = torch.arange(1, B + 1, dtype=f32, device=az.device)
-    for _ in range(rounds):
-        th = lo + (hi - lo) * ar / B
-        idx = int(crossing(th))
-        lo, hi = (lo if idx == 0 else th[idx - 1],
-                  hi if idx == B else th[idx])
-    return lo, hi
-
-
 def l1_epigraph_proj_ref(z0: torch.Tensor, t0, *, rounds: int = 2,
                          cap: int = LADDER_CAP, stats: bool = False):
     """Projection of (z0, t0) onto {(z, t): ||z||_1 <= t} -- the plain
-    version of ``csrc/ladder_proj.cu``'s ``l1_proj_kernel``: the composed
-    ``bilinear.project_l1_epigraph`` at ``rounds`` rounds, with every sum
-    (sum |z0|, the rungs', the polish's) in f64 rounded once. The rounds
-    and the polish run only where theta is used (neither inside nor apex:
-    theta is 0 there). With ``stats`` theta and the polish steps taken
-    follow."""
-    z0 = z0.to(f32)
-    t0 = torch.as_tensor(t0, dtype=f32, device=z0.device)
-    az = z0.abs()
-    hi0 = az.max()
-    inside = bool(_sum_once(az) <= t0)
-    apex = bool((-t0 - hi0) > 0)
-    theta = torch.zeros((), dtype=f32, device=z0.device)
-    k = 0
-    if not inside and not apex:
-        def crossing(th):
-            d = az[:, None] - th[None, :]
-            return torch.sum((_sum_once(torch.clamp_min(d, 0.0), 0) - t0
-                              - th) > 0)
-        th, _ = _bracket(az, torch.zeros_like(hi0), hi0, rounds, crossing)
-        while True:      # the monotone closed-form polish to its fixpoint
-            prev = th
-            d = az - th
-            hv = _sum_once(torch.clamp_min(d, 0.0)) - t0 - th
-            th = torch.maximum(th + hv / ((d > 0).sum().to(f32) + 1.0), th)
-            k += 1
-            if not (bool(th > prev) and k < cap):
-                break
-        theta = th
-    if apex and not inside:
-        z, t = torch.zeros_like(z0), torch.clamp_min(t0, 0.0)
-    else:
-        z, t = torch.sign(z0) * torch.clamp_min(az - theta, 0.0), t0 + theta
-    return (z, t, theta, k) if stats else (z, t)
+    version of ``csrc/ladder_proj.cu``'s ``l1_proj_kernel``: one lane of
+    :func:`l1_epigraph_proj_lanes_ref`. With ``stats`` theta and the
+    polish steps taken (an int) follow."""
+    t0 = torch.as_tensor(t0, dtype=f32, device=z0.device).reshape(1)
+    out = l1_epigraph_proj_lanes_ref(z0[None], t0, rounds=rounds, cap=cap,
+                                     stats=stats)
+    if stats:
+        return out[0][0], out[1][0], out[2][0], int(out[3][0])
+    return out[0][0], out[1][0]
 
 
 def skappa_support_ref(z: torch.Tensor, kappa, *, rounds: int = 2,
                        cap: int = LADDER_CAP, stats: bool = False):
     """(max over S^kappa of z^T s, an argmax s*) -- the plain version of
-    ``csrc/ladder_proj.cu``'s ``skappa_kernel``: the composed
-    ``bilinear.support_skappa_ladder`` at ``rounds`` rounds, with the band
-    sum and u_max in f64 rounded once. s* depends on counts alone. With
-    ``stats`` the search steps taken follow."""
+    ``csrc/ladder_proj.cu``'s ``skappa_kernel``: one lane of
+    :func:`skappa_support_lanes_ref`. With ``stats`` the search steps
+    taken (an int) follow."""
+    kappa = torch.as_tensor(kappa, dtype=f32, device=z.device).reshape(1)
+    out = skappa_support_lanes_ref(z[None], kappa, rounds=rounds, cap=cap,
+                                   stats=stats)
+    if stats:
+        return out[0][0], out[1][0], int(out[2][0])
+    return out[0][0], out[1][0]
+
+
+# (lane, entry, rung) terms a bracketing round of the lane versions forms at
+# once: larger operands take their rounds in blocks of lanes
+_LANE_TERMS = 2 ** 24
+
+
+def _lane_rounds(az, lo, hi, rounds, crossing):
+    """``rounds`` bracketing rounds of every lane's [lo, hi] (L,) over the
+    rungs lo + (hi - lo) * b / B, b = 1..B, of az (L, d);
+    ``crossing(az_rows, th (l, B), rows)`` is each row's count of leading
+    rungs on the h > 0 / count > kappa side."""
+    B = LADDER_RUNGS
+    ar = torch.arange(1, B + 1, dtype=f32, device=az.device)
+    L, d = az.shape
+    step = max(1, _LANE_TERMS // max(1, d * B))
+    for _ in range(rounds):
+        th = lo[:, None] + (hi - lo)[:, None] * ar / B
+        idx = torch.cat([crossing(az[i:i + step], th[i:i + step],
+                                  slice(i, i + step))
+                         for i in range(0, L, step)])
+        below = th.gather(1, torch.clamp_min(idx - 1, 0)[:, None])[:, 0]
+        above = th.gather(1, torch.clamp_max(idx, B - 1)[:, None])[:, 0]
+        lo, hi = (torch.where(idx == 0, lo, below),
+                  torch.where(idx == B, hi, above))
+    return lo, hi
+
+
+def l1_epigraph_proj_lanes_ref(z0: torch.Tensor, t0, *, rounds: int = 2,
+                               cap: int = LADDER_CAP, stats: bool = False):
+    """The projection of every row of z0 (L, d) with its own t0 (L,) onto
+    {(z, t): ||z||_1 <= t} -- the plain version of ``csrc/ladder_proj.cu``'s
+    ``l1_lanes_kernel`` (and, on one lane, of ``l1_proj_kernel``): the
+    composed ``bilinear.project_l1_epigraph`` at ``rounds`` rounds, every
+    sum (sum |z0|, the rungs', the polish's) in f64 over its row rounded
+    once, the rounds and the polish only where theta is used (neither
+    inside nor apex: theta is 0 there), the polish run with a mask until
+    every lane is at its own fixpoint. With ``stats`` theta (L,) and the
+    polish steps (L,) follow."""
+    z0 = z0.to(f32)
+    L = z0.shape[0]
+    t0 = torch.as_tensor(t0, dtype=f32, device=z0.device).expand(L)
+    az = z0.abs()
+    hi0 = az.amax(1)
+    inside = _sum_once(az, 1) <= t0
+    apex = (-t0 - hi0) > 0
+    need = ~inside & ~apex
+
+    def crossing(a, th, rows):
+        d = a[:, :, None] - th[:, None, :]
+        h = _sum_once(torch.clamp_min(d, 0.0), 1) - t0[rows, None] - th
+        return torch.sum(h > 0, 1)
+
+    th, _ = _lane_rounds(az, torch.zeros_like(hi0), hi0, rounds, crossing)
+    k = torch.zeros(L, dtype=torch.int32, device=z0.device)
+    active = need.clone()
+    while bool(active.any()):    # the monotone polish, lane by lane
+        d = az - th[:, None]
+        hv = _sum_once(torch.clamp_min(d, 0.0), 1) - t0 - th
+        new = torch.maximum(th + hv / ((d > 0).sum(1).to(f32) + 1.0), th)
+        k = k + active.to(torch.int32)
+        go = active & (new > th) & (k < cap)
+        th = torch.where(active, new, th)
+        active = go
+    theta = torch.where(need, th, 0.0)
+    to_apex = (apex & ~inside)[:, None]
+    z = torch.where(to_apex, 0.0,
+                    torch.sign(z0) * torch.clamp_min(az - theta[:, None],
+                                                     0.0))
+    t = torch.where(apex & ~inside, torch.clamp_min(t0, 0.0), t0 + theta)
+    return (z, t, theta, k) if stats else (z, t)
+
+
+def skappa_support_lanes_ref(z: torch.Tensor, kappa, *, rounds: int = 2,
+                             cap: int = LADDER_CAP, stats: bool = False):
+    """(max over S^kappa of z^T s, an argmax s*) of every row of z (L, d)
+    with its own kappa (L,) -- the plain version of ``skappa_lanes_kernel``
+    (and, on one lane, of ``skappa_kernel``): the composed
+    ``bilinear.support_skappa_ladder`` at ``rounds`` rounds, the band sum
+    and u_max in f64 rounded once, the pivot search run with a mask until
+    every lane is done; s* depends on counts alone. With ``stats`` the
+    search steps (L,) follow."""
     z = z.to(f32)
+    L = z.shape[0]
     az = z.abs()
-    kap = torch.as_tensor(kappa, dtype=f32, device=z.device)
-    zero = torch.zeros((), dtype=f32, device=z.device)
-    c0 = (az > 0).sum().to(f32)
-    tau, c_tau, ceq, k = zero, c0, zero, 0
-    if not bool(c0 <= kap):              # else fewer than kappa nonzeros
-        def crossing(th):
-            return torch.sum(ladder_stats_ref(az, th)[1] > kap)
-        lo, hi = _bracket(az, zero, az.max(), rounds, crossing)
-        up, down = torch.full_like(zero, math.inf), torch.full_like(
-            zero, -math.inf)
-        tau, c_tau, done = hi, zero, False
-        while not done and k < cap:      # the mean-pivot search
-            band = (az > lo) & (az <= hi)
-            a = (_sum_once(torch.where(band, az, 0.0))
-                 / torch.clamp_min(band.sum().to(f32), 1.0))
-            a = torch.minimum(torch.maximum(a, torch.nextafter(lo, up)), hi)
-            am, ap = torch.nextafter(a, down), torch.nextafter(a, up)
-            cm, ca, cp = ((az > x).sum().to(f32) for x in (am, a, ap))
-            done1 = bool((cm > kap) & (kap >= ca))   # crossing in (am, a]
-            done2 = bool((ca > kap) & (kap >= cp))   # crossing in (a, ap]
-            done = done1 or done2
-            tau, c_tau, ceq = (ap, cp, ca - cp) if done2 else (a, ca, cm - ca)
-            if not done:
-                lo, hi = (a, hi) if bool(ca > kap) else (lo, am)
-            k += 1
+    kap = torch.as_tensor(kappa, device=z.device).to(f32).expand(L)
+    zero = torch.zeros(L, dtype=f32, device=z.device)
+    c0 = (az > 0).sum(1).to(f32)
+    search = ~(c0 <= kap)
+
+    def crossing(a, th, rows):
+        cnt = (a[:, :, None] - th[:, None, :] > 0).to(f32).sum(1)
+        return torch.sum(cnt > kap[rows, None], 1)
+
+    lo, hi = _lane_rounds(az, zero, az.amax(1), rounds, crossing)
+    up = torch.full_like(zero, math.inf)
+    down = torch.full_like(zero, -math.inf)
+    tau, c_tau, ceq = torch.where(search, hi, 0.0), torch.where(
+        search, 0.0, c0), zero
+    k = torch.zeros(L, dtype=torch.int32, device=z.device)
+    active = search & (k < cap)
+    while bool(active.any()):    # the mean-pivot search, lane by lane
+        band = (az > lo[:, None]) & (az <= hi[:, None])
+        a = (_sum_once(torch.where(band, az, 0.0), 1)
+             / torch.clamp_min(band.sum(1).to(f32), 1.0))
+        a = torch.minimum(torch.maximum(a, torch.nextafter(lo, up)), hi)
+        am, ap = torch.nextafter(a, down), torch.nextafter(a, up)
+        cm, ca, cp = ((az > x[:, None]).sum(1).to(f32) for x in (am, a, ap))
+        done1 = (cm > kap) & (kap >= ca)   # crossing in (am, a]
+        done2 = (ca > kap) & (kap >= cp)   # crossing in (a, ap]
+        done = done1 | done2
+        tau = torch.where(active, torch.where(done2, ap, a), tau)
+        c_tau = torch.where(active, torch.where(done2, cp, ca), c_tau)
+        ceq = torch.where(active, torch.where(done2, ca - cp, cm - ca), ceq)
+        move = active & ~done
+        go_lo = ca > kap
+        lo = torch.where(move & go_lo, a, lo)
+        hi = torch.where(move & ~go_lo, am, hi)
+        k = k + active.to(torch.int32)
+        active = move & (k < cap)
     leftover = torch.minimum(torch.clamp_min(kap - c_tau, 0.0),
                              torch.clamp_min(ceq, 0.0))
-    bnd_w = leftover / ceq if bool(ceq > 0) else zero
-    w = (az > tau).to(f32) + bnd_w * ((az == tau) & (tau > 0)).to(f32)
-    out = (_sum_once(az * w), torch.sign(z) * w)
+    bnd_w = torch.where(ceq > 0, leftover / torch.where(ceq > 0, ceq, 1.0),
+                        0.0)
+    w = ((az > tau[:, None]).to(f32) + bnd_w[:, None]
+         * ((az == tau[:, None]) & (tau[:, None] > 0)).to(f32))
+    out = (_sum_once(az * w, 1), torch.sign(z) * w)
     return (*out, k) if stats else out
 
 

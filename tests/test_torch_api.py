@@ -93,8 +93,7 @@ UNPORTED_OPTIONS = {"engine": dict(engine="sharded"),
                     "feature_blocks": dict(n_feature_blocks=2,
                                            precision="bf16"),
                     "feature_split": dict(force_feature_split=True,
-                                          projection="sort"),
-                    "projection": dict(projection="sort"),
+                                          engine="sharded"),
                     # the reduced presets are ported; with the feature
                     # split (which fails in the JAX package itself) they
                     # still raise
@@ -116,8 +115,8 @@ def test_unported_models_and_entry_points_raise_capability_error():
     the grid and per-solve overrides: they run, for the classifiers and the
     feature split too (kappa only there: a gamma / rho_c override or grid
     raises ValueError, as in the JAX package). What the models still lack —
-    streaming fits, the fleet, serving, recovery and the sharded engine —
-    raises CapabilityError up front."""
+    streaming fits, serving, recovery and the sharded engine — raises
+    CapabilityError up front; the fleet refuses the feature split."""
     for name in ("logistic", "hinge", "smoothed_hinge"):
         assert losses.get_loss(name).name == name
     assert losses.get_loss("softmax", 3).n_classes == 3
@@ -137,14 +136,15 @@ def test_unported_models_and_entry_points_raise_capability_error():
         with pytest.raises(api.CapabilityError):
             est.partial_fit(X, yy)
     with pytest.raises(api.CapabilityError):
-        api.fit_many(api.SparseProblem("logistic", kappa=3), X, y)
-    for fn in (api.fit_many, api.serve, api.stream, api.recover):
+        api.fit_many(api.SparseProblem("logistic", kappa=3), X[None], y[None],
+                     options=api.SolverOptions(n_feature_blocks=2, **kw))
+    for fn in (api.serve, api.stream, api.recover):
         with pytest.raises(api.CapabilityError):
             fn(api.SparseProblem("squared", kappa=3), X, y)
     for fn in (api.solve_path, api.solve_grid):
         path = fn(api.SparseProblem("squared", kappa=2), X, y, [2, 1],
                   options=api.SolverOptions(**kw), gammas=[1.0, 2.0])
-        assert path.strategy in ("warm-scan", "cold-scan")
+        assert path.strategy in ("warm-scan", "vmap")
     As, bs = torch.as_tensor(X)[None], torch.as_tensor(y)[None]
     for split in (False, True):
         opts = api.SolverOptions(n_feature_blocks=2 if split else 1, **kw)

@@ -447,7 +447,9 @@ def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
                                    "skappa_support": 0, "gram": 1,
                                    "matvec": 2, "rmatvec": 4,
                                    "normal_matvec": 0, "block_matvec": 0,
-                                   "block_rmatvec": 0, "flash_attention": 0}
+                                   "block_rmatvec": 0, "flash_attention": 0,
+                                   "l1_epigraph_proj_lanes": 0,
+                                   "skappa_support_lanes": 0}
 
 
 
@@ -588,11 +590,20 @@ def test_cuda_normal_matvec_refuses(cuda_gen):
                  (a.mT.contiguous().mT, p, 1.0),         # not row-major
                  (a, p[:, :63], 1.0),                    # p does not fit
                  (a, p, torch.ones(63, device="cuda")),  # shift does not
-                 (a, p, torch.ones(3, 64, device="cuda")),
+                 (a, p, torch.ones(2, 64, device="cuda")),
                  (a, p, torch.ones(64, device="cuda").double())):
         with pytest.raises(ValueError):
             matvec.normal_matvec(*args)
     assert ops.launch_counts()["normal_matvec"] == 0
+    # a shift a node and entry (the fleet's polish) takes the composed
+    # kernels
+    shift = torch.rand(3, 64, device="cuda", generator=cuda_gen)
+    torch.testing.assert_close(matvec.normal_matvec(a, p, shift),
+                               ref.normal_matvec_ref(a, p, shift),
+                               rtol=RTOL, atol=1e-5 * _normal_scale(
+                                   a, p, shift))
+    counts = ops.launch_counts()
+    assert counts["normal_matvec"] == 0 and counts["matvec"] > 0
 
 
 @pytest.mark.cuda
@@ -1051,3 +1062,102 @@ def test_cuda_flash_attention_bf16_within_one_rounding(cuda_gen, BH, BHkv,
                                             causal=causal, sm_scale=sm_scale)
         torch.testing.assert_close(got.float(), want, rtol=2 ** -8,
                                    atol=1e-4)
+
+
+# The lane projections (csrc/ladder_proj.cu's lane kernels): every lane of
+# one launch against the plain lane version (s* and the step counts equal,
+# z / t / theta / u_max within the solo rows' tolerance) and against the
+# solo kernel on its row (bit for bit)
+LANE_D = (1, 16, 64, 1_000, 10_000)
+LANE_B = (1, 7, 10_000)
+
+
+def _lane_operands(gen, B, d):
+    z = (torch.randn(B, d, device="cuda", generator=gen)
+         * torch.rand(B, 1, device="cuda", generator=gen))
+    if d >= 8:
+        z[::3, :3] = 0.0
+        z[1::3, 2:6] = z[1::3, 2:3]
+    t0 = (torch.rand(B, device="cuda", generator=gen) - 0.3) * z.abs().sum(1)
+    kap = torch.randint(0, d + 2, (B,), device="cuda", generator=gen).to(
+        torch.int32)
+    return z, t0, kap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", LANE_B)
+@pytest.mark.parametrize("d", LANE_D)
+def test_cuda_lane_projections_agree(cuda_gen, d, B):
+    z, t0, kap = _lane_operands(cuda_gen, B, d)
+    ops.reset_launch_counts()
+    got = bisect_proj.l1_epigraph_proj_lanes(z, t0, stats=True)
+    gs = bisect_proj.skappa_support_lanes(z, kap, stats=True)
+    counts = ops.launch_counts()
+    assert counts["l1_epigraph_proj_lanes"] == counts[
+        "skappa_support_lanes"] == 1
+    want = ref.l1_epigraph_proj_lanes_ref(z, t0, stats=True)
+    ws = ref.skappa_support_lanes_ref(z, kap, stats=True)
+    atol = 1e-6 * float(z.abs().max())
+    assert torch.equal(got[3], want[3])
+    for a, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=atol)
+    assert torch.equal(gs[1], ws[1]) and torch.equal(gs[2], ws[2])
+    torch.testing.assert_close(gs[0], ws[0], rtol=1e-5, atol=atol)
+    lanes = range(B) if B * d <= 1_000_000 else range(0, B, 97)
+    for i in lanes:
+        solo = bisect_proj.l1_epigraph_proj(z[i], t0[i], stats=True)
+        assert all(torch.equal(a, b[i]) for a, b in zip(solo, got)), i
+        solo = bisect_proj.skappa_support(z[i], float(kap[i]), stats=True)
+        assert all(torch.equal(a, b[i]) for a, b in zip(solo, gs)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 200, 700])
+def test_cuda_lane_layouts_give_the_same_bits(cuda_gen, d):
+    """Every CTA size a lane may take (32, 128, 1,024 threads) gives the
+    same outputs on the same rows."""
+    z, t0, kap = _lane_operands(cuda_gen, 33, d)
+    outs = [(bisect_proj.l1_epigraph_proj_lanes(z, t0, ctas=1, threads=t),
+             bisect_proj.skappa_support_lanes(z, kap, ctas=1, threads=t))
+            for t in bisect_proj.LANE_THREADS]
+    for (l1, sk) in outs[1:]:
+        assert torch.equal(l1[0], outs[0][0][0])
+        assert torch.equal(l1[1], outs[0][0][1])
+        assert torch.equal(sk[1], outs[0][1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_lane_tensors_never_reach_the_plain_version(cuda_gen,
+                                                         monkeypatch):
+    """A lane operand on the card reaches the lane kernels (or raises):
+    with the plain lane versions made to fail, the projections, the s-step
+    and a small fleet fit still run, on the kernels."""
+    from repro_torch import runtime
+    from repro_torch.core import BiCADMM, BiCADMMConfig, fleet
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA lane tensor reached the plain version")
+
+    for name in ("l1_epigraph_proj_lanes_ref", "skappa_support_lanes_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+        monkeypatch.setattr(bisect_proj, name, refuse)
+    for name in ("l1_epigraph_proj_lanes", "skappa_support_lanes"):
+        monkeypatch.setitem(runtime._REGISTRY[name], "cpu", refuse)
+    z, t0, kap = _lane_operands(cuda_gen, 6, 40)
+    ops.reset_launch_counts()
+    bilinear.project_l1_epigraph(z, t0)
+    bilinear.s_update(z, t0, torch.zeros_like(t0), kap.float())
+    As = torch.randn(6, 2, 30, 12, device="cuda", generator=cuda_gen)
+    bs = torch.randn(6, 2, 30, device="cuda", generator=cuda_gen)
+    res = fleet.fit_many_stacked(BiCADMM("squared", BiCADMMConfig(
+        kappa=4, max_iter=20, zt_iters=10)), As, bs)
+    counts = ops.launch_counts()
+    trips = int(res.iters.max())
+    assert counts["l1_epigraph_proj_lanes"] == 1 + 11 * trips
+    assert counts["skappa_support_lanes"] == 1 + trips
+    assert counts["l1_epigraph_proj"] == counts["skappa_support"] == 0
+    with pytest.raises(ValueError):        # injected reductions: no kernel
+        bilinear.project_l1_epigraph(
+            z, t0, ops=bilinear.DEFAULT_OPS._replace(sum_fn=torch.sum))
+    with pytest.raises(ValueError):
+        bisect_proj.l1_epigraph_proj_lanes(z.double(), t0)

@@ -107,7 +107,9 @@ def test_grid_equals_the_cold_scan_bit_for_bit():
     solver = _port_solver("woodbury")
     grid = fit_grid(solver, A, b, KAPPAS, **PENALTIES)
     cold = fit_path(solver, A, b, KAPPAS, warm_start=False, **PENALTIES)
-    assert grid.strategy == cold.strategy == "cold-scan"
+    # the grid runs its points on a lane axis; on these spectral factors
+    # its lanes still equal the scan's points bit for bit on the CPU
+    assert grid.strategy == "vmap" and cold.strategy == "cold-scan"
     assert grid.state is None
     for name in ("coef", "z", "support", "iters", "p_r", "d_r", "b_r",
                  "cardinality", "train_loss", "status"):
@@ -272,13 +274,15 @@ def test_reduced_precision_path_follows_jax():
 
 # ------------------------------------------------------- kappa_ladder ----
 def test_kappa_ladder_reproduces_jax_integers():
-    """Both sides of the unrolled / vector-loop split of XLA's float32
-    linspace (17 steps), large n (where an ulp of the float32 values
-    decides the rounding) and both orders."""
+    """Every split of XLA's float32 linspace (unrolled to 17 steps, folded
+    vector lanes by 4 below 56 steps and by 8 below 80, a vector loop from
+    80), large n (where an ulp of the float32 values decides the rounding)
+    and both orders."""
     ns = list(range(2, 40)) + [100, 120, 400, 999, 1000, 2500, 4000, 10_000,
                                12_345, 100_000, 409_601, 777_777]
     for n in ns:
-        for num in (1, 2, 3, 5, 8, 12, 17, 18, 19, 24, 33):
+        for num in (1, 2, 3, 5, 8, 12, 17, 18, 19, 24, 33, 48, 64, 100,
+                    128):
             for lo, hi in ((0.05, 0.5), (0.05, 0.25), (0.01, 0.9)):
                 want = jax_kappa_ladder(n, num, lo_frac=lo, hi_frac=hi,
                                         descending=False)
@@ -305,7 +309,7 @@ def test_solve_path_and_grid_match_jax_and_leave_the_estimator_fitted():
     _assert_points(path, jpath)
     grid = api.solve_grid(api.SparseProblem(**problem), As, bs, KAPPAS,
                           options=api.SolverOptions(device="cpu", **opts))
-    assert grid.strategy == "cold-scan"
+    assert grid.strategy == "vmap"
 
     kw = dict(kappa=SPEC.kappa, gamma=10.0, **opts)
     for method in ("fit_path", "fit_grid"):
@@ -354,6 +358,9 @@ def test_capabilities_follow_the_feature_split():
         for name in ("dynamic_penalties", "per_solve_overrides",
                      "penalty_grids", "distributed", "warm_start"):
             assert getattr(got, name) == getattr(want, name), name
-    assert caps.grid_strategy == "cold-scan"
-    assert not (caps.fleet or caps.serve or caps.stream)
+    assert caps.grid_strategy == jcaps.grid_strategy == "vmap"
+    assert split.grid_strategy == "cold-scan"
+    # the fleet follows the JAX engine's rule; serving and streaming wait
+    assert caps.fleet == jcaps.fleet and split.fleet == jsplit.fleet
+    assert not (caps.serve or caps.stream)
     assert dataclasses.asdict(split)["penalty_grids"] is False
