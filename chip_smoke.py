@@ -50,11 +50,38 @@ Phases, each printing its own line with its wall time:
               before the clock (``precision="bf16"``): the bf16 gram,
               matvec, rmatvec and normal_matvec instantiations must launch
               and no f32 one.
+   fp64_polish — the woodbury point under ``precision="fp64_polish"``:
+              every l1 projection on the kernel's f64-polish instantiation;
+              ms an outer iteration beside the woodbury fit's, that kernel
+              against its plain version and beside the f32 one at d =
+              10,000, the certificate and the projection's KKT residual
+              under both presets. fp64_polish_lanes: fleet_sq (B = 10,000,
+              m = 32, n = 16) through ``fit_many`` in fp64_polish, the lane
+              kernel's f64 instantiation 121 launches an outer iteration, 8
+              lanes in their solo fits' band.
+   recovery — at the woodbury point, each ladder rung the genuine fix,
+              driven by ``faults.inject``: retry (limit=1), rho_restart
+              (where rho_c < 5), precision (bf16, where the data is bf16)
+              and exhaustion (max_attempts=2); the x-solver fallback (PCG
+              poisoned) on the Woodbury parity data. Prints each log and
+              each rung's wall time.
+   stream_dense — ``api.stream`` at n = 2,048 (DENSE_MAX_N), 12 chunks of
+              256 rows of benchmarks/stream_bench.py's data and config
+              (kappa 8, gamma 20, rho_c 2, tol 1e-3; max_iter cut to 100 a
+              refit), window 8 chunks (four rank-256 downdates): ms a chunk
+              for absorb, evict and refit, the maintained factor against
+              chol(G + cI) in f64 at every chunk, the final refit against a
+              batch fit on the window; chol_rank_update bit for bit
+              against its plain version at (256, 16).
+   stream_woodbury — the same at Fig. 2's width n = 10,000, chunks of 800
+              rows, window 8 (6,400 rows), 10 chunks (two rank-800
+              evictions), and the Cholesky kernel's time at (6,400, 800)
+              against its bytes bound.
 5. dense    — Fig. 2's smallest point (n = 1,000, kappa = 200) through the
               dense factorization and the dense polish.
    dense_fp16 — the same point in fp16 (``precision="fp16"``).
    path     — the hyperparameter path at the woodbury point and data
-              (gamma = 10, rho_c = 4, 60 iterations a point, tol 1e-4), over
+              (gamma = 10, rho_c = 4, 30 iterations a point, tol 1e-4), over
               kappa_ladder(10,000, 8, hi_frac=0.25) in descending order:
               a warm ``fit_path`` (the set-up inside its counted window),
               ``fit_path(warm_start=False)`` and ``fit_grid``. Prints each
@@ -67,8 +94,9 @@ Phases, each printing its own line with its wall time:
               supports and iterates differ is printed; path_converge holds
               the grid to the band), the scans launch skappa_support once
               per outer iteration and the grid each lane kernel once a step
-              for all points, and ladder_stats never launches. No point converges in 60
-              iterations, so warm and cold spend the same; path_converge
+              for all points, and ladder_stats never launches. No point
+              converges in 30 iterations, so warm and cold spend the same
+              (depth cut from 60 in PR 22 for the new phases' time); path_converge
               (phase 8) measures the warm start's saving.
    path_gamma — the woodbury point at kappa = 2,000 (tol 0, as the
               woodbury phase) through ``fit_grid`` over gamma = 1, 3.16,
@@ -162,7 +190,7 @@ Phases, each printing its own line with its wall time:
               through the sequence input, with the corrected train losses),
               fleet_caps (iter_caps 0 / 3 / 100 / 7 on 1,000 lanes: ABORTED
               and inert lanes) and fleet_warm (a refit from the returned
-              state). Each stacked part holds 8 lanes spread over the fleet
+              state). Each stacked part holds 4 lanes spread over the fleet
               against solo card fits (the same status, support, coef within
               1e-3, iterations within 2; the count that match to the
               iteration is printed), checks 121 l1 and 1 S^kappa lane
@@ -211,7 +239,7 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_wgmma_kernel")
 # device kernels whose ptxas report (registers, shared memory, spills) the
 # build phase prints
 PTXAS_SHOWN = ("flash_wgmma_kernel", "gram_xy_kernel", "gram_dmma_kernel",
-               "ladder_kernel")
+               "ladder_kernel", "chol_rank_kernel")
 # csrc/matvec.cu's kernel templates, summed over their instantiations, and
 # the template arguments of those the solver path runs: matvec <type of A,
 # path, rows per warp, KC, X as float4s> at K = 1 and 3, rmatvec <type,
@@ -247,6 +275,12 @@ REPLACES = {
     # the same loops, vmapped over the fleet's lanes
     "l1_epigraph_proj_lanes": "src/repro/core/bilinear.py:177",
     "skappa_support_lanes": "src/repro/core/bilinear.py:409",
+    # the same l1 loops with ladder_refine's polish_dtype=float64
+    "l1_epigraph_proj_f64polish": "src/repro/core/bilinear.py:177",
+    "l1_epigraph_proj_lanes_f64polish": "src/repro/core/bilinear.py:177",
+    # no Pallas kernel: the lax.fori_loop of _chol_rank1 under chol_update
+    # and chol_downdate
+    "chol_rank_update": "src/repro/core/prox.py:372",
 }
 SOURCES = {
     "ladder_stats": "src/repro_torch/csrc/ladder_stats.cu",
@@ -261,12 +295,19 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "l1_epigraph_proj_lanes": "src/repro_torch/csrc/ladder_proj.cu",
     "skappa_support_lanes": "src/repro_torch/csrc/ladder_proj.cu",
+    "l1_epigraph_proj_f64polish": "src/repro_torch/csrc/ladder_proj.cu",
+    "l1_epigraph_proj_lanes_f64polish": "src/repro_torch/csrc/ladder_proj.cu",
+    "chol_rank_update": "src/repro_torch/csrc/chol_update.cu",
 }
 # the bf16 / fp16 instantiations, each a row of the kernels line
 HALF_TYPES = ("bf16", "f16")
 HALF_KERNELS = tuple(f"{k}_{t}" for k in ("gram", "matvec", "rmatvec",
                                           "normal_matvec")
                      for t in HALF_TYPES)
+# the l1 projections' f64-polish instantiations (precision "fp64_polish"),
+# each a row of the kernels line
+POLISH_KERNELS = ("l1_epigraph_proj_f64polish",
+                  "l1_epigraph_proj_lanes_f64polish")
 for _name in HALF_KERNELS:
     _base = _name.rsplit("_", 1)[0]
     REPLACES[_name], SOURCES[_name] = REPLACES[_base], SOURCES[_base]
@@ -377,12 +418,18 @@ def dmma_kernels(build) -> dict:
 
 def ptxas_ladder_proj(log: str) -> list[str]:
     """One line per kernel of csrc/ladder_proj.cu from its ptxas report:
-    registers and spill stores of each cluster size's instantiation."""
+    registers and spill stores of each cluster size's instantiation (the
+    lane kernels' by (cluster size, threads)); the l1 kernels' f64-polish
+    instantiations on lines of their own."""
     kern, regs, spills = None, {}, {}
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            mt = re.search(r"(l1_proj_kernel|skappa_kernel)ILi(\d+)E", ln)
-            kern = mt and (mt.group(1), int(mt.group(2)))
+            mt = re.search(r"(l1_proj_kernel|skappa_kernel|l1_lanes_kernel)"
+                           r"ILi(\d+)E(?:Li(\d+)E)?(Lb1E)?", ln)
+            kern = mt and (mt.group(1) + (" f64 polish" if mt.group(4)
+                                          else ""),
+                           int(mt.group(2)) if mt.group(3) is None
+                           else f"{mt.group(2)},{mt.group(3)}")
         elif kern:
             used = re.search(r"Used (\d+) registers", ln)
             spill = re.search(r"(\d+) bytes spill stores", ln)
@@ -451,10 +498,10 @@ def parity_fits() -> list:
     estimator class, its keywords, As, bs)`` with numpy data from seed 1:
     Woodbury at n = 2,500, the feature split (M = 4, ragged last block
     nb = 63) at n = 250, squared and logistic, the Woodbury fit's data
-    through the PCG x-update (normal_matvec every CG step), and that data
-    cast to bf16 through Woodbury and to fp16 through PCG and Woodbury (the
-    engine casts it, on the card and on the CPU alike). ``repro_torch``
-    must be importable."""
+    through the PCG x-update (normal_matvec every CG step), that data cast
+    to bf16 through Woodbury and to fp16 through PCG and Woodbury (the
+    engine casts it, on the card and on the CPU alike), and through
+    Woodbury under fp64_polish. ``repro_torch`` must be importable."""
     from repro_torch import api
     from repro_torch.data import (SyntheticSpec, make_sparse_classification,
                                   make_sparse_regression)
@@ -481,7 +528,11 @@ def parity_fits() -> list:
              dict(rho_c=4.0, x_solver="pcg", precision="fp16")),
             ("parity_woodbury_fp16", "woodbury fp16", make_sparse_regression,
              small, api.SparseLinearRegression,
-             dict(rho_c=4.0, x_solver="woodbury", precision="fp16"))):
+             dict(rho_c=4.0, x_solver="woodbury", precision="fp16")),
+            ("parity_woodbury_fp64", "woodbury fp64_polish",
+             make_sparse_regression, small, api.SparseLinearRegression,
+             dict(rho_c=4.0, x_solver="woodbury",
+                  precision="fp64_polish"))):
         As, bs, _ = make(1, spec)
         fits.append((key, f"N={spec.n_nodes} m={spec.m_per_node} "
                           f"n={spec.n_features} kappa={spec.kappa} {what}",
@@ -619,6 +670,10 @@ def check_band(torch, name, got, want, what) -> dict:
 # wrong per-lane sigma, rho_c or kappa moves z by far more in 60
 # iterations
 Z_RTOL = 1e-3
+# the path phase's iterations a point (60 until PR 21; cut to pay for the
+# streaming phases: no point converges in either, path_converge measures
+# the warm start where they do)
+PATH_ITERS = 30
 
 
 def unconverged_diffs(torch, name, got, want, what, kappa) -> dict:
@@ -812,7 +867,10 @@ FLEET_ROWS = {"fleet_sq": (10_000, 1, 32, 16), "fleet_sq_wide": (2_000, 1,
 # outer iteration is ~250 host-paced CG steps (~0.25 s solo, ~0.44 s for
 # the fleet), so 8 solo fits of 200 took 407 s of a run (PERF.md section 6)
 PROBE_CFG = dict(kappa=4, gamma=1000.0, rho_c=10.0, max_iter=20, tol=1e-3)
-FLEET_SAMPLE = 8        # lanes held against solo fits, spread over B
+# lanes held against solo fits, spread over B: 4 (8 until PR 21; cut in
+# PR 22 to keep the script within its time with the new phases: the solo
+# loops were ~140 s of the fleet phases)
+FLEET_SAMPLE = 4
 
 
 def fleet_data(B, N, m, n, seed=0, labels=False):
@@ -1091,6 +1149,399 @@ def fleet_phases(torch, api, ops, report, dev) -> dict:
                               f"{wall:.3f} s; converged lanes stay "
                               "converged")
     return sq_counts
+
+
+# benchmarks/stream_bench.py's config (kappa 8, gamma 20, rho_c 2, tol 1e-3)
+# with max_iter cut from 2,000 to 100 a refit; its chunk data (seed 0)
+STREAM_CFG = dict(kappa=8, gamma=20.0, rho_c=2.0, max_iter=100, tol=1e-3)
+# (n, rows a chunk, window in chunks, chunks): dense at DENSE_MAX_N, four
+# rank-256 downdates; Woodbury at Fig. 2's width and one node's m, the
+# window 6,400 rows < WOODBURY_MAX_M, two rank-800 evictions
+STREAM_ROWS = {"stream_dense": (2_048, 256, 8, 12),
+               "stream_woodbury": (10_000, 800, 8, 10)}
+
+
+def stream_chunks(n, m, T, kappa, seed=0):
+    """benchmarks/stream_bench.py's ``_chunk_data`` as numpy: T chunks of m
+    standard normal rows, b = A w + 0.01 noise, w with kappa entries in
+    [1, 2)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w = np.zeros(n)
+    w[rng.choice(n, kappa, replace=False)] = 1.0 + rng.random(kappa)
+    out = []
+    for _ in range(T):
+        X = rng.standard_normal((m, n)).astype(np.float32)
+        y = (X @ w + 0.01 * rng.standard_normal(m)).astype(np.float32)
+        out.append((X, y))
+    return out
+
+
+def slice_phases(torch, api, ops, report, dev, kernel_row, fit_phase,
+                 A, b_w, x_true, kappa, f32_fit) -> dict:
+    """The fp64_polish, recovery, stream_dense and stream_woodbury phases
+    (module docstring) at the woodbury point (``A``, ``b_w``), beside the
+    woodbury phase's f32 fit ``f32_fit`` (its report). Returns each new
+    kernel's launches from the run that drives it."""
+    import numpy as np
+    from repro_torch import faults
+    from repro_torch.core import bilinear
+    from repro_torch.core.results import SolveStatus
+    from repro_torch.kernels import bisect_proj, chol_update, ref
+    g = torch.Generator(device=dev).manual_seed(22)
+    launches = {}
+
+    # fp64_polish: the woodbury fit with the (7b) polish in f64 ------------
+    est64 = api.SparseLinearRegression(kappa=kappa, gamma=10.0, rho_c=4.0,
+                                       max_iter=60, tol=0.0,
+                                       precision="fp64_polish")
+    fit_phase("fp64_polish", A, b_w, x_true, kappa, "woodbury",
+              MAIN_KERNELS, est=est64, setup=True,
+              needed_types=("l1_epigraph_proj_f64polish",))
+    rep = report["fp64_polish"]
+    f64_l1 = rep["launches_by_type"]["l1_epigraph_proj_f64polish"]
+    require(f64_l1 == rep["launches"]["l1_epigraph_proj"],
+            f"fp64_polish: {rep['launches']['l1_epigraph_proj']} l1 "
+            f"launches, {f64_l1} of them the f64-polish instantiation")
+    launches["l1_epigraph_proj_f64polish"] = f64_l1
+    cert = {}
+    for name, res in (("fp32", f32_fit), ("fp64_polish", est64.result_)):
+        c = bilinear.check_theorem_certificate(res.coef.reshape(-1), kappa)
+        cert[name] = {k: float(v) for k, v in c.items()}
+    # the kernels at d = 10,000: f64 polish against its plain version and
+    # beside the f32 instantiation on the same input; the KKT residual
+    # |sum |z| - t| (f64) of each
+    nn = A.shape[2]
+    z0 = torch.randn(nn, device=dev, generator=g)
+    tz = (0.5 * z0.abs().sum()).reshape(())
+    got = bisect_proj.l1_epigraph_proj(z0, tz, stats=True, polish64=True)
+    want = ref.l1_epigraph_proj_ref(z0, tz, stats=True, polish64=True)
+    f32 = bisect_proj.l1_epigraph_proj(z0, tz, stats=True)
+    scale = float(z0.abs().max())
+    for what, g_, w_ in (("t", got[1], want[1]), ("theta", got[2], want[2])):
+        check_close(torch, f"l1_epigraph_proj_f64polish n={nn} {what}", g_,
+                    w_, None, rtol=PROJ_RTOL, atol=PROJ_ATOL_PER_MAX * scale)
+    kkt = {name: abs(float(out[0].double().abs().sum() - out[1].double()))
+           for name, out in (("fp32", f32), ("fp64_polish", got))}
+    steps = int(got[3])
+    rounds = 2
+    kernel_row("l1_epigraph_proj_f64polish",
+               f"l1_epigraph_proj_f64polish n={nn} ({steps} polish steps)",
+               lambda: bisect_proj.l1_epigraph_proj(z0, tz, polish64=True),
+               lambda: ref.l1_epigraph_proj_ref(z0, tz, polish64=True),
+               None, (got[0], want[0], None), 8 * nn + 8,
+               2 * nn * (1 + rounds * bisect_proj.RUNGS) + 2 * nn * steps,
+               tol=(PROJ_RTOL, PROJ_ATOL_PER_MAX * scale), plain_eager=True,
+               yardsticks={"f32 instantiation": lambda:
+                           bisect_proj.l1_epigraph_proj(z0, tz)})
+    print(f"  fp64_polish: {rep['s_per_outer_iter'] * 1e3:.2f} ms an outer "
+          f"iteration against the f32 fit's "
+          f"{f32_fit_ms(report):.2f} ms; certificate (bilinear residual) "
+          f"f32 {cert['fp32']['bilinear']:.3e}, fp64_polish "
+          f"{cert['fp64_polish']['bilinear']:.3e}; projection KKT residual "
+          f"|sum|z| - t| at n={nn}: f32 polish {kkt['fp32']:.3e}, f64 "
+          f"polish {kkt['fp64_polish']:.3e} (theta {float(f32[2])!r} / "
+          f"{float(got[2])!r}, steps {int(f32[3])} / {steps})", flush=True)
+    rep.update(certificate=cert, projection_kkt_residual=kkt)
+
+    # the f64 polish on lanes: fleet_sq's (10,000, 16) through fit_many
+    t_ph = time.perf_counter()
+    B, N, m, n = FLEET_ROWS["fleet_sq"]
+    As_np, bs_np = fleet_data(B, N, m, n)
+    Af, bf = torch.as_tensor(As_np, device=dev), torch.as_tensor(bs_np,
+                                                                  device=dev)
+    zl = torch.randn(B, n, device=dev, generator=g)
+    tl = 0.5 * zl.abs().sum(1)
+    got = bisect_proj.l1_epigraph_proj_lanes(zl, tl, stats=True,
+                                             polish64=True)
+    want = ref.l1_epigraph_proj_lanes_ref(zl, tl, stats=True, polish64=True)
+    lscale = float(zl.abs().max())
+    need = got[3] > 0
+    l1_terms = int((1 + need.long() * rounds * bisect_proj.RUNGS
+                    + got[3].long()).sum()) * n
+    kernel_row("l1_epigraph_proj_lanes_f64polish",
+               f"l1_epigraph_proj_lanes_f64polish ({B}, {n})",
+               lambda: bisect_proj.l1_epigraph_proj_lanes(zl, tl,
+                                                          polish64=True),
+               lambda: ref.l1_epigraph_proj_lanes_ref(zl, tl, polish64=True),
+               None, (got[0], want[0], None), 8 * B * n + 8 * B,
+               2 * l1_terms,
+               tol=(PROJ_RTOL, PROJ_ATOL_PER_MAX * lscale), plain_eager=True,
+               yardsticks={"f32 instantiation": lambda:
+                           bisect_proj.l1_epigraph_proj_lanes(zl, tl)})
+    problem = api.SparseProblem("squared", kappa=FLEET_CFG["kappa"],
+                                gamma=FLEET_CFG["gamma"],
+                                rho_c=FLEET_CFG["rho_c"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_fit = time.perf_counter()
+    fleet = api.fit_many(problem, Af, bf, options=api.SolverOptions(
+        max_iter=FLEET_CFG["max_iter"], tol=FLEET_CFG["tol"],
+        precision="fp64_polish"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_fit
+    counts = ops.launch_counts()
+    f64_lanes = ops.launch_counts_by_type().get(
+        "l1_epigraph_proj_lanes_f64polish", 0)
+    trips = int(fleet.iters.max())
+    require(bool(torch.isfinite(fleet.coef).all()),
+            "fp64_polish_lanes: non-finite coef")
+    require(not bool((fleet.status == int(SolveStatus.DIVERGED)).any()),
+            "fp64_polish_lanes: a lane DIVERGED")
+    require(f64_lanes == counts["l1_epigraph_proj_lanes"] == 121 * trips,
+            f"fp64_polish_lanes: {f64_lanes} f64-polish of "
+            f"{counts['l1_epigraph_proj_lanes']} lane launches in {trips} "
+            "outer iterations (expected 121 each, all f64-polish)")
+    launches["l1_epigraph_proj_lanes_f64polish"] = f64_lanes
+    # the first and the last lane against solo fp64_polish fits on the card
+    solver = api._ReferenceAdapter(problem, api.SolverOptions(
+        max_iter=FLEET_CFG["max_iter"], tol=FLEET_CFG["tol"],
+        precision="fp64_polish")).solver
+    for i in (0, B - 1):
+        solo = solver.fit(Af[i], bf[i])
+        lane = fleet[int(i)]
+        require(int(lane.status) == int(solo.status)
+                and torch.equal(lane.support, solo.support)
+                and float((lane.coef - solo.coef).abs().max()) <= 1e-3
+                and abs(int(lane.iters) - int(solo.iters)) <= 2,
+                f"fp64_polish_lanes lane {i}: out of the solo fit's band")
+    report["fp64_polish_lanes"] = {
+        "B": B, "n": n, "fleet_s": wall, "fits_per_s": B / wall,
+        "outer_iters_max": trips,
+        "outer_iters_mean": float(fleet.iters.float().mean()),
+        "launches": counts}
+    phase("fp64_polish_lanes", t_ph,
+          f"fleet_sq (B={B}, m={m}, n={n}) in fp64_polish: {wall:.3f} s, "
+          f"{B / wall:.1f} fits/s, outer iterations max {trips}; "
+          f"{f64_lanes} f64-polish lane "
+          "launches (121 an outer iteration), lanes 0 and B - 1 in their "
+          "solo fp64_polish fits' band")
+    del Af, bf
+
+    # recovery: each rung the genuine fix, driven by faults.inject ---------
+    t_ph = time.perf_counter()
+    rung_s = []
+    fit0 = api._ReferenceAdapter.fit
+
+    def timed_fit(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = fit0(self, *a, **kw)
+        torch.cuda.synchronize()
+        rung_s.append(time.perf_counter() - t0)
+        return out
+
+    api._ReferenceAdapter.fit = timed_fit
+    cases = {}
+    try:
+        kw = dict(kappa=kappa, gamma=10.0, max_iter=60, tol=0.0)
+        for name, hook, where, limit, extra, policy, want in (
+                ("retry", faults.nan_x(3), None, 1, {},
+                 api.RecoveryPolicy(), ["retry"]),
+                ("rho_restart", faults.nan_x(2),
+                 lambda s: float(s.cfg.rho_c) < 5.0, None, {},
+                 api.RecoveryPolicy(), ["retry", "rho_restart"]),
+                ("precision", faults.nan_x(2),
+                 lambda s: s.cfg.precision.data == "bfloat16", None,
+                 dict(precision="bf16"), api.RecoveryPolicy(),
+                 ["retry", "rho_restart", "precision"]),
+                ("exhaustion", faults.nan_x(2), None, None, {},
+                 api.RecoveryPolicy(max_attempts=2),
+                 ["retry", "rho_restart"])):
+            rung_s.clear()
+            t0 = time.perf_counter()
+            with faults.inject(hook, where=where, limit=limit):
+                est = api.SparseLinearRegression(rho_c=4.0, recovery=policy,
+                                                 **kw, **extra)
+                est.fit(A, b_w)
+            torch.cuda.synchronize()
+            res = est.result_
+            log = [tuple(a) for a in res.recovery]
+            require([a[0] for a in log] == want,
+                    f"recovery {name}: log {log}, expected stages {want}")
+            final = int(res.status)
+            require((final == int(SolveStatus.DIVERGED))
+                    == (name == "exhaustion"),
+                    f"recovery {name}: ended {SolveStatus(final).name}")
+            cases[name] = {"log": log, "status": SolveStatus(final).name,
+                           "wall_s": time.perf_counter() - t0,
+                           "rung_s": list(rung_s[1:]),
+                           "first_fit_s": rung_s[0]}
+        # the x-solver fallback at the parity size (a Woodbury factor of
+        # Fig. 3's 25,000 rows a node would take 20 GB)
+        from repro_torch.data import SyntheticSpec, make_sparse_regression
+        small = SyntheticSpec(2, 200, 2_500, sparsity_level=0.98, noise=1e-3)
+        As_p, bs_p, _ = make_sparse_regression(1, small)
+        rung_s.clear()
+        t0 = time.perf_counter()
+        with faults.inject(faults.nan_x(2),
+                           where=lambda s: s.cfg.x_solver == "pcg"):
+            est = api.SparseLinearRegression(
+                kappa=small.kappa, gamma=10.0, rho_c=4.0, tol=1e-4,
+                max_iter=300, x_solver="pcg",
+                recovery=api.RecoveryPolicy()).fit(As_p, bs_p)
+        torch.cuda.synchronize()
+        res = est.result_
+        log = [tuple(a) for a in res.recovery]
+        require([a[:2] for a in log] == [
+            ("retry", "same configuration"), ("rho_restart", "rho_c=40"),
+            ("precision", "fp64_polish"), ("x_solver", "woodbury")]
+                and int(res.status) == int(SolveStatus.CONVERGED),
+                f"recovery x_solver: log {log}, {res.status_name}")
+        cases["x_solver"] = {"log": log, "status": res.status_name,
+                             "wall_s": time.perf_counter() - t0,
+                             "rung_s": list(rung_s[1:]),
+                             "first_fit_s": rung_s[0]}
+    finally:
+        api._ReferenceAdapter.fit = fit0
+    report["recovery"] = cases
+    phase("recovery", t_ph, "; ".join(
+        f"{k}: " + ", ".join(f"{a[0]} {a[1]} -> "
+                             f"{SolveStatus(a[2]).name} in {a[3]} iters "
+                             f"({s:.2f} s)"
+                             for a, s in zip(v["log"], v["rung_s"]))
+        + f" (first fit {v['first_fit_s']:.2f} s)" for k, v in cases.items()))
+
+    # stream_dense and stream_woodbury ---------------------------------------
+    for name, backend in (("stream_dense", "dense"),
+                          ("stream_woodbury", "woodbury")):
+        n, m, window, T = STREAM_ROWS[name]
+        t_ph = time.perf_counter()
+        chunks = stream_chunks(n, m, T, STREAM_CFG["kappa"])
+        problem = api.SparseProblem("squared", kappa=STREAM_CFG["kappa"],
+                                    gamma=STREAM_CFG["gamma"],
+                                    rho_c=STREAM_CFG["rho_c"])
+        opts = api.SolverOptions(max_iter=STREAM_CFG["max_iter"],
+                                 tol=STREAM_CFG["tol"])
+        s = api.stream(problem, options=opts, window=window)
+        eng = s.engine
+        spans = {"absorb": [], "evict": [], "refit": []}
+        originals = {}
+        for span, attr in (("absorb", "_absorb_one"),
+                           ("evict", "_evict_oldest"),
+                           ("refit", "_refit")):
+            originals[attr] = getattr(eng, attr)
+
+            def timed(*a, _f=originals[attr], _span=span, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _f(*a, **kw)
+                torch.cuda.synchronize()
+                spans[_span].append(time.perf_counter() - t0)
+                return out
+            setattr(eng, attr, timed)
+        resid, iters, statuses = [], [], []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        for X, y in chunks:
+            res = s.partial_fit(torch.as_tensor(X, device=dev),
+                                torch.as_tensor(y, device=dev))
+            iters.append(int(res.iters))
+            statuses.append(SolveStatus(int(res.status)).name)
+            # the maintained factor against chol(Gram + c I) in f64
+            A_win, _ = eng._window_data()
+            Aw = A_win.double()
+            M = Aw.T @ Aw if backend == "dense" else Aw @ Aw.T
+            M += eng._c * torch.eye(M.shape[0], dtype=M.dtype, device=dev)
+            L64 = torch.linalg.cholesky(M)
+            resid.append(float((eng._acc.L.double() - L64).norm()
+                               / L64.norm()))
+            del Aw, M, L64
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        counts = ops.launch_counts()
+        for attr, f in originals.items():
+            setattr(eng, attr, f)
+        require(eng.mode == backend, f"{name}: the stream took {eng.mode}")
+        require(counts["chol_rank_update"] > 0,
+                f"{name}: chol_rank_update was not launched")
+        require(not any(st == "DIVERGED" for st in statuses),
+                f"{name}: a refit DIVERGED")
+        require(max(resid) < 1e-4, f"{name}: the maintained factor is "
+                                   f"{max(resid):.3e} from chol(G + cI)")
+        require(len(spans["evict"]) == T - window,
+                f"{name}: {len(spans['evict'])} evictions")
+        launches.setdefault("chol_rank_update", counts["chol_rank_update"])
+        # the final refit against a batch fit on the window
+        A_win, y_win = eng._window_data()
+        batch = api.solve(problem, A_win, y_win, options=opts)
+        require(torch.equal(batch.support, res.support),
+                f"{name}: the final refit's support differs from the batch "
+                "fit's on the window")
+        coef_err = float((batch.coef - res.coef).abs().max())
+        require(coef_err <= 1e-3, f"{name}: the final refit's coef is "
+                                  f"{coef_err} from the batch fit's")
+        out = {"n": n, "rows_a_chunk": m, "window": window, "chunks": T,
+               "run_s": run_s, "iters": iters, "statuses": statuses,
+               "factor_rel_residual": resid,
+               "ms_a_chunk": {k: (sum(v) / max(len(v), 1)) * 1e3
+                              for k, v in spans.items()},
+               "spans_s": spans, "launches": counts,
+               "batch_coef_max_abs_diff": coef_err,
+               "batch_iters": int(batch.iters)}
+        report[name] = out
+        # the Cholesky kernel at this stream's shape: a rank-m update of
+        # the (window rows or n)-wide factor, timed against its bytes bound
+        k_n = n if backend == "dense" else window * m
+        L = eng._acc.L if backend == "dense" else torch.linalg.cholesky(
+            M_spd(torch, k_n, dev, g))
+        V = torch.randn(k_n, m, device=dev, generator=g)
+        t_k = cuda_ms(torch, lambda: chol_update.chol_rank_update(L, V, 1.0),
+                      reps=3, warmup=1)
+        bnd, by = bound(2 * 4 * k_n * k_n + 4 * k_n * m,
+                        6.0 * k_n * k_n / 2 * m)
+        out["chol_kernel"] = {"n": k_n, "k": m, "ms": t_k, "bound_ms": bnd,
+                              "bound_by": by}
+        phase(name, t_ph,
+              f"n={n}, {T} chunks of {m} rows, window {window} chunks, "
+              f"{STREAM_CFG} (max_iter cut from 2,000): {run_s:.2f} s; ms a "
+              f"chunk absorb {out['ms_a_chunk']['absorb']:.2f}, evict "
+              f"{out['ms_a_chunk']['evict']:.2f}, refit "
+              f"{out['ms_a_chunk']['refit']:.2f}; iterations {iters}, "
+              f"statuses {sorted(set(statuses))}; maintained factor within "
+              f"{max(resid):.2e} of chol(G + cI) in f64; final refit within "
+              f"{coef_err:.2e} of the batch fit on the window (same "
+              f"support); chol_rank_update {counts['chol_rank_update']} "
+              f"launches, ({k_n}, k={m}) {t_k:.2f} ms against a {by} bound "
+              f"of {bnd:.4f} ms")
+
+    # chol_rank_update against its plain version, bit for bit, at (256, 16)
+    k_n, k_k = 256, 16
+    L = torch.linalg.cholesky(M_spd(torch, k_n, dev, g))
+    V = 0.3 * torch.randn(k_n, k_k, device=dev, generator=g)
+    Lu, _ = chol_update.chol_rank_update(L, V, 1.0)
+    wants = {}
+    for sign, L0 in ((1.0, L), (-1.0, Lu)):
+        gotc, gok = chol_update.chol_rank_update(L0, V, sign)
+        wantc, wok = ref.chol_rank_update_ref(L0, V, sign)
+        wants[sign] = wantc
+        require(torch.equal(gotc, wantc) and bool(gok) == bool(wok),
+                f"chol_rank_update n={k_n} k={k_k} sign {sign:+.0f}: not "
+                "bit-equal to its plain version")
+    Mu = Lu @ Lu.T
+    # library: one cuSOLVER Cholesky of the updated matrix (given)
+    kernel_row("chol_rank_update",
+               f"chol_rank_update n={k_n} k={k_k} (bit for bit, update and "
+               "downdate)",
+               lambda: chol_update.chol_rank_update(L, V, 1.0),
+               lambda: ref.chol_rank_update_ref(L, V, 1.0),
+               lambda: torch.linalg.cholesky_ex(Mu),
+               (Lu, wants[1.0], None),
+               2 * 4 * k_n * k_n + 4 * k_n * k_k,
+               6.0 * k_n * k_n / 2 * k_k, tol=(0.0, 0.0), plain_eager=True,
+               plain_reps=1)
+    return launches
+
+
+def f32_fit_ms(report) -> float:
+    """The woodbury phase's ms an outer iteration."""
+    return report["woodbury"]["s_per_outer_iter"] * 1e3
+
+
+def M_spd(torch, n, dev, g):
+    """A well-conditioned SPD matrix (n, n) on the card: A^T A / n + I."""
+    a = torch.randn(n + 8, n, device=dev, generator=g)
+    return a.T @ a / n + torch.eye(n, device=dev)
 
 
 def lm_phase(torch, dev, report) -> dict:
@@ -1500,9 +1951,11 @@ def main() -> int:
 
     def kernel_row(name, label, fn, plain, library, got_want_scale,
                    nbytes, flops, peak=PEAK_F32_FLOPS, tol=None,
-                   plain_eager=False, yardsticks=None):
+                   plain_eager=False, yardsticks=None, plain_reps=5):
         """``plain_eager``: the plain version reads the host inside its
-        loops, so it is timed eagerly (no CUDA graph can hold it).
+        loops, so it is timed eagerly (no CUDA graph can hold it), the
+        median of ``plain_reps`` calls (after 3 warm-up calls when there
+        are more than one).
         ``yardsticks``: {label: fn} of other ways to the same result, each
         timed like the kernel (reported, not used by the port)."""
         err = check_close(torch, label, *got_want_scale,
@@ -1512,7 +1965,9 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "shape": label,
                "max_abs_err": err, "ms": graph_ms(torch, fn),
-               "plain_ms": (cuda_ms(torch, plain, reps=5) if plain_eager
+               "plain_ms": (cuda_ms(torch, plain, reps=plain_reps,
+                                    warmup=3 if plain_reps > 1 else 0)
+                            if plain_eager
                             else graph_ms(torch, plain)),
                "bound_ms": bnd, "bound_by": by,
                "library_ms": (None if library is None
@@ -2313,6 +2768,12 @@ def main() -> int:
                             "normal_matvec_bf16"))
     del A16, b16
 
+    # 4c. fp64_polish, recovery and the streams (this slice's phases)
+    slice_launches = slice_phases(
+        torch, api, ops, report, dev, kernel_row, fit_phase, A,
+        torch.as_tensor(bs_w, device=dev), xt_w, wide.kappa, wood_res)
+    torch.cuda.empty_cache()
+
     # 5. the dense regime ---------------------------------------------------
     dense_res = fit_phase("dense", As_n, bs_n, xt_n, narrow.kappa, "dense",
                           (*PROJ_KERNELS, "gram", "rmatvec")).result_
@@ -2330,7 +2791,7 @@ def main() -> int:
     bw = torch.as_tensor(bs_w, device=dev)
     kaps = path_mod.kappa_ladder(wide.n_features, 8, hi_frac=0.25)
     path_est = api.SparseLinearRegression(kappa=wide.kappa, gamma=10.0,
-                                          rho_c=4.0, max_iter=60)
+                                          rho_c=4.0, max_iter=PATH_ITERS)
     path_runs, paths = {}, {}
     for run in ("warm", "cold", "grid"):
         torch.cuda.synchronize()
@@ -2384,7 +2845,7 @@ def main() -> int:
               + f"; launches { {k: v for k, v in counts.items() if v} }; "
               + points_text(points), flush=True)
     # fit_grid runs the points on lanes (shared factors, the K = 8 form of
-    # the products). No point converges in 60 iterations, and a support
+    # the products). No point converges in PATH_ITERS, and a support
     # there is the nonzeros of an unconverged z (kappa >= 667), which the
     # products' other summation order moves by single near-zero entries:
     # each point keeps the cold scan's status and iterations, z within
@@ -2401,7 +2862,8 @@ def main() -> int:
                       f"iterations in {path_runs['warm']['wall_s']:.3f} s, "
                       f"cold {path_runs['cold']['iters']} in "
                       f"{path_runs['cold']['wall_s']:.3f} s (every point "
-                      f"stops at max_iter 60: path_converge measures the "
+                      f"stops at max_iter {PATH_ITERS}: path_converge "
+                      "measures the "
                       f"warm start's saving), grid (the points on lanes) "
                       f"{path_runs['grid']['iters']} in "
                       f"{path_runs['grid']['wall_s']:.3f} s, against the "
@@ -2804,7 +3266,7 @@ def main() -> int:
         "matvec_f16": "parity_woodbury_fp16",
         "normal_matvec_f16": "parity_pcg_fp16"}
     kernels = []
-    for name in (*ops.KERNELS, *HALF_KERNELS):
+    for name in (*ops.KERNELS, *HALF_KERNELS, *POLISH_KERNELS):
         row = dict(rows[name])
         for key in ("shape", "call_ms", "yardsticks_ms"):
             row.pop(key)
@@ -2814,6 +3276,8 @@ def main() -> int:
             row["launches_in"] = half_counts[name]
             require(row["launches"] > 0, f"{name}: no launch in "
                                          f"{half_counts[name]}")
+        elif name in slice_launches:
+            row["launches"] = slice_launches[name]
         else:
             counts = (lm_counts if name == "flash_attention" else
                       fleet_counts if name in LANE_KERNELS else

@@ -14,20 +14,25 @@ card unless the caller asks for the CPU: with ``device=None`` and no CUDA
 device they raise ``RuntimeError``. ``precision="bf16"`` / ``"fp16"`` fit
 bf16 / fp16 data (or f32 data, which the engine casts once) through the
 dense, Woodbury and PCG x-updates and Newton-CG, with f32 iterates.
+``precision="fp64_polish"`` runs the (7b) projection's polish in f64.
 Hyperparameter sweeps run through :func:`solve_path` / :func:`solve_grid` and
 the estimators' ``fit_path`` / ``fit_grid`` (kappa, gamma and rho_c grids;
 kappa only under the feature split), and one solve may override kappa,
 gamma or rho_c. :func:`fit_many` fits a fleet of independent problems
 (stacked arrays or a list of mixed shapes) in one lane-batched driver.
+``SolverOptions(recovery=RecoveryPolicy())`` reruns a DIVERGED solve
+through the escalation ladder (:func:`recover`; retry, rho restart,
+precision, x-solver), logged in ``FitResult.recovery``. :func:`stream` and
+the estimators' ``partial_fit`` fit a growing or sliding-window dataset
+chunk by chunk over incrementally maintained factors.
 What the port has not ported raises :class:`CapabilityError` up front: the
-sharded engine and meshes, ``precision="fp64_polish"``, the feature split
-under a reduced precision, divergence recovery, and the serving and
-streaming entry points (``partial_fit``, ``serve``, ``stream``,
-``recover``).
+sharded engine and meshes, the feature split under a reduced precision,
+and the serving plane (``serve``).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
@@ -39,17 +44,23 @@ from .core.fleet import fit_many_stacked as _ref_fit_many_stacked
 from .core.losses import Loss, get_loss
 from .core.path import fit_grid as _ref_fit_grid
 from .core.path import fit_path as _ref_fit_path
+from .core import prox
 from .core.prox import XSOLVERS
+from .core.recovery import (RecoveryAttempt, RecoveryPolicy, SolveDiverged,
+                            sanitize_state)
 from .core.results import FitResult, FleetResult, SolveStatus, SparsePath
+from .core.streaming import StreamingBiCADMM
 from .kernels.ops import matvec_auto
 from .runtime import CapabilityError
 
 __all__ = ["CapabilityError", "Capabilities", "FitResult", "FleetResult",
+           "RecoveryAttempt", "RecoveryPolicy", "SolveDiverged",
            "SolveStatus", "SolverOptions", "SparseEstimator",
            "SparseLinearRegression", "SparseLogisticRegression",
            "SparsePath", "SparseProblem", "SparseSVM",
-           "SparseSoftmaxRegression", "engine_capabilities", "fit_many",
-           "solve", "solve_grid", "solve_path", "validate_data"]
+           "SparseSoftmaxRegression", "StreamingSolver",
+           "engine_capabilities", "fit_many", "recover", "solve",
+           "solve_grid", "solve_path", "stream", "validate_data"]
 
 ENGINES = ("auto", "reference", "sharded")
 
@@ -129,6 +140,10 @@ class SolverOptions:
                              f"one of {XSOLVERS}")
         if self.divergence_tol <= 0:
             raise ValueError("divergence_tol must be positive")
+        if self.recovery is not None and not isinstance(self.recovery,
+                                                        RecoveryPolicy):
+            raise TypeError("recovery must be a RecoveryPolicy or None, "
+                            f"got {type(self.recovery).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +151,9 @@ class Capabilities:
     """What the port's engine can do (see ``repro.api.Capabilities``).
     ``grid_strategy`` is ``"vmap"``: a grid's points run together on a lane
     axis (``"cold-scan"`` under the feature split, whose per-point factors
-    and inner state have no lane axis). ``fleet``: ``fit_many``, off under
-    the feature split as in the JAX package."""
+    and inner state have no lane axis). ``fleet``: ``fit_many``, and
+    ``stream``: ``partial_fit`` / :func:`stream`, both off under the feature
+    split as in the JAX package."""
     engine: str
     distributed: bool
     dynamic_penalties: bool
@@ -170,7 +186,7 @@ def engine_capabilities(engine: str = "reference",
                         dynamic_penalties=dyn, per_solve_overrides=True,
                         penalty_grids=dyn,
                         grid_strategy="vmap" if dyn else "cold-scan",
-                        gather_free=False, fleet=dyn)
+                        gather_free=False, fleet=dyn, stream=dyn)
 
 
 def _check_options(options: SolverOptions) -> None:
@@ -179,8 +195,6 @@ def _check_options(options: SolverOptions) -> None:
     unported = []
     if options.engine == "sharded" or options.mesh is not None:
         unported.append("the sharded engine (engine='sharded' / mesh=)")
-    if options.recovery is not None:
-        unported.append("divergence recovery (recovery=)")
     if unported:
         raise CapabilityError("not ported to repro_torch yet: "
                               + "; ".join(unported))
@@ -202,6 +216,15 @@ def _check_fleet(caps: Capabilities) -> None:
             "fleet fitting (Capabilities.fleet=False): fit_many needs the "
             "lane-batched masked driver — use the reference engine with "
             "n_feature_blocks=1")
+
+
+def _check_stream(caps: Capabilities) -> None:
+    if not caps.stream:
+        raise CapabilityError(
+            f"the {caps.engine!r} engine (as configured) cannot stream "
+            "(Capabilities.stream=False): partial_fit maintains the "
+            "x-update factors incrementally, which needs the reference "
+            "engine with n_feature_blocks=1")
 
 
 def _check_precision(caps: Capabilities, options: SolverOptions) -> None:
@@ -350,14 +373,130 @@ class _ReferenceAdapter:
                              on_bucket=on_bucket)
 
 
+def _diverged(res: FitResult) -> bool:
+    return (res.status is not None
+            and int(res.status) == int(SolveStatus.DIVERGED))
+
+
 def solve(problem: SparseProblem, X, y, *,
           options: SolverOptions | None = None, state=None) -> FitResult:
     """Solve one :class:`SparseProblem` on ``(X, y)``; ``state=``
-    warm-starts from a previous result's ``.state``."""
+    warm-starts from a previous result's ``.state``. With
+    ``SolverOptions(recovery=RecoveryPolicy(...))`` a solve that ends
+    DIVERGED is rerun through the escalation ladder (:func:`recover`),
+    every attempt logged in ``FitResult.recovery``."""
     options = options if options is not None else SolverOptions()
     adapter = _ReferenceAdapter(problem, options)
     As, bs = _stack(X, y, adapter.device, options.precision)
-    return adapter.fit(As, bs, state=state)
+    res = adapter.fit(As, bs, state=state)
+    if options.recovery is not None and _diverged(res):
+        res = _run_ladder(problem, options, As, bs, failed=res,
+                          policy=options.recovery)
+    return res
+
+
+# --------------------------------------------------------------------------
+# divergence recovery: the escalation ladder
+# --------------------------------------------------------------------------
+def _ladder_plan(problem: SparseProblem, options: SolverOptions,
+                 policy: RecoveryPolicy, n: int, overrides: dict):
+    """The rungs to try, in order: ``(stage, detail, problem, options)``,
+    cut to ``policy.max_attempts`` (``repro.api._ladder_plan``). Each rung
+    bakes its fix into the problem / options pair, so the rung's solver
+    runs the changed configuration (and a fault can target it by
+    config)."""
+    plan = []
+    if policy.retry:
+        plan.append(("retry", "same configuration", problem, options))
+    if policy.rho_restart:
+        base = overrides.get("rho_c") or problem.rho_c
+        rho = base * policy.rho_scale
+        plan.append(("rho_restart", f"rho_c={rho:g}",
+                     dataclasses.replace(problem, rho_c=rho), options))
+    if policy.precision_escalation:
+        for preset in runtime.escalation_ladder(options.precision):
+            plan.append(("precision", preset, problem,
+                         dataclasses.replace(options, precision=preset)))
+    if policy.solver_fallback and problem.resolve_loss().name == "squared":
+        fallback = "dense" if n <= prox.DENSE_MAX_N else "woodbury"
+        if fallback != options.x_solver:
+            plan.append(("x_solver", fallback, problem,
+                         dataclasses.replace(options, x_solver=fallback)))
+    return plan[:policy.max_attempts]
+
+
+def _ladder_adapter(problem: SparseProblem, options: SolverOptions,
+                    cache: dict | None):
+    """The reference adapter of one ladder rung, memoized in ``cache``
+    when one is given (a caller that retries many lanes builds each rung's
+    solver once)."""
+    if cache is None:
+        return _ReferenceAdapter(problem, options)
+    key = (problem.kappa, problem.gamma, problem.rho_c, problem.alpha,
+           problem.rho_b, problem.n_classes,
+           getattr(problem.loss, "name", problem.loss), options.x_solver,
+           runtime.precision_name(options.precision), options.max_iter,
+           options.tol, options.divergence_tol, str(options.device))
+    if key not in cache:
+        cache[key] = _ReferenceAdapter(problem, options)
+    return cache[key]
+
+
+def _run_ladder(problem: SparseProblem, options: SolverOptions, As, bs, *,
+                failed: FitResult | None, policy: RecoveryPolicy,
+                overrides: dict | None = None,
+                adapter_cache: dict | None = None) -> FitResult:
+    """Run the recovery ladder on stacked data: the first attempt that
+    does not end DIVERGED (its log in ``.recovery``), or the last one,
+    still DIVERGED, when every rung failed. ``overrides``: per-solve
+    kappa / gamma / rho_c."""
+    overrides = {k: v for k, v in (overrides or {}).items() if v is not None}
+    attempts: list[RecoveryAttempt] = []
+    state = None
+    result = failed
+    if failed is not None:
+        attempts = list(failed.recovery or ())
+        state = sanitize_state(failed.state)
+    plan = _ladder_plan(problem, options, policy, As.shape[2], overrides)
+    for idx, (stage, detail, prob, opts) in enumerate(plan):
+        if policy.backoff_s > 0:
+            time.sleep(policy.backoff_s * (2 ** idx))
+        over = dict(overrides)
+        if stage == "rho_restart":
+            over.pop("rho_c", None)   # the restarted rho is baked in
+        adapter = _ladder_adapter(prob, opts, adapter_cache)
+        res = adapter.fit(As, bs, state=state, **over)
+        attempts.append(RecoveryAttempt(stage, detail, int(res.status),
+                                        int(res.iters)))
+        result = res._replace(recovery=tuple(attempts))
+        if not _diverged(res):
+            return result
+        state = sanitize_state(res.state)
+    return result
+
+
+def recover(problem: SparseProblem, X, y, *,
+            options: SolverOptions | None = None,
+            failed: FitResult | None = None,
+            policy: RecoveryPolicy | None = None,
+            kappa=None, gamma=None, rho_c=None) -> FitResult:
+    """Run the divergence-recovery ladder for ``problem`` on ``(X, y)``
+    (``repro.api.recover``): a **retry** from the sanitized last-finite
+    state of ``failed``, a **rho restart** (rho_c scaled by
+    ``policy.rho_scale``), **precision** escalation (bf16 / fp16 -> fp32
+    -> fp64_polish) and an **x-solver** fallback to a direct factorization,
+    each enabled by its :class:`RecoveryPolicy` flag. Returns the first
+    attempt that does not end DIVERGED, or the last one; the log rides
+    ``FitResult.recovery``."""
+    options = options if options is not None else SolverOptions()
+    policy = (policy if policy is not None
+              else options.recovery or RecoveryPolicy())
+    _check_options(options)
+    device = runtime.resolve_device(options.device)
+    As, bs = _stack(X, y, device, options.precision)
+    return _run_ladder(problem, options, As, bs, failed=failed,
+                       policy=policy,
+                       overrides=dict(kappa=kappa, gamma=gamma, rho_c=rho_c))
 
 
 def solve_path(problem: SparseProblem, X, y, kappas, *,
@@ -441,6 +580,90 @@ def fit_many(problem: SparseProblem, Xs, ys, *, kappas=None, gammas=None,
                                     iter_caps=iter_caps)
 
 
+# --------------------------------------------------------------------------
+# streaming: minibatch partial_fit over incrementally maintained factors
+# --------------------------------------------------------------------------
+class StreamingSolver:
+    """Stateful streaming front-end over
+    :class:`~repro_torch.core.streaming.StreamingBiCADMM`
+    (``repro.api.StreamingSolver``): one growing (or sliding-window)
+    dataset, fitted chunk by chunk through :meth:`partial_fit`. ``window``
+    bounds the replay window in chunks (``None``: keep everything, ``0``:
+    keep no rows, dense regime only); ``drift_tol`` tunes the drift probe.
+    With ``SolverOptions(recovery=...)`` a refit still DIVERGED after the
+    engine's refactorize rung goes through the recovery ladder on the
+    replay window's data."""
+
+    name = "streaming"
+
+    def __init__(self, problem: SparseProblem,
+                 options: SolverOptions | None = None, *,
+                 window: int | None = None, drift_tol: float = 0.5):
+        options = options if options is not None else SolverOptions()
+        _check_options(options)
+        self.caps = engine_capabilities("reference", options)
+        _check_stream(self.caps)
+        _check_precision(self.caps, options)
+        self.problem = problem
+        self.options = options
+        self.device = runtime.resolve_device(options.device)
+        self.engine = StreamingBiCADMM(
+            problem.resolve_loss(), build_config(problem, options),
+            window=window, drift_tol=drift_tol, device=self.device)
+
+    @property
+    def result(self) -> FitResult | None:
+        """The latest refit's result (None before the first chunk)."""
+        return self.engine.result
+
+    @property
+    def m_seen(self) -> int:
+        """Total rows absorbed over the stream's lifetime."""
+        return self.engine.m_seen
+
+    @property
+    def mode(self) -> str | None:
+        """The resolved incremental regime (dense/woodbury/pcg/direct)."""
+        return self.engine.mode
+
+    def partial_fit(self, X, y, *, kappa=None, gamma=None,
+                    rho_c=None) -> FitResult:
+        """Absorb one ``(rows, n)`` chunk and refit warm-started; ``kappa``
+        / ``gamma`` / ``rho_c`` override the problem for this refit only."""
+        X, y = _as_tensor(X, self.device), _as_tensor(y, self.device)
+        if X.ndim != 2:
+            raise ValueError(f"streaming chunks must be (rows, n); "
+                             f"got shape {tuple(X.shape)}")
+        validate_data(X, y)
+        res = self.engine.partial_fit(X, y, kappa=kappa, gamma=gamma,
+                                      rho_c=rho_c)
+        if (self.options.recovery is not None and _diverged(res)
+                and self.engine._chunks):
+            A_win, y_win = self.engine._window_data()
+            res = _run_ladder(self.problem, self.options,
+                              A_win[None], y_win.reshape(1, -1),
+                              failed=res, policy=self.options.recovery,
+                              overrides=dict(kappa=kappa, gamma=gamma,
+                                             rho_c=rho_c))
+            self.engine.adopt(res)
+        return res
+
+
+def stream(problem: SparseProblem, *, options: SolverOptions | None = None,
+           window: int | None = None,
+           drift_tol: float = 0.5) -> StreamingSolver:
+    """Open a :class:`StreamingSolver` for ``problem``, the minibatch entry
+    point (``Capabilities.stream``):
+
+    >>> s = stream(SparseProblem(loss="squared", kappa=10, gamma=10.0))
+    >>> for X_t, y_t in chunks:
+    ...     res = s.partial_fit(X_t, y_t)     # incremental factor updates
+
+    The feature split cannot stream and raises :class:`CapabilityError`."""
+    return StreamingSolver(problem, options, window=window,
+                           drift_tol=drift_tol)
+
+
 def _unported(what: str):
     def method(*args, **kwargs):
         raise CapabilityError(f"{what} is not ported to repro_torch yet; "
@@ -475,6 +698,7 @@ class SparseEstimator:
                         else SolverOptions(device=device, **option_kw))
         self._adapter = _ReferenceAdapter(self.problem, self.options)
         self.result_: FitResult | None = None
+        self._stream: StreamingSolver | None = None
 
     @property
     def device(self) -> torch.device:
@@ -483,12 +707,32 @@ class SparseEstimator:
 
     def fit(self, X, y, *, state=None) -> "SparseEstimator":
         """Fit on ``(X, y)``; ``state=`` warm-starts from a previous
-        result's ``.state``. Returns ``self``."""
+        result's ``.state``. With ``options=SolverOptions(recovery=...)`` a
+        DIVERGED fit reruns through the recovery ladder, as in
+        :func:`solve`. Returns ``self``."""
         As, bs = _stack(X, y, self.device, self.options.precision)
-        self._set_fitted(self._adapter.fit(As, bs, state=state))
+        res = self._adapter.fit(As, bs, state=state)
+        if self.options.recovery is not None and _diverged(res):
+            res = _run_ladder(self.problem, self.options, As, bs,
+                              failed=res, policy=self.options.recovery)
+        self._stream = None       # a full fit resets any open stream
+        self._set_fitted(res)
         return self
 
-    partial_fit = _unported("SparseEstimator.partial_fit")
+    def partial_fit(self, X, y, *, window: int | None = None
+                    ) -> "SparseEstimator":
+        """Absorb one ``(rows, n)`` chunk and refit incrementally. The first
+        call opens a :class:`StreamingSolver` (``window=`` bounds its replay
+        window in chunks and is read on that call only); later calls stream
+        into it: rank-k factor updates plus a warm-started refit, never a
+        factorization from scratch. A full :meth:`fit` resets the stream.
+        Returns ``self``."""
+        if self._stream is None:
+            self._stream = StreamingSolver(self.problem, self.options,
+                                           window=window)
+        self._set_fitted(self._stream.partial_fit(X, y),
+                         engine=self._stream.name)
+        return self
 
     def fit_path(self, X, y, kappas, *, gammas=None, rho_cs=None,
                  warm_start: bool = True) -> SparsePath:
@@ -517,13 +761,14 @@ class SparseEstimator:
                          path.b_r[-1], state=path.state,
                          status=path.status[-1])
 
-    def _set_fitted(self, res: FitResult) -> None:
+    def _set_fitted(self, res: FitResult, engine: str | None = None
+                    ) -> None:
         self.result_ = res
         K = self.problem.n_classes
         self.coef_ = res.coef[:, 0] if K == 1 else res.coef
         self.support_ = res.support
         self.n_iter_ = int(res.iters)
-        self.engine_ = self._adapter.name
+        self.engine_ = engine or self._adapter.name
         self.capabilities_ = self._adapter.caps
 
     def _scores(self, X) -> torch.Tensor:
@@ -597,5 +842,3 @@ class SparseSoftmaxRegression(SparseEstimator):
 
 # functional entry points of the JAX api that wait for later slices
 serve = _unported("serve")
-stream = _unported("stream")
-recover = _unported("recover")

@@ -15,6 +15,15 @@ for a :class:`~repro_torch.core.results.FleetResult`;
 ``FleetResult.state``, each field with its leading lane axis), so a fleet
 warm-starts from the other package's.
 
+:func:`accum_to_numpy` / :func:`accum_from_numpy` carry the streaming
+engine's accumulators (dense, Woodbury, PCG: a dict of numpy arrays, one
+per field, which says its kind by its keys), :func:`recovery_to_numpy` /
+:func:`recovery_from_numpy` a ``FitResult.recovery`` log (a structured
+numpy array of stage, detail, status and iterations), and
+:func:`seed_stream` installs another stream's snapshot (its regime, its
+accumulators, its replay window's chunks and its state) into a port
+``StreamingBiCADMM``, so a port stream continues a JAX one.
+
 :func:`lm_params_from_jax` carries the JAX package's LM parameters (a tree
 of numpy arrays) into the port's model.
 """
@@ -27,7 +36,10 @@ import numpy as np
 import torch
 
 from .core.bicadmm import BiCADMMState
+from .core.recovery import RecoveryAttempt
 from .core.results import FitResult, FleetResult, SparsePath
+from .core.streaming import (CGStreamAccum, DenseStreamAccum,
+                             StreamingBiCADMM, WoodburyStreamAccum)
 from .core.subsolver import SubsolverState
 from .models import transformer, zoo
 
@@ -82,7 +94,85 @@ def result_to_numpy(res: FitResult) -> dict:
         val = getattr(res, name)
         out[name] = None if val is None else _numpy(val)
     out["state"] = None if res.state is None else state_to_numpy(res.state)
+    out["recovery"] = (None if res.recovery is None
+                       else recovery_to_numpy(res.recovery))
     return out
+
+
+# the streaming accumulators, told apart by their fields
+_ACCUMS = (DenseStreamAccum, WoodburyStreamAccum, CGStreamAccum)
+
+
+def accum_to_numpy(acc) -> dict:
+    """A streaming accumulator (the port's or the JAX package's: any object
+    with the fields of one) as a dict of numpy arrays, one per field."""
+    names = next(tuple(f.name for f in dataclasses.fields(cls))
+                 for cls in _ACCUMS
+                 if all(hasattr(acc, f.name)
+                        for f in dataclasses.fields(cls)))
+    vals = {name: getattr(acc, name) for name in names}
+    return {name: _numpy(v) if torch.is_tensor(v) else np.asarray(v)
+            for name, v in vals.items()}
+
+
+def accum_from_numpy(d: Mapping, device):
+    """The port's accumulator from a dict of numpy arrays (its kind from its
+    keys), as float32 tensors on ``device``."""
+    for cls in _ACCUMS:
+        names = {f.name for f in dataclasses.fields(cls)}
+        if names == set(d):
+            return cls(**{name: _tensor(d[name], device) for name in names})
+    raise ValueError(f"no streaming accumulator has the fields {sorted(d)}")
+
+
+_RECOVERY_DTYPE = np.dtype([("stage", "U16"), ("detail", "U64"),
+                            ("status", np.int32), ("iters", np.int32)])
+
+
+def recovery_to_numpy(log) -> np.ndarray:
+    """A recovery log (a sequence of ``RecoveryAttempt``, the port's or the
+    JAX package's) as a structured numpy array."""
+    return np.array([(a.stage, a.detail, int(a.status), int(a.iters))
+                     for a in log], dtype=_RECOVERY_DTYPE)
+
+
+def recovery_from_numpy(arr) -> tuple[RecoveryAttempt, ...]:
+    """The port's recovery log from :func:`recovery_to_numpy`'s array (or
+    any sequence of (stage, detail, status, iters) records)."""
+    return tuple(RecoveryAttempt(str(r[0]), str(r[1]), int(r[2]), int(r[3]))
+                 for r in arr)
+
+
+def seed_stream(engine: StreamingBiCADMM, *, mode: str, acc, chunks,
+                state=None, m_seen: int | None = None) -> StreamingBiCADMM:
+    """Install a stream's snapshot into the port's ``engine`` (a fresh one):
+    its regime ``mode``, accumulator ``acc`` (:func:`accum_to_numpy`'s dict
+    or an accumulator), the replay window's ``chunks`` (numpy ``(X, y)``
+    pairs, oldest first) and the solver ``state`` (a dict of numpy arrays,
+    as :func:`state_from_numpy` takes). The next ``partial_fit`` continues
+    the stream. Returns ``engine``."""
+    dev = engine.device
+    pairs = [(torch.as_tensor(np.asarray(X), device=dev),
+              torch.as_tensor(np.asarray(y), device=dev))
+             for X, y in chunks]
+    if pairs:
+        engine._admit(*pairs[0])        # the stream's width and data dtype
+    engine._chunks = [engine._admit(X, y) for X, y in pairs]
+    engine._win_cache = None
+    engine._fcache = None
+    engine._mode = mode
+    engine._acc = (None if acc is None else accum_from_numpy(
+        acc if isinstance(acc, Mapping) else accum_to_numpy(acc), dev))
+    engine._m = sum(int(X.shape[0]) for X, _ in engine._chunks)
+    engine.m_seen = engine._m if m_seen is None else int(m_seen)
+    if state is not None:
+        # the seeded state stands for the stream's last refit (the drift
+        # probe runs from the next chunk on, as in the stream it came from)
+        st = state_from_numpy(state, dev)
+        engine.adopt(FitResult(st.z.reshape(-1, engine.loss.n_classes),
+                               st.z, st.z != 0, st.k, st.p_r, st.d_r,
+                               st.b_r, state=st))
+    return engine
 
 
 def path_to_numpy(path: SparsePath) -> dict:

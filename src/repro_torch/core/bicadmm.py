@@ -28,16 +28,18 @@ path engine, :mod:`.path`, loops over); a gamma or rho_c override takes the
 spectral factors of the dense and Woodbury engines, which the feature split
 cannot offer (it bakes the penalties into its per-block factors and raises
 ``ValueError``). ``fit_with_history`` runs a fixed number of steps and
-records the residual traces on the device. The fleet driver and fault
-injection wait for later slices.
+records the residual traces on the device. A fault-injection hook
+(:mod:`repro_torch.faults`), captured when the solver is built, runs after
+every solo and lane step, where the JAX package applies it.
 
-Precision: ``"fp32"``, ``"bf16"`` and ``"fp16"``. Under the reduced presets
-the data is cast once (cached on the tensors' identity, as the JAX
-package's ``_cast``), the kernels read it in place, and the iterates,
-factors and residuals stay in f32 (the policy's state dtype).
-``"fp64_polish"`` and the feature split under a reduced preset raise
-:class:`~repro_torch.runtime.CapabilityError` (ROADMAP Queue 1 step 5;
-the JAX package's own feature split fails under bf16 / fp16).
+Precision: ``"fp32"``, ``"bf16"``, ``"fp16"`` and ``"fp64_polish"``. Under
+the reduced presets the data is cast once (cached on the tensors' identity,
+as the JAX package's ``_cast``), the kernels read it in place, and the
+iterates, factors and residuals stay in f32 (the policy's state dtype).
+``"fp64_polish"`` runs the (7b) projection's polish in f64 (the policy's
+``kkt_polish``), solo and on lanes. The feature split under a reduced
+preset raises :class:`~repro_torch.runtime.CapabilityError` (the JAX
+package's own feature split fails under bf16 / fp16).
 """
 from __future__ import annotations
 
@@ -53,13 +55,13 @@ from .prox import NodeProxEngine, newton_cg_prox, x_solve
 from .results import FitResult, classify_status, divergence_probe
 from .subsolver import (SubsolverState, node_prox_feature_split,
                         subsolver_setup)
-from .. import runtime
+from .. import faults, runtime
 from ..kernels.ops import (gram_auto, matvec_auto, normal_matvec_auto,
                            rmatvec_auto)
 
 
-# the presets this port certifies (fp64_polish waits: ROADMAP Queue 1 step 5)
-CERTIFIED_PRECISIONS = ("fp32", "bf16", "fp16")
+# the presets this port certifies
+CERTIFIED_PRECISIONS = ("fp32", "bf16", "fp16", "fp64_polish")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +95,7 @@ class BiCADMMConfig:
         if name not in CERTIFIED_PRECISIONS:
             raise runtime.CapabilityError(
                 f"precision {name!r} is not ported to repro_torch yet; "
-                f"certified presets: {CERTIFIED_PRECISIONS} ('fp64_polish' "
-                "needs an f64 polish inside csrc/ladder_proj.cu: ROADMAP "
-                "Queue 1 step 5)")
+                f"certified presets: {CERTIFIED_PRECISIONS}")
         if self.precision.data is not None and self.use_feature_split:
             raise runtime.CapabilityError(
                 f"the feature split under precision {name!r} is not ported: "
@@ -174,15 +174,20 @@ def _col(v):
 
 
 def _zt_update(z0, t0, w, s, v, N: float, rho_c, rho_b, iters: int, *,
-               projection: str = "ladder"):
+               projection: str = "ladder", polish_dtype=None):
     """Step (7b): min over {(z,t): ||z||_1 <= t} of
     (N rho_c / 2) ||z - w||^2 + (rho_b / 2) (s^T z - t + v)^2
     by FISTA with the exact sort-free cone projection (``projection=
-    "sort"``: the sort oracle). With a lane axis (z0 (B, d), t0 (B,), rho_c
-    and rho_b scalars or (B,) tensors) every lane takes the same steps,
-    each FISTA step's projection one call for all lanes."""
-    project = (bilinear.project_l1_epigraph_sort if projection == "sort"
-               else bilinear.project_l1_epigraph)
+    "sort"``: the sort oracle; ``polish_dtype``: the projection's polish
+    dtype, the policy's ``kkt_polish``). With a lane axis (z0 (B, d), t0
+    (B,), rho_c and rho_b scalars or (B,) tensors) every lane takes the same
+    steps, each FISTA step's projection one call for all lanes."""
+    if projection == "sort":
+        project = bilinear.project_l1_epigraph_sort
+    else:
+        def project(z, t):
+            return bilinear.project_l1_epigraph(z, t,
+                                                polish_dtype=polish_dtype)
     a = N * rho_c
     lanes = z0.ndim == 2
     if lanes:
@@ -224,6 +229,9 @@ class BiCADMM:
         if cfg.projection not in ("ladder", "sort"):
             raise ValueError(f"unknown projection mode {cfg.projection!r}")
         self.cfg = cfg
+        # fault-injection hook (repro_torch.faults): None outside an
+        # inject() context; captured once, so it stays with this solver
+        self._fault_hook = faults.active_hook(self)
         # the precision policy's cast of the data and the setup factors,
         # both keyed on the data tensors' identity, so warm-started run_from
         # calls cast and factorize once. Entries hold strong references to
@@ -260,8 +268,7 @@ class BiCADMM:
         penalties change between solves (spectral factors) or not."""
         cfg = self.cfg
         N, m, n = As.shape
-        key = (id(As), id(bs), tuple(As.shape), tuple(bs.shape),
-               str(As.dtype), str(As.device), bool(dynamic_penalties))
+        key = self._setup_key(As, bs, dynamic_penalties)
         hit = self._setup_cache.get(key)
         if hit is not None:
             return hit[-1]
@@ -285,6 +292,24 @@ class BiCADMM:
             self._setup_cache.pop(next(iter(self._setup_cache)))
         self._setup_cache[key] = (As, bs, out)
         return out
+
+    def seed_setup(self, As, bs, factors, *, dynamic_penalties: bool
+                   ) -> None:
+        """Pre-fill the setup cache with ``factors`` for the data
+        (``As``, ``bs``): a later ``run_from`` on the same tensors skips its
+        own factorization (the streaming engine's maintained factors)."""
+        key = self._setup_key(As, bs, dynamic_penalties)
+        if key in self._setup_cache:
+            return
+        if len(self._setup_cache) >= self._SETUP_CACHE_MAX:
+            self._setup_cache.pop(next(iter(self._setup_cache)))
+        self._setup_cache[key] = (As, bs, (factors, As.shape[0],
+                                           As.shape[2]))
+
+    @staticmethod
+    def _setup_key(As, bs, dynamic_penalties: bool) -> tuple:
+        return (id(As), id(bs), tuple(As.shape), tuple(bs.shape),
+                str(As.dtype), str(As.device), bool(dynamic_penalties))
 
     def _make_params(self, N: int, *, kappa=None, gamma=None,
                      rho_c=None) -> SolveParams:
@@ -338,7 +363,8 @@ class BiCADMM:
         w = torch.mean(x_eff + st.u, dim=0)                # consensus center
         z_new, t_new = _zt_update(st.z, st.t, w, st.s, st.v, float(N),
                                   rho_c, rho_b, cfg.zt_iters,
-                                  projection=cfg.projection)
+                                  projection=cfg.projection,
+                                  polish_dtype=cfg.precision.kkt_polish)
         s_new = bilinear.s_update(z_new, t_new, st.v, params.kappa,
                                   method=self._s_method)
         u_new = st.u + x_eff - z_new[None]
@@ -409,7 +435,8 @@ class BiCADMM:
         w = torch.mean(x_eff + st.u, dim=1)
         z_new, t_new = _zt_update(st.z, st.t, w, st.s, st.v, float(N),
                                   rho_c, rho_b, cfg.zt_iters,
-                                  projection=cfg.projection)
+                                  projection=cfg.projection,
+                                  polish_dtype=cfg.precision.kkt_polish)
         s_new = bilinear.s_update(z_new, t_new, st.v, params.kappa,
                                   method=self._s_method)
         u_new = st.u + x_eff - z_new[:, None]
@@ -443,11 +470,14 @@ class BiCADMM:
         its whole state (``torch.where``), as the JAX package's vmapped
         ``while_loop`` keeps it. The host reads the mask once an outer
         iteration, as :meth:`_run_while` reads its test."""
+        hook = self._fault_hook
         while True:
             active = self._fleet_active(st, iter_caps)
             if not bool(active.any()):
                 return st
             new = step(st)
+            if hook is not None:
+                new = hook(new)
             st = BiCADMMState(*(
                 None if o is None else torch.where(
                     active.reshape(active.shape + (1,) * (o.ndim - 1)), n, o)
@@ -567,6 +597,8 @@ class BiCADMM:
             if not bool(go):
                 return st
             st = self._step(factors, As, bs, params, st)
+            if self._fault_hook is not None:
+                st = self._fault_hook(st)
 
     def run_from(self, As, bs, state: BiCADMMState, *, kappa=None,
                  gamma=None, rho_c=None) -> FitResult:
@@ -602,6 +634,8 @@ class BiCADMM:
         rows = []
         for _ in range(iters):
             st = self._step(factors, As, bs, params, st)
+            if self._fault_hook is not None:
+                st = self._fault_hook(st)
             rows.append((st.p_r, st.d_r, st.b_r,
                          torch.sum(torch.abs(st.z) > 1e-6,
                                    dtype=torch.int32)))

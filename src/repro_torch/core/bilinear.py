@@ -40,6 +40,15 @@ row bit for bit; the data-dependent loops then run until every lane is
 done, a finished lane frozen by ``torch.where`` as the JAX package's
 vmapped ``while_loop`` freezes it.
 
+``polish_dtype`` (the precision policy's ``kkt_polish``: ``torch.float64``
+or ``"float64"`` under ``"fp64_polish"``) runs the l1 polish in f64: the
+bracketing stays in the working dtype, |z|, t0 and ``lo`` are cast to f64
+once, the polish runs to the f64 fixpoint and theta is cast back before the
+soft threshold (``repro.core.bilinear.ladder_refine``). On the card the
+one-launch and lane kernels take it as their f64-polish instantiations.
+Only the l1 projection has it: the S^kappa search has no polish dtype in
+the JAX package either.
+
 The ``*_sort`` functions are the sort-based test oracles (lanes too); the
 ``*_bisect`` ones the approximate scalar-bisection variants, and
 :func:`support_skappa` the top-k LP at a static kappa.
@@ -124,6 +133,15 @@ def _one_launch(z: torch.Tensor, ops: LadderOps, B: int) -> bool:
             and bisect_proj.plan(z.shape[0]).one_launch)
 
 
+def _polish_dt(polish_dtype, dt: torch.dtype) -> torch.dtype:
+    """The polish's dtype: ``polish_dtype`` (a torch dtype or its name),
+    the working dtype ``dt`` when None."""
+    if polish_dtype is None:
+        return dt
+    return (polish_dtype if isinstance(polish_dtype, torch.dtype)
+            else getattr(torch, polish_dtype))
+
+
 def _bracket_rounds(lo, hi, rounds, B, crossing_fn):
     """Narrow [lo, hi] xB per round; ``crossing_fn(thetas) -> idx`` is the
     number of leading rungs on the h > 0 / count > kappa side. The index
@@ -173,9 +191,12 @@ def _masked_loop(step, state: tuple, active: torch.Tensor, k: int,
 def ladder_refine(az: torch.Tensor, h_target, *,
                   ops: LadderOps = DEFAULT_OPS, hi=None,
                   rounds: int | None = None, B: int = LADDER_B,
-                  newton_cap: int = NEWTON_CAP) -> torch.Tensor:
+                  newton_cap: int = NEWTON_CAP,
+                  polish_dtype=None) -> torch.Tensor:
     """Exact root of ``h(theta) = sum max(az - theta, 0) - h_target - theta``
-    (``repro.core.bilinear.ladder_refine`` in the working dtype)."""
+    (``repro.core.bilinear.ladder_refine``); ``polish_dtype`` runs the
+    polish in a wider dtype (module docstring), the root is returned in the
+    working dtype."""
     dt = az.dtype
     t0 = torch.as_tensor(h_target, dtype=dt, device=az.device)
     if rounds is None:
@@ -191,9 +212,12 @@ def ladder_refine(az: torch.Tensor, h_target, *,
             return torch.sum(hv > 0)
         lo, hi = _bracket_rounds(lo, hi, rounds, B, crossing)
 
+    pdt = _polish_dt(polish_dtype, dt)
+    azp, t0p, lo = az.to(pdt), t0.to(pdt), lo.to(pdt)
+
     def propose(th):
-        st = ops.point_fn(az, th[None]).to(dt)
-        hv = st[0, 0] - t0 - th
+        st = ops.point_fn(azp, th[None]).to(pdt)
+        hv = st[0, 0] - t0p - th
         return torch.maximum(th + hv / (st[1, 0] + 1.0), th)
 
     # JAX: k = 1, (th, prev) = (propose(lo), lo); step while th > prev.
@@ -204,7 +228,7 @@ def ladder_refine(az: torch.Tensor, h_target, *,
 
     theta0 = propose(lo)
     theta, _ = _masked_loop(step, (theta0, lo), theta0 > lo, 1, newton_cap)
-    return theta
+    return theta.to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -216,19 +240,27 @@ def _soft(z: torch.Tensor, thr) -> torch.Tensor:
 
 def project_l1_epigraph(z0: torch.Tensor, t0, *, ops: LadderOps = DEFAULT_OPS,
                         rounds: int | None = None, B: int = LADDER_B,
-                        newton_cap: int = NEWTON_CAP):
+                        newton_cap: int = NEWTON_CAP, polish_dtype=None):
     """Exact Euclidean projection onto ``{(z, t): ||z||_1 <= t}``
     (sort-free; apex and inside cases as in the JAX package). ``z0`` (B, d)
-    with ``t0`` (B,) projects every lane (module docstring)."""
+    with ``t0`` (B,) projects every lane; ``polish_dtype`` as in
+    :func:`ladder_refine` (module docstring)."""
     if rounds is None:
         rounds = default_rounds(z0.device)
+    pdt = _polish_dt(polish_dtype, z0.dtype)
+    if pdt not in (z0.dtype, torch.float64):
+        raise ValueError(f"polish_dtype must be float64 or None, got "
+                         f"{polish_dtype!r}")
+    polish64 = pdt != z0.dtype
     if z0.ndim == 2:
         if _lanes_on_card(z0, ops, B, "project_l1_epigraph"):
             return l1_epigraph_proj_lanes_auto(z0, t0, rounds=rounds,
-                                               cap=newton_cap)
-        return _project_lanes(z0, t0, rounds, B, newton_cap)
+                                               cap=newton_cap,
+                                               polish64=polish64)
+        return _project_lanes(z0, t0, rounds, B, newton_cap, polish64)
     if _one_launch(z0, ops, B):
-        return l1_epigraph_proj_auto(z0, t0, rounds=rounds, cap=newton_cap)
+        return l1_epigraph_proj_auto(z0, t0, rounds=rounds, cap=newton_cap,
+                                     polish64=polish64)
     t0 = torch.as_tensor(t0, dtype=z0.dtype, device=z0.device)
     az = torch.abs(z0)
     abs_sum = ops.sum_fn(az)
@@ -236,7 +268,7 @@ def project_l1_epigraph(z0: torch.Tensor, t0, *, ops: LadderOps = DEFAULT_OPS,
     inside = abs_sum <= t0
     apex = (-t0 - hi0) > 0
     theta = ladder_refine(az, t0, ops=ops, hi=hi0, rounds=rounds, B=B,
-                          newton_cap=newton_cap)
+                          newton_cap=newton_cap, polish_dtype=polish_dtype)
     theta = torch.where(inside, 0.0, theta)
     to_apex = apex & ~inside
     z = torch.where(to_apex, 0.0,
@@ -550,9 +582,9 @@ def _lane_bracket(az, lo, hi, rounds, B, target, l1: bool):
     return lo, hi
 
 
-def _project_lanes(z0, t0, rounds, B, cap):
+def _project_lanes(z0, t0, rounds, B, cap, polish64: bool = False):
     """:func:`project_l1_epigraph`'s composed path on every lane (the
-    default reductions per row)."""
+    default reductions per row; ``polish64``: the polish in f64)."""
     dt = z0.dtype
     t0 = torch.as_tensor(t0, dtype=dt, device=z0.device).expand(
         z0.shape[0])
@@ -564,11 +596,13 @@ def _project_lanes(z0, t0, rounds, B, cap):
     lo = torch.zeros_like(hi0)
     if rounds:
         lo, _ = _lane_bracket(az, lo, hi0, rounds, B, t0, True)
+    pdt = torch.float64 if polish64 else dt
+    azp, t0p, lo = az.to(pdt), t0.to(pdt), lo.to(pdt)
 
     def propose(th):
-        d = az - th[:, None]
-        hv = torch.clamp_min(d, 0.0).sum(-1) - t0 - th
-        return torch.maximum(th + hv / ((d > 0).to(dt).sum(-1) + 1.0), th)
+        d = azp - th[:, None]
+        hv = torch.clamp_min(d, 0.0).sum(-1) - t0p - th
+        return torch.maximum(th + hv / ((d > 0).to(pdt).sum(-1) + 1.0), th)
 
     def step(state):
         th, _ = state
@@ -577,7 +611,7 @@ def _project_lanes(z0, t0, rounds, B, cap):
 
     theta0 = propose(lo)
     theta, _ = _masked_loop(step, (theta0, lo), theta0 > lo, 1, cap)
-    theta = torch.where(inside, 0.0, theta)
+    theta = torch.where(inside, 0.0, theta.to(dt))
     to_apex = apex & ~inside
     z = torch.where(to_apex[:, None], 0.0,
                     torch.sign(z0) * torch.clamp_min(az - theta[:, None],

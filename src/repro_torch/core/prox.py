@@ -44,8 +44,8 @@ import torch
 
 from .bilinear import CHUNK
 from .. import runtime
-from ..kernels.ops import (gram_auto, matvec_auto, normal_matvec_auto,
-                           rmatvec_auto)
+from ..kernels.ops import (chol_rank_update_auto, gram_auto, matvec_auto,
+                           normal_matvec_auto, rmatvec_auto)
 
 DENSE_MAX_N = 2048
 WOODBURY_MAX_M = 8192
@@ -272,6 +272,50 @@ def pcg_prox(f: CGFactors, q, rho_c, sigma, x0=None) -> torch.Tensor:
     x0 = q if x0 is None else x0
     return pcg(lambda p: normal_matvec_auto(f.A, p, c), rhs, x0,
                lambda r: inv * r, f.iters, f.tol)
+
+
+# ------------------------------------------- incremental factor updates ----
+# The streaming engine (core/streaming.py) keeps the squared-loss factors
+# exact under row arrival without refactorizing: k new rows are a rank-k
+# UPDATE of the n x n ridge factor chol(A^T A + c I), rows evicted from a
+# sliding window a rank-k DOWNDATE, and the m x m Woodbury dual factor
+# chol(A A^T + c I) grows by a bordered APPEND (repro.core.prox :360-462).
+# The rotations run on the chol_rank_update kernel (csrc/chol_update.cu);
+# the append is a triangular solve and a small Cholesky, as in JAX.
+
+
+def cholesky(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``M``; NaN where ``M`` is not numerically
+    positive definite (as ``jnp.linalg.cholesky`` returns it), never an
+    exception, and no host read."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info == 0)[..., None, None], L, math.nan)
+
+
+def chol_update(L: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """Rank-k update: the lower factor of ``L L^T + V V^T`` for V (n, k) or
+    (n,) (``repro.core.prox.chol_update``). An update cannot fail."""
+    return chol_rank_update_auto(L, V, 1.0)[0]
+
+
+def chol_downdate(L: torch.Tensor, V: torch.Tensor):
+    """Rank-k downdate: ``(L', ok)`` with L' L'^T = L L^T - V V^T; ``ok``
+    (a 0-d bool tensor) is False when a pivot lost definiteness and L' is
+    then garbage (``repro.core.prox.chol_downdate``)."""
+    return chol_rank_update_auto(L, V, -1.0)
+
+
+def chol_append(L: torch.Tensor, M12: torch.Tensor,
+                M22: torch.Tensor) -> torch.Tensor:
+    """The (p+q, p+q) lower factor of ``[[M11, M12], [M12^T, M22]]`` given
+    ``L = chol(M11)``: one triangular solve and a q x q factorization
+    (``repro.core.prox.chol_append``)."""
+    L21 = torch.linalg.solve_triangular(L, M12, upper=False).mT
+    L22 = cholesky(M22 - L21 @ L21.mT)
+    p, q = L.shape[0], M22.shape[0]
+    top = torch.cat([L, torch.zeros((p, q), dtype=L.dtype,
+                                    device=L.device)], dim=1)
+    return torch.cat([top, torch.cat([L21, L22], dim=1)], dim=0)
 
 
 # ------------------------------------------------------------ newton-cg ----

@@ -67,6 +67,15 @@
 // hold a 1,024-thread CTA of which 98 % idles (d = 16: a warp a lane,
 // 32 CTAs an SM). A grid's y extent is capped at 65,535; a CTA then takes
 // lanes y, y + gridDim.y, ...
+//
+// The f64 KKT polish (precision "fp64_polish"; bilinear.ladder_refine's
+// polish_dtype, src/repro/core/bilinear.py:177-233): l1_proj_kernel and
+// l1_lanes_kernel take a template flag kF64. Its f32 instantiations are the
+// code above, unchanged; in the f64 ones the bracketing rounds stay in f32,
+// then theta, prev and hv are doubles: each polish term is (double)|z| -
+// theta, summed in f64, the step th + hv / (count + 1) in f64, run while
+// theta grows to the f64 fixpoint (capped as before), and theta is rounded to
+// f32 once, before the soft threshold.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -368,11 +377,30 @@ __device__ Part point_stats(const float* zs, int len, float theta,
   return reduce<C, T>(p, sh, buf);
 }
 
+// The same in f64 at a double theta: sum max((double)|z| - theta, 0) and
+// count((double)|z| - theta > 0), the JAX polish's point_fn on |z| cast once
+// to f64.
+template <int C, int T>
+__device__ Part point_stats64(const float* zs, int len, double theta,
+                              Shared<T>& sh, int& buf) {
+  Part p = {0.0, {0, 0, 0}, 0.f};
+  for (int i = threadIdx.x; i < len; i += T) {
+    const double d = (double)fabsf(zs[i]) - theta;
+    p.sum += d < 0.0 ? 0.0 : d;
+    p.cnt[0] += d > 0.0;
+  }
+  return reduce<C, T>(p, sh, buf);
+}
+
+__device__ __forceinline__ double nan_max64(double a, double b) {
+  return (a > b || a != a) ? a : b;
+}
+
 // The l1-epigraph projection of one vector z0 (n,) by one CTA (C = 1) or
 // one cluster of C CTAs of T threads: z (n,), *t and, where not null,
 // *theta_out and *steps. zs is the CTA's dynamic shared memory, chunk the
-// entries a CTA holds.
-template <int C, int T>
+// entries a CTA holds. kF64: the polish in f64 (header).
+template <int C, int T, bool kF64>
 __device__ __forceinline__ void l1_body(
     const float* __restrict__ z0, float t0, float* __restrict__ z,
     float* __restrict__ t, float* __restrict__ theta_out,
@@ -406,16 +434,30 @@ __device__ __forceinline__ void l1_body(
     }
     // the monotone closed-form polish to its fixpoint (ladder_refine:
     // k = 1, (theta, prev) = (propose(lo), lo); step while theta > prev)
-    float prev = lo;
-    float th = lo;
-    do {
-      prev = th;
-      const Part q = point_stats<C, T>(zs, len, th, sh, buf);
-      const float hv = ((float)q.sum - t0) - th;
-      th = nan_max(th + hv / ((float)q.cnt[0] + 1.f), th);
-      ++k;
-    } while (th > prev && k < cap);
-    theta = th;
+    if constexpr (kF64) {
+      const double t0d = (double)t0;
+      double prev = (double)lo;
+      double th = prev;
+      do {
+        prev = th;
+        const Part q = point_stats64<C, T>(zs, len, th, sh, buf);
+        const double hv = (q.sum - t0d) - th;
+        th = nan_max64(th + hv / ((double)q.cnt[0] + 1.0), th);
+        ++k;
+      } while (th > prev && k < cap);
+      theta = (float)th;
+    } else {
+      float prev = lo;
+      float th = lo;
+      do {
+        prev = th;
+        const Part q = point_stats<C, T>(zs, len, th, sh, buf);
+        const float hv = ((float)q.sum - t0) - th;
+        th = nan_max(th + hv / ((float)q.cnt[0] + 1.f), th);
+        ++k;
+      } while (th > prev && k < cap);
+      theta = th;
+    }
   }
 
   const bool to_apex = apex && !inside;
@@ -525,7 +567,7 @@ __device__ __forceinline__ void skappa_body(
   cluster_sync<C>();   // no CTA leaves early; zs and sh are free again
 }
 
-template <int C>
+template <int C, bool kF64>
 __global__ void __launch_bounds__(kThreads, 1)
 l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
                float* __restrict__ z, float* __restrict__ t,
@@ -534,8 +576,9 @@ l1_proj_kernel(const float* __restrict__ z0, const float* __restrict__ t0p,
   extern __shared__ float4 smem4[];
   __shared__ Shared<kThreads> sh;
   stamp(kStart);
-  l1_body<C, kThreads>(z0, *t0p, z, t, theta_out, steps, n, chunk, rounds,
-                       cap, reinterpret_cast<float*>(smem4), sh);
+  l1_body<C, kThreads, kF64>(z0, *t0p, z, t, theta_out, steps, n, chunk,
+                             rounds, cap, reinterpret_cast<float*>(smem4),
+                             sh);
   stamp(kEnd);
 }
 
@@ -555,7 +598,7 @@ skappa_kernel(const float* __restrict__ zin, float kap,
 
 // Lane b = blockIdx.y, blockIdx.y + gridDim.y, ... of a (lanes, n) operand:
 // row b with t0[b]; z row b, t[b] and, where not null, theta[b], steps[b].
-template <int C, int T>
+template <int C, int T, bool kF64>
 __global__ void __launch_bounds__(T)
 l1_lanes_kernel(const float* __restrict__ z0, const float* __restrict__ t0,
                 float* __restrict__ z, float* __restrict__ t,
@@ -565,7 +608,7 @@ l1_lanes_kernel(const float* __restrict__ z0, const float* __restrict__ t0,
   __shared__ Shared<T> sh;
   for (int b = blockIdx.y; b < lanes; b += gridDim.y) {
     const size_t row = (size_t)b * n;
-    l1_body<C, T>(z0 + row, t0[b], z + row, t + b,
+    l1_body<C, T, kF64>(z0 + row, t0[b], z + row, t + b,
                   theta == nullptr ? nullptr : theta + b,
                   steps == nullptr ? nullptr : steps + b, n, chunk, rounds,
                   cap, reinterpret_cast<float*>(smem4), sh);
@@ -631,14 +674,18 @@ int launch(void (*kern)(Params...), bool& configured, int ctas, int chunk,
 }
 
 // The cluster size as a template argument (ctas in {1, 2, 4, 8}).
-template <typename... Args>
+template <bool kF64, typename... Args>
 int launch_l1(int ctas, int chunk, cudaStream_t s, Args... args) {
   static bool cfg[4] = {false, false, false, false};
   switch (ctas) {
-    case 1: return launch(l1_proj_kernel<1>, cfg[0], 1, chunk, s, args...);
-    case 2: return launch(l1_proj_kernel<2>, cfg[1], 2, chunk, s, args...);
-    case 4: return launch(l1_proj_kernel<4>, cfg[2], 4, chunk, s, args...);
-    case 8: return launch(l1_proj_kernel<8>, cfg[3], 8, chunk, s, args...);
+    case 1:
+      return launch(l1_proj_kernel<1, kF64>, cfg[0], 1, chunk, s, args...);
+    case 2:
+      return launch(l1_proj_kernel<2, kF64>, cfg[1], 2, chunk, s, args...);
+    case 4:
+      return launch(l1_proj_kernel<4, kF64>, cfg[2], 4, chunk, s, args...);
+    case 8:
+      return launch(l1_proj_kernel<8, kF64>, cfg[3], 8, chunk, s, args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -656,15 +703,16 @@ int launch_skappa(int ctas, int chunk, cudaStream_t s, Args... args) {
 }
 
 // The lane kernels' layouts (ctas, threads): (1, 32), (1, 128) and
-// (1, 2, 4 or 8, 1,024), each instantiation configured once.
-template <bool kL1, typename... Args>
+// (1, 2, 4 or 8, 1,024), each instantiation configured once; kF64 (l1
+// only): the f64 polish.
+template <bool kL1, bool kF64 = false, typename... Args>
 int launch_lanes(int ctas, int threads, int ys, int chunk, cudaStream_t s,
                  Args... args) {
   static bool cfg[6] = {false, false, false, false, false, false};
 #define LANES(C, T, I)                                                    \
   if constexpr (kL1) {                                                    \
-    return launch_grid(l1_lanes_kernel<C, T>, cfg[I], C, ys, T, chunk, s, \
-                       args...);                                          \
+    return launch_grid(l1_lanes_kernel<C, T, kF64>, cfg[I], C, ys, T,     \
+                       chunk, s, args...);                                \
   } else {                                                                \
     return launch_grid(skappa_lanes_kernel<C, T>, cfg[I], C, ys, T,       \
                        chunk, s, args...);                                \
@@ -710,8 +758,21 @@ extern "C" int l1_epigraph_proj_f32(const float* z0, const float* t0,
                                     int cap, void* stream) {
   if (!valid(n, ctas)) return (int)cudaErrorInvalidValue;
   const int chunk = (n + ctas - 1) / ctas;
-  return launch_l1(ctas, chunk, static_cast<cudaStream_t>(stream), z0, t0,
-                   z, t, theta, steps, n, chunk, rounds, cap);
+  return launch_l1<false>(ctas, chunk, static_cast<cudaStream_t>(stream), z0,
+                          t0, z, t, theta, steps, n, chunk, rounds, cap);
+}
+
+// The same with the polish in f64 (precision "fp64_polish"): theta is the
+// f64 fixpoint rounded to f32 once.
+extern "C" int l1_epigraph_proj_f32_polish64(const float* z0, const float* t0,
+                                             float* z, float* t, float* theta,
+                                             int* steps, int n, int ctas,
+                                             int rounds, int cap,
+                                             void* stream) {
+  if (!valid(n, ctas)) return (int)cudaErrorInvalidValue;
+  const int chunk = (n + ctas - 1) / ctas;
+  return launch_l1<true>(ctas, chunk, static_cast<cudaStream_t>(stream), z0,
+                         t0, z, t, theta, steps, n, chunk, rounds, cap);
 }
 
 // z (n,) f32 on the device and kappa -> s_star (n,), u_max (); steps (may
@@ -750,6 +811,22 @@ extern "C" int l1_epigraph_proj_lanes_f32(const float* z0, const float* t0,
   return launch_lanes<true>(ctas, threads, ys, chunk,
                             static_cast<cudaStream_t>(stream), z0, t0, z, t,
                             theta, steps, lanes, n, chunk, rounds, cap);
+}
+
+// The same with the polish in f64 on every lane.
+extern "C" int l1_epigraph_proj_lanes_f32_polish64(
+    const float* z0, const float* t0, float* z, float* t, float* theta,
+    int* steps, int lanes, int n, int ctas, int threads, int rounds, int cap,
+    void* stream) {
+  if (!valid_lanes(lanes, n, ctas, threads)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int chunk = (n + ctas - 1) / ctas;
+  const int ys = lanes < kMaxLaneGrid ? lanes : kMaxLaneGrid;
+  return launch_lanes<true, true>(ctas, threads, ys, chunk,
+                                  static_cast<cudaStream_t>(stream), z0, t0,
+                                  z, t, theta, steps, lanes, n, chunk, rounds,
+                                  cap);
 }
 
 // z (lanes, n) and kappa (lanes,) f32 on the device -> s_star (lanes, n),

@@ -20,6 +20,11 @@ that drive it).
   lane-stacked operand (the fleet driver's B problems, a grid's P points)
   in ONE launch of the same source, each row with its own t0 or kappa read
   on the device; the layout (:func:`lane_plan`) follows d.
+* ``polish64=True`` (precision ``"fp64_polish"``) takes the l1 kernels'
+  f64-polish instantiations: the same launch, the polish run to the f64
+  fixpoint and theta rounded to f32 once. They count as launches of their
+  kernel, and by type under ``l1_epigraph_proj_f64polish`` /
+  ``l1_epigraph_proj_lanes_f64polish`` (``ops.launch_counts_by_type``).
 
 On a CPU tensor each function is its plain version in
 :mod:`repro_torch.kernels.ref`.
@@ -45,6 +50,9 @@ _PROJ_SIGNATURES = {
     "l1_epigraph_proj_f32": [build.P, build.P, build.P, build.P, build.P,
                              build.P, build.I, build.I, build.I, build.I,
                              build.P],
+    "l1_epigraph_proj_f32_polish64": [build.P, build.P, build.P, build.P,
+                                      build.P, build.P, build.I, build.I,
+                                      build.I, build.I, build.P],
     "skappa_support_f32": [build.P, build.F, build.P, build.P, build.P,
                            build.I, build.I, build.I, build.I, build.P],
     "ladder_proj_empty": [build.P],
@@ -52,6 +60,11 @@ _PROJ_SIGNATURES = {
                                    build.P, build.P, build.I, build.I,
                                    build.I, build.I, build.I, build.I,
                                    build.P],
+    "l1_epigraph_proj_lanes_f32_polish64": [build.P, build.P, build.P,
+                                            build.P, build.P, build.P,
+                                            build.I, build.I, build.I,
+                                            build.I, build.I, build.I,
+                                            build.P],
     "skappa_support_lanes_f32": [build.P, build.P, build.P, build.P,
                                  build.P, build.I, build.I, build.I, build.I,
                                  build.I, build.I, build.P],
@@ -189,14 +202,15 @@ def _ptr(t: torch.Tensor | None):
 
 def l1_epigraph_proj(z0: torch.Tensor, t0, *, rounds: int = 2,
                      cap: int = LADDER_CAP, ctas: int | None = None,
-                     stats: bool = False):
+                     stats: bool = False, polish64: bool = False):
     """Exact projection of (z0, t0) onto {(z, t): ||z||_1 <= t}: z (n,) and
     t (), both on z0's device (``t0`` a 0-d tensor or a number). ``ctas``
     overrides :func:`plan`'s cluster size; with ``stats`` the threshold
-    theta and the polish steps taken follow."""
+    theta and the polish steps taken follow; ``polish64`` runs the polish
+    in f64."""
     if z0.device.type == "cpu":
         return l1_epigraph_proj_ref(z0, t0, rounds=rounds, cap=cap,
-                                    stats=stats)
+                                    stats=stats, polish64=polish64)
     if z0.device.type != "cuda":
         raise ValueError(f"l1_epigraph_proj: no kernel for device "
                          f"{z0.device}")
@@ -213,12 +227,15 @@ def l1_epigraph_proj(z0: torch.Tensor, t0, *, rounds: int = 2,
     t = torch.empty((), dtype=torch.float32, device=z0.device)
     theta, k = _stats_out(z0.device, stats, torch.float32)
     lib = build.library("ladder_proj", _PROJ_SIGNATURES)
-    rc = lib.l1_epigraph_proj_f32(
-        z0.data_ptr(), t0.data_ptr(), z.data_ptr(), t.data_ptr(),
-        _ptr(theta), _ptr(k), z0.shape[0], ctas, rounds, cap,
-        build.stream(z0))
+    entry = (lib.l1_epigraph_proj_f32_polish64 if polish64
+             else lib.l1_epigraph_proj_f32)
+    rc = entry(z0.data_ptr(), t0.data_ptr(), z.data_ptr(), t.data_ptr(),
+               _ptr(theta), _ptr(k), z0.shape[0], ctas, rounds, cap,
+               build.stream(z0))
     build.check(rc, "l1_epigraph_proj")
     build.LAUNCHES["l1_epigraph_proj"] += 1
+    if polish64:
+        build.LAUNCHES_BY_TYPE["l1_epigraph_proj_f64polish"] += 1
     return (z, t, theta, k) if stats else (z, t)
 
 
@@ -252,14 +269,16 @@ def skappa_support(z: torch.Tensor, kappa, *, rounds: int = 2,
 def l1_epigraph_proj_lanes(z0: torch.Tensor, t0: torch.Tensor, *,
                            rounds: int = 2, cap: int = LADDER_CAP,
                            ctas: int | None = None,
-                           threads: int | None = None, stats: bool = False):
+                           threads: int | None = None, stats: bool = False,
+                           polish64: bool = False):
     """Row b of ``z0`` (B, d) projected with ``t0[b]`` (a (B,) tensor on
     z0's device) onto {(z, t): ||z||_1 <= t}, every row in one launch: z
     (B, d), t (B,); with ``stats`` theta (B,) and the polish steps (B,)
-    follow. ``ctas`` / ``threads`` override :func:`lane_plan`."""
+    follow. ``ctas`` / ``threads`` override :func:`lane_plan`;
+    ``polish64`` runs every lane's polish in f64."""
     if z0.device.type == "cpu":
         return l1_epigraph_proj_lanes_ref(z0, t0, rounds=rounds, cap=cap,
-                                          stats=stats)
+                                          stats=stats, polish64=polish64)
     if z0.device.type != "cuda":
         raise ValueError(f"l1_epigraph_proj_lanes: no kernel for device "
                          f"{z0.device}")
@@ -272,12 +291,15 @@ def l1_epigraph_proj_lanes(z0: torch.Tensor, t0: torch.Tensor, *,
                  torch.empty(B, dtype=torch.int32, device=z0.device))
                 if stats else (None, None))
     lib = build.library("ladder_proj", _PROJ_SIGNATURES)
-    rc = lib.l1_epigraph_proj_lanes_f32(
-        z0.data_ptr(), t0.data_ptr(), z.data_ptr(), t.data_ptr(),
-        _ptr(theta), _ptr(k), B, d, ctas, threads, rounds, cap,
-        build.stream(z0))
+    entry = (lib.l1_epigraph_proj_lanes_f32_polish64 if polish64
+             else lib.l1_epigraph_proj_lanes_f32)
+    rc = entry(z0.data_ptr(), t0.data_ptr(), z.data_ptr(), t.data_ptr(),
+               _ptr(theta), _ptr(k), B, d, ctas, threads, rounds, cap,
+               build.stream(z0))
     build.check(rc, "l1_epigraph_proj_lanes")
     build.LAUNCHES["l1_epigraph_proj_lanes"] += 1
+    if polish64:
+        build.LAUNCHES_BY_TYPE["l1_epigraph_proj_lanes_f64polish"] += 1
     return (z, t, theta, k) if stats else (z, t)
 
 

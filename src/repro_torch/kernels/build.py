@@ -35,12 +35,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ladder_stats", "ladder_proj", "gram", "matvec", "normal_matvec",
-           "block_matvec", "flash_attention")
+           "block_matvec", "flash_attention", "chol_update")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-# flags of one source beyond the common ones: the projections keep every
-# f32 operation of their plain versions as its own rounding (no a*b+c
-# contracted into one FMA)
-SOURCE_FLAGS = {"ladder_proj": ("-fmad=false",)}
+# flags of one source beyond the common ones: the projections and the
+# Cholesky rotations keep every f32 operation of their plain versions as its
+# own rounding (no a*b+c contracted into one FMA)
+SOURCE_FLAGS = {"ladder_proj": ("-fmad=false",),
+                "chol_update": ("-fmad=false",)}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -52,11 +53,12 @@ F = ctypes.c_float
 # over more than one row slice, for rmatvec when a second kernel sums its
 # row slices (kernels/matvec.py, plan) and for normal_matvec when a second
 # kernel adds its CTAs' partials (normal_plan), one otherwise
-# (ladder_stats, flash_attention and the two one-launch projections: one)
-# — and nowhere else (read through repro_torch.kernels.ops).
+# (ladder_stats, flash_attention and the two one-launch projections: one;
+# chol_rank_update one a chunk of at most 800 rotations) — and nowhere else (read through repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 # The same launches of the kernels that take several element types of A
-# (gram, matvec, rmatvec, normal_matvec), by "<kernel>_<f32|bf16|f16>".
+# (gram, matvec, rmatvec, normal_matvec), by "<kernel>_<f32|bf16|f16>", and
+# of the l1 projections' f64-polish instantiations, by "<kernel>_f64polish".
 LAUNCHES_BY_TYPE: collections.Counter = collections.Counter()
 
 

@@ -20,7 +20,13 @@ lanes
 block_matvec /     csrc/block_matvec.cu        plain products per block
 block_rmatvec
 flash_attention    csrc/flash_attention.cu     plain softmax attention
+chol_rank_update   csrc/chol_update.cu         plain rank-1 recurrence
 =================  ==========================  =============================
+
+The l1 projections take ``polish64=`` (precision ``"fp64_polish"``): the
+f64-polish instantiations of the same kernels, counted as their kernel's
+launches and, by type, under ``l1_epigraph_proj_f64polish`` /
+``l1_epigraph_proj_lanes_f64polish``.
 
 There is no default row: a CUDA tensor reaches a kernel or an error.
 The kernels and plain versions compute in f32 (bf16 / fp16 data widened
@@ -46,12 +52,14 @@ from . import build, ref
 from .bisect_proj import (l1_epigraph_proj, l1_epigraph_proj_lanes,
                           ladder_stats, skappa_support, skappa_support_lanes)
 from .block_matvec import block_matvec, block_rmatvec
+from .chol_update import chol_rank_update
 from .flash_attention import check_flat, flash_attention_flat
 from .gram import gram, gram_xy
 from .matvec import matvec, normal_matvec, rmatvec
 
 __all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
-           "block_rmatvec_auto", "flash_attention", "flash_attention_auto",
+           "block_rmatvec_auto", "chol_rank_update", "chol_rank_update_auto",
+           "flash_attention", "flash_attention_auto",
            "flash_attention_flat", "gram", "gram_auto", "gram_xy",
            "l1_epigraph_proj", "l1_epigraph_proj_auto",
            "l1_epigraph_proj_lanes", "l1_epigraph_proj_lanes_auto",
@@ -66,7 +74,7 @@ __all__ = ["block_matvec", "block_matvec_auto", "block_rmatvec",
 KERNELS = ("ladder_stats", "l1_epigraph_proj", "skappa_support", "gram",
            "matvec", "rmatvec", "normal_matvec", "block_matvec",
            "block_rmatvec", "flash_attention", "l1_epigraph_proj_lanes",
-           "skappa_support_lanes")
+           "skappa_support_lanes", "chol_rank_update")
 
 
 def _out(x: torch.Tensor, a: torch.Tensor, v: torch.Tensor,
@@ -121,6 +129,8 @@ def _flash_plain(q, k, v, *, causal=True, sm_scale=None):
 
 runtime.register_kernel("flash_attention", "cuda", flash_attention_flat)
 runtime.register_kernel("flash_attention", "cpu", _flash_plain)
+runtime.register_kernel("chol_rank_update", "cuda", chol_rank_update)
+runtime.register_kernel("chol_rank_update", "cpu", ref.chol_rank_update_ref)
 
 
 def gram_auto(a: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -170,12 +180,13 @@ def ladder_stats_auto(az: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     return runtime.kernel("ladder_stats", az.device.type)(az, thetas)
 
 
-def l1_epigraph_proj_auto(z0: torch.Tensor, t0, *, rounds: int,
-                          cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+def l1_epigraph_proj_auto(z0: torch.Tensor, t0, *, rounds: int, cap: int,
+                          polish64: bool = False
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The exact l1-epigraph projection (z, t) of (z0, t0), one launch on
-    the card."""
+    the card (``polish64``: the polish in f64)."""
     return runtime.kernel("l1_epigraph_proj", z0.device.type)(
-        z0, t0, rounds=rounds, cap=cap)
+        z0, t0, rounds=rounds, cap=cap, polish64=polish64)
 
 
 def skappa_support_auto(z: torch.Tensor, kappa, *, rounds: int,
@@ -187,12 +198,18 @@ def skappa_support_auto(z: torch.Tensor, kappa, *, rounds: int,
 
 
 def l1_epigraph_proj_lanes_auto(z0: torch.Tensor, t0: torch.Tensor, *,
-                                rounds: int, cap: int
+                                rounds: int, cap: int, polish64: bool = False
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every row of z0 (B, d) projected with its t0 (B,): (z, t), one
-    launch on the card for all B rows."""
+    launch on the card for all B rows (``polish64``: the polish in f64)."""
     return runtime.kernel("l1_epigraph_proj_lanes", z0.device.type)(
-        z0, t0, rounds=rounds, cap=cap)
+        z0, t0, rounds=rounds, cap=cap, polish64=polish64)
+
+
+def chol_rank_update_auto(L: torch.Tensor, V: torch.Tensor, sign: float):
+    """(L', ok): the rank-k Cholesky update (``sign`` +1) or downdate (-1)
+    of the lower factor L by the columns of V, through the registry."""
+    return runtime.kernel("chol_rank_update", L.device.type)(L, V, sign)
 
 
 def skappa_support_lanes_auto(z: torch.Tensor, kappa: torch.Tensor, *,
@@ -233,7 +250,9 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_type() -> dict[str, int]:
     """The launches of gram, matvec, rmatvec and normal_matvec since the
-    last reset by the element type of A: ``{"matvec_bf16": n, ...}``."""
+    last reset by the element type of A (``{"matvec_bf16": n, ...}``), and
+    of the l1 projections' f64-polish instantiations
+    (``"l1_epigraph_proj_f64polish"``, ``"l1_epigraph_proj_lanes_f64polish"``)."""
     return dict(build.LAUNCHES_BY_TYPE)
 
 

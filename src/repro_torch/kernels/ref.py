@@ -57,14 +57,15 @@ def _sum_once(x: torch.Tensor, dim=None) -> torch.Tensor:
 
 
 def l1_epigraph_proj_ref(z0: torch.Tensor, t0, *, rounds: int = 2,
-                         cap: int = LADDER_CAP, stats: bool = False):
+                         cap: int = LADDER_CAP, stats: bool = False,
+                         polish64: bool = False):
     """Projection of (z0, t0) onto {(z, t): ||z||_1 <= t} -- the plain
     version of ``csrc/ladder_proj.cu``'s ``l1_proj_kernel``: one lane of
     :func:`l1_epigraph_proj_lanes_ref`. With ``stats`` theta and the
     polish steps taken (an int) follow."""
     t0 = torch.as_tensor(t0, dtype=f32, device=z0.device).reshape(1)
     out = l1_epigraph_proj_lanes_ref(z0[None], t0, rounds=rounds, cap=cap,
-                                     stats=stats)
+                                     stats=stats, polish64=polish64)
     if stats:
         return out[0][0], out[1][0], out[2][0], int(out[3][0])
     return out[0][0], out[1][0]
@@ -111,7 +112,8 @@ def _lane_rounds(az, lo, hi, rounds, crossing):
 
 
 def l1_epigraph_proj_lanes_ref(z0: torch.Tensor, t0, *, rounds: int = 2,
-                               cap: int = LADDER_CAP, stats: bool = False):
+                               cap: int = LADDER_CAP, stats: bool = False,
+                               polish64: bool = False):
     """The projection of every row of z0 (L, d) with its own t0 (L,) onto
     {(z, t): ||z||_1 <= t} -- the plain version of ``csrc/ladder_proj.cu``'s
     ``l1_lanes_kernel`` (and, on one lane, of ``l1_proj_kernel``): the
@@ -120,7 +122,9 @@ def l1_epigraph_proj_lanes_ref(z0: torch.Tensor, t0, *, rounds: int = 2,
     once, the rounds and the polish only where theta is used (neither
     inside nor apex: theta is 0 there), the polish run with a mask until
     every lane is at its own fixpoint. With ``stats`` theta (L,) and the
-    polish steps (L,) follow."""
+    polish steps (L,) follow. ``polish64``: the f64-polish instantiation's
+    plain version, the polish's theta, terms (|z| - theta), sums and step
+    in f64 (the rounds still in f32) and theta rounded to f32 once."""
     z0 = z0.to(f32)
     L = z0.shape[0]
     t0 = torch.as_tensor(t0, dtype=f32, device=z0.device).expand(L)
@@ -138,15 +142,21 @@ def l1_epigraph_proj_lanes_ref(z0: torch.Tensor, t0, *, rounds: int = 2,
     th, _ = _lane_rounds(az, torch.zeros_like(hi0), hi0, rounds, crossing)
     k = torch.zeros(L, dtype=torch.int32, device=z0.device)
     active = need.clone()
+    if polish64:
+        az_p, t0_p, th = az.double(), t0.double(), th.double()
+    else:
+        az_p, t0_p = az, t0
     while bool(active.any()):    # the monotone polish, lane by lane
-        d = az - th[:, None]
-        hv = _sum_once(torch.clamp_min(d, 0.0), 1) - t0 - th
-        new = torch.maximum(th + hv / ((d > 0).sum(1).to(f32) + 1.0), th)
+        d = az_p - th[:, None]
+        hv = (torch.clamp_min(d, 0.0).sum(1) if polish64
+              else _sum_once(torch.clamp_min(d, 0.0), 1)) - t0_p - th
+        cnt = (d > 0).sum(1).to(th.dtype)
+        new = torch.maximum(th + hv / (cnt + 1.0), th)
         k = k + active.to(torch.int32)
         go = active & (new > th) & (k < cap)
         th = torch.where(active, new, th)
         active = go
-    theta = torch.where(need, th, 0.0)
+    theta = torch.where(need, th.to(f32), 0.0)
     to_apex = (apex & ~inside)[:, None]
     z = torch.where(to_apex, 0.0,
                     torch.sign(z0) * torch.clamp_min(az - theta[:, None],
@@ -210,6 +220,36 @@ def skappa_support_lanes_ref(z: torch.Tensor, kappa, *, rounds: int = 2,
          * ((az == tau[:, None]) & (tau[:, None] > 0)).to(f32))
     out = (_sum_once(az * w, 1), torch.sign(z) * w)
     return (*out, k) if stats else out
+
+
+def chol_rank_update_ref(L: torch.Tensor, V: torch.Tensor, sign: float):
+    """(L', ok) with L' L'^T = L L^T + sign V V^T for the lower factor L
+    (n, n) and V (n, k) or (n,) -- the plain version of
+    ``csrc/chol_update.cu``: the LINPACK rank-1 recurrence of
+    ``repro.core.prox._chol_rank1`` (Givens rotations for sign +1,
+    hyperbolic ones for -1), one vector after the other, column by column,
+    each operation rounded on its own. ``ok`` (a 0-d bool) is False once a
+    pivot lost definiteness (a downdate of energy the factor does not
+    hold); L' is then garbage."""
+    L = L.clone()
+    V = V if V.ndim == 2 else V[:, None]
+    n = L.shape[0]
+    tiny = torch.finfo(L.dtype).tiny
+    ok = torch.ones((), dtype=torch.bool, device=L.device)
+    for p in range(V.shape[1]):
+        v = V[:, p].to(L.dtype).clone()
+        for j in range(n):
+            ljj, vj = L[j, j], v[j]
+            r2 = ljj * ljj + sign * vj * vj
+            ok = ok & (r2 > 0) & (ljj > 0)
+            r = torch.sqrt(torch.clamp_min(r2, tiny))
+            den = torch.clamp_min(ljj, tiny)
+            c, s = r / den, vj / den
+            col = (L[j + 1:, j] + sign * s * v[j + 1:]) / c
+            v[j + 1:] = c * v[j + 1:] - s * col
+            L[j + 1:, j] = col
+            L[j, j] = r
+    return L, ok
 
 
 def _vec_as_mat(a: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, bool]:

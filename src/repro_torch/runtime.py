@@ -17,10 +17,12 @@ the rest of the port never string-compares device names:
   the card (the one-launch projections evaluate all B rungs of a round in
   one pass over |z|) and 0 on the CPU.
 * **Precision policy** — :class:`PrecisionPolicy`, its presets and its
-  dtype helpers, as in the JAX package. The port certifies ``"fp32"``,
-  ``"bf16"`` and ``"fp16"``; the solver front-end rejects ``"fp64_polish"``
-  (and the feature split under a reduced preset) with
-  :class:`CapabilityError`.
+  dtype helpers, as in the JAX package. The port certifies all four presets
+  (``"fp32"``, ``"bf16"``, ``"fp16"`` and ``"fp64_polish"``); the solver
+  front-end rejects the feature split under a reduced preset with
+  :class:`CapabilityError`. :func:`escalation_ladder` gives the recovery
+  ladder's precision rungs. torch always has float64, so the ladder is the
+  JAX package's with its x64 mode on: ``fp64_polish`` is always offered.
 
 Float32 matrix products and convolutions run in full float32 here:
 TF32 keeps about three decimal digits, which breaks the f32 kernel parity
@@ -40,8 +42,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __all__ = [
     "DEVICE_TYPES", "PRECISION_PRESETS", "REDUCED", "CapabilityError",
-    "PrecisionPolicy", "kernel", "kernel_table", "ladder_rounds",
-    "precision_name", "register_kernel", "resolve_device",
+    "PrecisionPolicy", "escalation_ladder", "kernel", "kernel_table",
+    "ladder_rounds", "precision_name", "register_kernel", "resolve_device",
     "resolve_precision",
 ]
 
@@ -213,3 +215,17 @@ def precision_name(policy: PrecisionPolicy) -> str:
             return name
     return (f"custom(data={policy.data},accum={policy.accum},"
             f"state={policy.state},kkt_polish={policy.kkt_polish})")
+
+
+def escalation_ladder(policy) -> list[str]:
+    """Preset names strictly more numerically conservative than ``policy``,
+    in escalation order: the recovery ladder's precision rungs
+    (``repro.runtime.escalation_ladder`` with x64 mode on). Reduced-precision
+    data escalates to fp32, then to the fp64 KKT polish; fp32 to the polish;
+    ``[]`` when nothing stricter is available."""
+    pol = resolve_precision(policy)
+    if pol.data in ("bfloat16", "float16"):
+        return ["fp32", "fp64_polish"]
+    if pol.kkt_polish is None:
+        return ["fp64_polish"]
+    return []

@@ -98,9 +98,7 @@ UNPORTED_OPTIONS = {"engine": dict(engine="sharded"),
                     # split (which fails in the JAX package itself) they
                     # still raise
                     "bf16": dict(precision="bf16", force_feature_split=True),
-                    "fp16": dict(precision="fp16", n_feature_blocks=4),
-                    "fp64_polish": dict(precision="fp64_polish"),
-                    "recovery": dict(recovery="a policy")}
+                    "fp16": dict(precision="fp16", n_feature_blocks=4)}
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_OPTIONS))
@@ -114,9 +112,10 @@ def test_unported_models_and_entry_points_raise_capability_error():
     """Every model is ported (each loss resolves), and so are the path,
     the grid and per-solve overrides: they run, for the classifiers and the
     feature split too (kappa only there: a gamma / rho_c override or grid
-    raises ValueError, as in the JAX package). What the models still lack —
-    streaming fits, serving, recovery and the sharded engine — raises
-    CapabilityError up front; the fleet refuses the feature split."""
+    raises ValueError, as in the JAX package). Streaming fits
+    (``partial_fit``) and recovery run too. What the models still lack —
+    serving and the sharded engine — raises CapabilityError up front; the
+    fleet and streaming refuse the feature split."""
     for name in ("logistic", "hinge", "smoothed_hinge"):
         assert losses.get_loss(name).name == name
     assert losses.get_loss("softmax", 3).n_classes == 3
@@ -133,14 +132,22 @@ def test_unported_models_and_entry_points_raise_capability_error():
             path = method(X, yy, [2, 1])
             assert path.coef.shape[0] == 2 and est.n_iter_ == int(
                 path.iters[-1])
-        with pytest.raises(api.CapabilityError):
-            est.partial_fit(X, yy)
+        if est.options.n_feature_blocks > 1:
+            with pytest.raises(api.CapabilityError):
+                est.partial_fit(X, yy)
+        else:
+            assert est.partial_fit(X, yy).engine_ == "streaming"
     with pytest.raises(api.CapabilityError):
         api.fit_many(api.SparseProblem("logistic", kappa=3), X[None], y[None],
                      options=api.SolverOptions(n_feature_blocks=2, **kw))
-    for fn in (api.serve, api.stream, api.recover):
-        with pytest.raises(api.CapabilityError):
-            fn(api.SparseProblem("squared", kappa=3), X, y)
+    with pytest.raises(api.CapabilityError):
+        api.serve(api.SparseProblem("squared", kappa=3), X, y)
+    with pytest.raises(api.CapabilityError):
+        api.stream(api.SparseProblem("squared", kappa=3),
+                   options=api.SolverOptions(n_feature_blocks=2, **kw))
+    assert api.recover(api.SparseProblem("squared", kappa=2), X, y,
+                       options=api.SolverOptions(**kw)).recovery[0].stage \
+        == "retry"
     for fn in (api.solve_path, api.solve_grid):
         path = fn(api.SparseProblem("squared", kappa=2), X, y, [2, 1],
                   options=api.SolverOptions(**kw), gammas=[1.0, 2.0])
@@ -207,9 +214,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
 def test_chip_smoke_parity_fits_are_the_three_banded_fits():
     """chip_smoke.parity_fits (phase 8, and the probe's --parity): Woodbury
     at n = 2,500, the feature split at n = 250, squared and logistic, the
-    Woodbury fit's data through the PCG x-update, and that data in bf16
-    through Woodbury and in fp16 through PCG and Woodbury; numpy data from
-    seed 1, tol 1e-4 within 300 iterations."""
+    Woodbury fit's data through the PCG x-update, that data in bf16
+    through Woodbury, in fp16 through PCG and Woodbury, and through
+    Woodbury under fp64_polish; numpy data from seed 1, tol 1e-4 within
+    300 iterations."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -218,19 +226,20 @@ def test_chip_smoke_parity_fits_are_the_three_banded_fits():
     assert [f[0] for f in fits] == [
         "parity", "parity_split_squared", "parity_split_logistic",
         "parity_pcg", "parity_woodbury_bf16", "parity_pcg_fp16",
-        "parity_woodbury_fp16"]
+        "parity_woodbury_fp16", "parity_woodbury_fp64"]
     assert [f[2] for f in fits] == [api.SparseLinearRegression,
                                     api.SparseLinearRegression,
                                     api.SparseLogisticRegression,
-                                    *[api.SparseLinearRegression] * 4]
+                                    *[api.SparseLinearRegression] * 5]
     assert [f[4].shape for f in fits] == [(2, 200, 2_500), (2, 200, 250),
                                           (2, 200, 250),
-                                          *[(2, 200, 2_500)] * 4]
+                                          *[(2, 200, 2_500)] * 5]
     assert fits[0][3]["x_solver"] == "woodbury"
     assert all(f[3]["n_feature_blocks"] == 4 for f in fits[1:3])
     assert [(f[3]["x_solver"], f[3].get("precision", "fp32"))
             for f in fits[3:]] == [("pcg", "fp32"), ("woodbury", "bf16"),
-                                   ("pcg", "fp16"), ("woodbury", "fp16")]
+                                   ("pcg", "fp16"), ("woodbury", "fp16"),
+                                   ("woodbury", "fp64_polish")]
     for f in fits[3:]:
         np.testing.assert_array_equal(f[4], fits[0][4])
         assert {k: v for k, v in f[3].items()

@@ -449,7 +449,8 @@ def test_cuda_launch_counts_are_device_kernel_launches(cuda_gen):
                                    "normal_matvec": 0, "block_matvec": 0,
                                    "block_rmatvec": 0, "flash_attention": 0,
                                    "l1_epigraph_proj_lanes": 0,
-                                   "skappa_support_lanes": 0}
+                                   "skappa_support_lanes": 0,
+                                   "chol_rank_update": 0}
 
 
 
@@ -1161,3 +1162,145 @@ def test_cuda_lane_tensors_never_reach_the_plain_version(cuda_gen,
             z, t0, ops=bilinear.DEFAULT_OPS._replace(sum_fn=torch.sum))
     with pytest.raises(ValueError):
         bisect_proj.l1_epigraph_proj_lanes(z.double(), t0)
+
+
+# --------------------------------------------------------------------------
+# the f64 KKT polish (precision "fp64_polish") and chol_rank_update
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 1_000, 10_000, bisect_proj.MAX_N])
+def test_cuda_polish64_projection_matches_its_plain_version(cuda_gen, n):
+    """The f64-polish instantiation of l1_proj_kernel: z, t and theta
+    within rtol 1e-6 (atol 1e-6 x max |z|) of the plain version's, one
+    launch of its kernel, counted by type as the f64-polish instantiation.
+    The polish steps may differ: the f64 sums of f64 terms depend on their
+    order, so the last steps toward the f64 fixpoint do too (the f32
+    polish's sums of f32 terms are exact, its steps equal)."""
+    z0 = torch.randn(n, device="cuda", generator=cuda_gen)
+    tz = (0.5 * z0.abs().sum()).reshape(())
+    ops.reset_launch_counts()
+    got = bisect_proj.l1_epigraph_proj(z0, tz, stats=True, polish64=True)
+    assert ops.launch_counts()["l1_epigraph_proj"] == 1
+    assert ops.launch_counts_by_type() == {"l1_epigraph_proj_f64polish": 1}
+    want = ref.l1_epigraph_proj_ref(z0, tz, stats=True, polish64=True)
+    tol = dict(rtol=1e-6, atol=1e-6 * float(z0.abs().max()))
+    for g_, w_ in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g_, w_, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,d", [(10_000, 16), (300, 64), (64, 2_500),
+                                 (8, 10_000)])
+def test_cuda_polish64_lanes_match_plain_and_the_solo_kernel(cuda_gen, B, d):
+    """The lane kernel's f64-polish instantiation against its plain version
+    and, row by row, the solo kernel's, each within rtol 1e-6 (the f64
+    polish sums depend on the layout, so no bit-for-bit claim)."""
+    zl = torch.randn(B, d, device="cuda", generator=cuda_gen)
+    tl = 0.5 * zl.abs().sum(1)
+    ops.reset_launch_counts()
+    got = bisect_proj.l1_epigraph_proj_lanes(zl, tl, stats=True,
+                                             polish64=True)
+    assert ops.launch_counts()["l1_epigraph_proj_lanes"] == 1
+    assert ops.launch_counts_by_type() == {
+        "l1_epigraph_proj_lanes_f64polish": 1}
+    want = ref.l1_epigraph_proj_lanes_ref(zl, tl, stats=True, polish64=True)
+    tol = dict(rtol=1e-6, atol=1e-6 * float(zl.abs().max()))
+    for g_, w_ in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g_, w_, **tol)
+    for i in range(0, B, max(1, B // 8)):
+        solo = bisect_proj.l1_epigraph_proj(zl[i], tl[i], polish64=True)
+        torch.testing.assert_close(solo[0], got[0][i], **tol)
+        torch.testing.assert_close(solo[1], got[1][i], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1, 1), (64, 3), (256, 16), (40, 805)])
+def test_cuda_chol_rank_update_is_its_plain_version_bit_for_bit(cuda_gen, n,
+                                                                k):
+    """Update and downdate equal the plain rank-1 recurrence bit for bit
+    (k past 800 takes two launches, in order); a downdate that loses
+    positive definiteness says so, as the plain version does."""
+    from repro_torch.kernels import chol_update
+    a = torch.randn(n + 8, n, device="cuda", generator=cuda_gen)
+    L = torch.linalg.cholesky(a.T @ a / n + torch.eye(n, device="cuda"))
+    V = 0.3 * torch.randn(n, k, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
+    up, ok = chol_update.chol_rank_update(L, V, 1.0)
+    assert ops.launch_counts()["chol_rank_update"] == -(-k // 800)
+    want, wok = ref.chol_rank_update_ref(L, V, 1.0)
+    assert torch.equal(up, want) and bool(ok) and bool(wok)
+    down, ok = chol_update.chol_rank_update(up, V, -1.0)
+    want, wok = ref.chol_rank_update_ref(up, V, -1.0)
+    assert torch.equal(down, want) and bool(ok) == bool(wok)
+    # twice the first column: the first pivot goes negative
+    bad = 2.0 * L[:, :1]
+    _, ok = chol_update.chol_rank_update(L, bad, -1.0)
+    _, wok = ref.chol_rank_update_ref(L, bad, -1.0)
+    assert not bool(ok) and not bool(wok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(2_048, 256), (6_400, 800)])
+def test_cuda_chol_rank_update_at_the_streams_shapes(cuda_gen, n, k):
+    """At the streams' shapes the updated factor is within 1e-5 (relative,
+    Frobenius) of an f64 Cholesky of the updated matrix, and a downdate
+    undoes it to 1e-2: the hyperbolic rotations lose more in f32 (3.3e-3
+    at (6,400, 800) on an H100; the same arithmetic as the plain version,
+    which the bit-for-bit test holds)."""
+    from repro_torch.kernels import chol_update
+    a = torch.randn(n + 8, n, device="cuda", generator=cuda_gen)
+    M = (a.T @ a).double() / n + torch.eye(n, device="cuda",
+                                           dtype=torch.float64)
+    L = torch.linalg.cholesky(M).float()
+    V = torch.randn(n, k, device="cuda", generator=cuda_gen)
+    up, ok = chol_update.chol_rank_update(L, V, 1.0)
+    want = torch.linalg.cholesky(M + V.double() @ V.double().T)
+    assert bool(ok)
+    assert float((up.double() - want).norm() / want.norm()) < 1e-5
+    down, ok = chol_update.chol_rank_update(up, V, -1.0)
+    assert bool(ok)
+    assert float((down.double() - L.double()).norm() / L.norm()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_solver", ["dense", "woodbury"])
+def test_cuda_fp64_polish_fit_and_stream_agree_with_the_cpu(cuda_gen,
+                                                            x_solver):
+    """An fp64_polish fit and a sliding-window stream, card against the
+    port's CPU run on the same numpy data: the same status and support,
+    coef within 1e-3, iterations within 2; the f64-polish kernel and
+    chol_rank_update (the dense absorbs, both regimes' evictions) launch."""
+    import numpy as np
+
+    from repro_torch import api
+    rng = np.random.default_rng(0)
+    n = 40
+    w = np.zeros(n, np.float32)
+    w[:4] = 2.0
+    chunks = []
+    for _ in range(4):
+        X = rng.standard_normal((30, n)).astype(np.float32)
+        chunks.append((X, (X @ w + 0.01 * rng.standard_normal(30)).astype(
+            np.float32)))
+    prob = api.SparseProblem("squared", kappa=4, gamma=10.0, rho_c=4.0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        opts = api.SolverOptions(device=dev, x_solver=x_solver, tol=1e-4,
+                                 precision="fp64_polish")
+        ops.reset_launch_counts()
+        fit = api.solve(prob, chunks[0][0], chunks[0][1], options=opts)
+        s = api.stream(prob, options=opts, window=2)
+        for X, y in chunks:
+            last = s.partial_fit(X, y)
+        res[dev] = (fit, last, ops.launch_counts(),
+                    ops.launch_counts_by_type())
+    for got, want in zip(res["cuda"][:2], res["cpu"][:2]):
+        assert int(got.status) == int(want.status)
+        assert torch.equal(got.support.cpu(), want.support)
+        torch.testing.assert_close(got.coef.cpu(), want.coef, rtol=1e-3,
+                                   atol=1e-3)
+        assert abs(int(got.iters) - int(want.iters)) <= 2
+    counts, by_type = res["cuda"][2:]
+    assert by_type["l1_epigraph_proj_f64polish"] == \
+        counts["l1_epigraph_proj"] > 0
+    assert counts["chol_rank_update"] > 0

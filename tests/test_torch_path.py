@@ -27,8 +27,7 @@ from repro.core import kappa_ladder as jax_kappa_ladder
 from repro_torch import api, convert
 from repro_torch.core import (BiCADMM, BiCADMMConfig, SolveStatus,
                               fit_grid, fit_path, kappa_ladder)
-from repro_torch.data import (SyntheticSpec, make_graded_classification,
-                              make_sparse_regression, make_sparse_softmax)
+from repro_torch.data import SyntheticSpec, make_sparse_regression
 
 KW = dict(gamma=10.0, rho_c=1.0, alpha=0.5, max_iter=300, tol=1e-4,
           zt_iters=20)
@@ -196,40 +195,9 @@ def test_fit_with_history_matches_jax(x_solver):
 
 
 # ------------------------------------------- the other losses' paths ----
+# (their tests: tests/test_torch_path_classifiers.py)
 CLS_SPEC = SyntheticSpec(2, 100, 30, sparsity_level=0.8, noise=0.0)
 CLS_KW = dict(gamma=50.0, rho_c=0.5, alpha=0.5, tol=3e-4, zt_iters=20)
-
-
-# the plain hinge's prox is exact only in the feature split (Newton-CG on
-# its step-function gradient is ill-posed), so it sweeps there
-@pytest.mark.parametrize("loss,kappas,extra", [
-    ("logistic", [6, 4, 3], dict(max_iter=60)),
-    ("smoothed_hinge", [6, 4], dict(max_iter=60)),
-    ("hinge", [6, 4], dict(max_iter=30, n_feature_blocks=2))])
-def test_margin_loss_paths_match_jax(loss, kappas, extra):
-    As, bs, _ = make_graded_classification(2, CLS_SPEC)
-    kw = dict(kappa=6, **extra, **CLS_KW)
-    jpath = jax_fit_path(JaxBiCADMM(loss, JaxConfig(**kw)), jnp.asarray(As),
-                         jnp.asarray(bs), kappas)
-    path = fit_path(BiCADMM(loss, BiCADMMConfig(**kw)), torch.as_tensor(As),
-                    torch.as_tensor(bs), kappas)
-    _assert_points(path, jpath, z_tol=None)
-    assert bool((path.cardinality <= torch.as_tensor(kappas)).all())
-
-
-def test_softmax_path_matches_jax():
-    spec = SyntheticSpec(2, 80, 12, sparsity_level=0.7, noise=0.0,
-                         n_classes=3)
-    As, bs, x_true = make_sparse_softmax(5, spec)
-    kap = int((x_true != 0).sum())
-    kappas = [kap, max(kap - 3, 2)]
-    kw = dict(kappa=kap, max_iter=40, **{**CLS_KW, "tol": 5e-4})
-    jpath = jax_fit_path(JaxBiCADMM("softmax", JaxConfig(**kw), n_classes=3),
-                         jnp.asarray(As), jnp.asarray(bs), kappas)
-    path = fit_path(BiCADMM("softmax", BiCADMMConfig(**kw), n_classes=3),
-                    torch.as_tensor(As), torch.as_tensor(bs), kappas)
-    _assert_points(path, jpath, z_tol=None)
-    assert path.coef.shape == (2, 12, 3) and path.x.shape == (2, 36)
 
 
 def test_feature_split_sweeps_kappa_only():
@@ -333,20 +301,6 @@ def test_solve_path_and_grid_match_jax_and_leave_the_estimator_fitted():
             assert again.result_.state is not None
 
 
-def test_classifier_estimator_paths_match_jax():
-    As, bs, _ = make_graded_classification(2, CLS_SPEC)
-    kw = dict(kappa=6, gamma=50.0, rho_c=0.5, tol=3e-4, zt_iters=20,
-              max_iter=60)
-    est = api.SparseLogisticRegression(device="cpu", **kw)
-    jest = japi.SparseLogisticRegression(**kw)
-    path = est.fit_path(As, bs, [6, 4])
-    jpath = jest.fit_path(jnp.asarray(As), jnp.asarray(bs), [6, 4])
-    _assert_points(path, jpath, z_tol=None)
-    assert est.engine_ == "reference" and est.n_iter_ == int(path.iters[-1])
-    np.testing.assert_array_equal(est.predict(As).numpy(),
-                                  np.asarray(jest.predict(jnp.asarray(As))))
-
-
 def test_capabilities_follow_the_feature_split():
     caps = api.engine_capabilities("reference")
     jcaps = japi.engine_capabilities("reference")
@@ -360,7 +314,8 @@ def test_capabilities_follow_the_feature_split():
             assert getattr(got, name) == getattr(want, name), name
     assert caps.grid_strategy == jcaps.grid_strategy == "vmap"
     assert split.grid_strategy == "cold-scan"
-    # the fleet follows the JAX engine's rule; serving and streaming wait
+    # the fleet and streaming follow the JAX engine's rule; serving waits
     assert caps.fleet == jcaps.fleet and split.fleet == jsplit.fleet
-    assert not (caps.serve or caps.stream)
+    assert caps.stream == jcaps.stream and split.stream == jsplit.stream
+    assert caps.stream and not split.stream and not caps.serve
     assert dataclasses.asdict(split)["penalty_grids"] is False

@@ -243,7 +243,6 @@ def test_estimator_takes_data_cast_by_the_caller():
 @pytest.mark.parametrize("kw", [
     dict(precision="bf16", n_feature_blocks=2),
     dict(precision="fp16", force_feature_split=True),
-    dict(precision="fp64_polish"),
     dict(precision=runtime.PrecisionPolicy(data="bfloat16")),  # bf16 state
 ])
 def test_unported_precisions_raise_capability_error(kw):

@@ -168,17 +168,6 @@ def _assert_same(port, jres):
     assert abs(int(port.iters) - int(jres.iters)) <= 2
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_feature_split_fit_matches_jax(case):
-    name, C = CASES[case][:2]
-    As, bs, _ = _data(name, C)
-    jres = _jax_solver(case).fit(jnp.asarray(As), jnp.asarray(bs))
-    port = _port_solver(case).fit(torch.as_tensor(As), torch.as_tensor(bs))
-    _assert_same(port, jres)
-    assert port.coef.shape == (SPEC.n_features, C)
-    assert port.state.inner.x_blocks.shape[:2] == (2, CASES[case][2])
-
-
 def test_feature_split_warm_state_carried_from_jax():
     As, bs, _ = _data("squared")
     jA, jb = jnp.asarray(As), jnp.asarray(bs)
