@@ -71,12 +71,15 @@ Phases, each printing its own line with its wall time:
               refit), window 8 chunks (four rank-256 downdates): ms a chunk
               for absorb, evict and refit, the maintained factor against
               chol(G + cI) in f64 at every chunk, the final refit against a
-              batch fit on the window; chol_rank_update bit for bit
-              against its plain version at (256, 16).
+              batch fit on the window; the Cholesky kernel at (2,048, 256)
+              timed beside one cholesky_ex of the updated matrix, given
+              and formed (L L^T + V V^T); chol_rank_update bit for bit
+              against its plain version (on the card) at (256, 16) and at
+              (500, 33), a grid of 32 x 32 tiles, update and downdate.
    stream_woodbury — the same at Fig. 2's width n = 10,000, chunks of 800
               rows, window 8 (6,400 rows), 10 chunks (two rank-800
-              evictions), and the Cholesky kernel's time at (6,400, 800)
-              against its bytes bound.
+              evictions), and the Cholesky kernel at (6,400, 800) beside
+              the same yardsticks.
 5. dense    — Fig. 2's smallest point (n = 1,000, kappa = 200) through the
               dense factorization and the dense polish.
    dense_fp16 — the same point in fp16 (``precision="fp16"``).
@@ -239,7 +242,7 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_wgmma_kernel")
 # device kernels whose ptxas report (registers, shared memory, spills) the
 # build phase prints
 PTXAS_SHOWN = ("flash_wgmma_kernel", "gram_xy_kernel", "gram_dmma_kernel",
-               "ladder_kernel", "chol_rank_kernel")
+               "ladder_kernel", "chol_wave_kernel")
 # csrc/matvec.cu's kernel templates, summed over their instantiations, and
 # the template arguments of those the solver path runs: matvec <type of A,
 # path, rows per warp, KC, X as float4s> at K = 1 and 3, rmatvec <type,
@@ -1481,17 +1484,35 @@ def slice_phases(torch, api, ops, report, dev, kernel_row, fit_phase,
                "batch_iters": int(batch.iters)}
         report[name] = out
         # the Cholesky kernel at this stream's shape: a rank-m update of
-        # the (window rows or n)-wide factor, timed against its bytes bound
+        # the (window rows or n)-wide factor, timed against its bound and
+        # beside one cholesky_ex of the updated matrix, given (formed
+        # before the clock) and formed (L L^T + V V^T inside it); the
+        # yardsticks are eager calls (CUDA events, host share included)
         k_n = n if backend == "dense" else window * m
         L = eng._acc.L if backend == "dense" else torch.linalg.cholesky(
             M_spd(torch, k_n, dev, g))
         V = torch.randn(k_n, m, device=dev, generator=g)
+        Lu, oku = chol_update.chol_rank_update(L, V, 1.0)
+        require(bool(oku) and bool(torch.isfinite(Lu).all()),
+                f"{name}: chol_rank_update ({k_n}, {m}) lost definiteness")
+        Mu = Lu @ Lu.T
+        yard = {
+            "cholesky_ex given": cuda_ms(
+                torch, lambda: torch.linalg.cholesky_ex(Mu), reps=5,
+                warmup=1),
+            "cholesky_ex formed": cuda_ms(
+                torch, lambda: torch.linalg.cholesky_ex(
+                    torch.addmm(L @ L.T, V, V.T)), reps=5, warmup=1)}
+        del Mu
+        t_g = graph_ms(torch, lambda: chol_update.chol_rank_update(L, V, 1.0),
+                       reps=5, inner=2)
         t_k = cuda_ms(torch, lambda: chol_update.chol_rank_update(L, V, 1.0),
-                      reps=3, warmup=1)
+                      reps=5, warmup=1)
         bnd, by = bound(2 * 4 * k_n * k_n + 4 * k_n * m,
                         6.0 * k_n * k_n / 2 * m)
-        out["chol_kernel"] = {"n": k_n, "k": m, "ms": t_k, "bound_ms": bnd,
-                              "bound_by": by}
+        out["chol_kernel"] = {"n": k_n, "k": m, "ms": t_g, "call_ms": t_k,
+                              "bound_ms": bnd, "bound_by": by,
+                              "library_ms": yard}
         phase(name, t_ph,
               f"n={n}, {T} chunks of {m} rows, window {window} chunks, "
               f"{STREAM_CFG} (max_iter cut from 2,000): {run_s:.2f} s; ms a "
@@ -1502,8 +1523,11 @@ def slice_phases(torch, api, ops, report, dev, kernel_row, fit_phase,
               f"{max(resid):.2e} of chol(G + cI) in f64; final refit within "
               f"{coef_err:.2e} of the batch fit on the window (same "
               f"support); chol_rank_update {counts['chol_rank_update']} "
-              f"launches, ({k_n}, k={m}) {t_k:.2f} ms against a {by} bound "
-              f"of {bnd:.4f} ms")
+              f"launches, ({k_n}, k={m}) {t_g:.4f} ms (eager call "
+              f"{t_k:.4f} ms) against a {by} bound of {bnd:.4f} ms; "
+              "cholesky_ex of the updated matrix given "
+              f"{yard['cholesky_ex given']:.4f} ms, formed "
+              f"{yard['cholesky_ex formed']:.4f} ms")
 
     # chol_rank_update against its plain version, bit for bit, at (256, 16)
     k_n, k_k = 256, 16
@@ -1530,6 +1554,26 @@ def slice_phases(torch, api, ops, report, dev, kernel_row, fit_phase,
                2 * 4 * k_n * k_n + 4 * k_n * k_k,
                6.0 * k_n * k_n / 2 * k_k, tol=(0.0, 0.0), plain_eager=True,
                plain_reps=1)
+    # and at (500, 33): 16 panels (the last one ragged), 136 tiles, k across
+    # five 8-rotation chunks. The plain version runs on the card (~20 torch
+    # launches, ~0.3 ms, a (vector, column) step: ~5 s a sign), where every
+    # f32 square root is correctly rounded; a CPU build of torch may round
+    # some by an ulp
+    t_ph = time.perf_counter()
+    k_n, k_k = 500, 33
+    L = torch.linalg.cholesky(M_spd(torch, k_n, dev, g))
+    V = 0.3 * torch.randn(k_n, k_k, device=dev, generator=g)
+    L0 = L
+    for sign in (1.0, -1.0):
+        gotc, gok = chol_update.chol_rank_update(L0, V, sign)
+        wantc, wok = ref.chol_rank_update_ref(L0, V, sign)
+        require(torch.equal(gotc, wantc) and bool(gok) == bool(wok),
+                f"chol_rank_update n={k_n} k={k_k} sign {sign:+.0f}: not "
+                "bit-equal to its plain version")
+        L0 = gotc
+    phase("chol_multi_panel", t_ph,
+          f"chol_rank_update n={k_n} k={k_k}: update and downdate bit for "
+          "bit the plain version on the card")
     return launches
 
 

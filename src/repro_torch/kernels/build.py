@@ -54,7 +54,8 @@ F = ctypes.c_float
 # row slices (kernels/matvec.py, plan) and for normal_matvec when a second
 # kernel adds its CTAs' partials (normal_plan), one otherwise
 # (ladder_stats, flash_attention and the two one-launch projections: one;
-# chol_rank_update one a chunk of at most 800 rotations) — and nowhere else (read through repro_torch.kernels.ops).
+# chol_rank_update one a launch of at most chol_update.MAX_K rotations) —
+# and nowhere else (read through repro_torch.kernels.ops).
 LAUNCHES: collections.Counter = collections.Counter()
 # The same launches of the kernels that take several element types of A
 # (gram, matvec, rmatvec, normal_matvec), by "<kernel>_<f32|bf16|f16>", and

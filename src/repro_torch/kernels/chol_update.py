@@ -6,8 +6,9 @@ a ``lax.fori_loop`` in the JAX package, not a Pallas kernel).
 for a lower factor L (n, n) and V (n, k) or (n,), sign +1 (update) or -1
 (downdate); ``ok`` (a 0-d bool on L's device) is False once a pivot lost
 definiteness. On a CUDA f32 tensor it is ``csrc/chol_update.cu``: one
-cooperative launch for up to ``MAX_K`` rotations (a larger k takes
-ceil(k / MAX_K) launches, in order), the result equal to the plain version
+launch for up to ``MAX_K`` rotations (a larger k takes ceil(k / MAX_K)
+launches, in order), each a (column, rotation) wavefront over tiles of
+``PANEL`` rows by ``PANEL`` columns, the result equal to the plain version
 bit for bit. On a CPU tensor it is the plain version,
 :func:`repro_torch.kernels.ref.chol_rank_update_ref`.
 """
@@ -20,12 +21,30 @@ from .ref import chol_rank_update_ref
 
 _SIGNATURES = {
     "chol_rank_update_f32": [build.P, build.P, build.I, build.I, build.I,
-                             build.F, build.P, build.P, build.P],
+                             build.F, build.P, build.P, build.P, build.P,
+                             build.P],
 }
-# Mirrors of csrc/chol_update.cu's constants: rows a CTA (one a thread) and
-# rotations a launch (the CTA's rows of V in shared memory)
-ROWS = 64
-MAX_K = 800
+# Mirrors of csrc/chol_update.cu's constants: columns a panel (rows a tile,
+# lanes a warp), warps of rows a CTA (and one more for the diagonal),
+# rotations staged and published at a time, rotations a shared-memory ring
+# holds, and rotations a launch
+PANEL = 32
+ROW_WARPS = 8
+CHUNK = 8
+RING = 64
+MAX_K = 1024
+
+
+def scratch_sizes(n: int, k: int) -> tuple[int, int, int]:
+    """Elements of the three scratch buffers one call of ``k`` rotations
+    on an (n, n) factor needs: W (f32, n x min(k, MAX_K): every row's v_p
+    after the last panel applied), cs (f32, the c and s of every panel's
+    columns for one launch's rotations, by the step that reads them: kc +
+    PANEL - 1 rows a panel) and the flags (int32, a progress count a tile
+    and the ticket)."""
+    kc = min(k, MAX_K)
+    nb = -(-n // PANEL)
+    return n * kc, 2 * nb * (kc + PANEL - 1) * PANEL, nb * nb + 1
 
 
 def chol_rank_update(L: torch.Tensor, V: torch.Tensor, sign: float):
@@ -54,14 +73,17 @@ def chol_rank_update(L: torch.Tensor, V: torch.Tensor, sign: float):
     ok = torch.ones((), dtype=torch.int32, device=L.device)
     if n == 0 or k == 0:
         return out, ok.bool()
-    cs = torch.empty(4 * min(k, MAX_K), dtype=torch.float32,
-                     device=L.device)
+    nw, ncs, nflags = scratch_sizes(n, k)
+    W = torch.empty(nw, dtype=torch.float32, device=L.device)
+    cs = torch.empty(ncs, dtype=torch.float32, device=L.device)
+    flags = torch.empty(nflags, dtype=torch.int32, device=L.device)
     lib = build.library("chol_update", _SIGNATURES)
     for p0 in range(0, k, MAX_K):
         kc = min(MAX_K, k - p0)
         rc = lib.chol_rank_update_f32(
             out.data_ptr(), V.data_ptr() + 4 * p0, n, kc, k, float(sign),
-            cs.data_ptr(), ok.data_ptr(), build.stream(L))
+            W.data_ptr(), cs.data_ptr(), flags.data_ptr(), ok.data_ptr(),
+            build.stream(L))
         build.check(rc, "chol_rank_update")
         build.LAUNCHES["chol_rank_update"] += 1
     return out, ok.bool()

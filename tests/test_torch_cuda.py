@@ -1213,12 +1213,20 @@ def test_cuda_polish64_lanes_match_plain_and_the_solo_kernel(cuda_gen, B, d):
         torch.testing.assert_close(solo[1], got[1][i], **tol)
 
 
+# The earlier shapes; then n below one panel (32 columns), n and k off the
+# panel width and the 16-rotation chunk, k across several chunks and past
+# the 64-rotation rings, several panels of tiles, and k past one launch's
+# MAX_K (two launches, in order)
+CHOL_BIT_CASES = [(1, 1), (64, 3), (256, 16), (40, 805), (7, 5), (70, 45),
+                  (97, 100), (161, 33), (33, 1_100)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(1, 1), (64, 3), (256, 16), (40, 805)])
+@pytest.mark.parametrize("n,k", CHOL_BIT_CASES)
 def test_cuda_chol_rank_update_is_its_plain_version_bit_for_bit(cuda_gen, n,
                                                                 k):
     """Update and downdate equal the plain rank-1 recurrence bit for bit
-    (k past 800 takes two launches, in order); a downdate that loses
+    (one launch a MAX_K rotations, in order); a downdate that loses
     positive definiteness says so, as the plain version does."""
     from repro_torch.kernels import chol_update
     a = torch.randn(n + 8, n, device="cuda", generator=cuda_gen)
@@ -1226,7 +1234,8 @@ def test_cuda_chol_rank_update_is_its_plain_version_bit_for_bit(cuda_gen, n,
     V = 0.3 * torch.randn(n, k, device="cuda", generator=cuda_gen)
     ops.reset_launch_counts()
     up, ok = chol_update.chol_rank_update(L, V, 1.0)
-    assert ops.launch_counts()["chol_rank_update"] == -(-k // 800)
+    assert ops.launch_counts()["chol_rank_update"] == \
+        -(-k // chol_update.MAX_K)
     want, wok = ref.chol_rank_update_ref(L, V, 1.0)
     assert torch.equal(up, want) and bool(ok) and bool(wok)
     down, ok = chol_update.chol_rank_update(up, V, -1.0)
@@ -1240,20 +1249,23 @@ def test_cuda_chol_rank_update_is_its_plain_version_bit_for_bit(cuda_gen, n,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(2_048, 256), (6_400, 800)])
+@pytest.mark.parametrize("n,k", [(2_048, 256), (6_400, 800), (8_191, 800)])
 def test_cuda_chol_rank_update_at_the_streams_shapes(cuda_gen, n, k):
-    """At the streams' shapes the updated factor is within 1e-5 (relative,
-    Frobenius) of an f64 Cholesky of the updated matrix, and a downdate
-    undoes it to 1e-2: the hyperbolic rotations lose more in f32 (3.3e-3
-    at (6,400, 800) on an H100; the same arithmetic as the plain version,
-    which the bit-for-bit test holds)."""
+    """At the streams' shapes (and the largest Woodbury window, 8,191 rows)
+    the updated factor is within 1e-5 (relative, Frobenius) of an f64
+    Cholesky of the updated matrix, and a downdate undoes it to 1e-2: the
+    hyperbolic rotations lose more in f32 (3.3e-3 at (6,400, 800) on an
+    H100; the same arithmetic as the plain version, which the bit-for-bit
+    test holds)."""
     from repro_torch.kernels import chol_update
     a = torch.randn(n + 8, n, device="cuda", generator=cuda_gen)
     M = (a.T @ a).double() / n + torch.eye(n, device="cuda",
                                            dtype=torch.float64)
     L = torch.linalg.cholesky(M).float()
     V = torch.randn(n, k, device="cuda", generator=cuda_gen)
+    ops.reset_launch_counts()
     up, ok = chol_update.chol_rank_update(L, V, 1.0)
+    assert ops.launch_counts()["chol_rank_update"] == 1
     want = torch.linalg.cholesky(M + V.double() @ V.double().T)
     assert bool(ok)
     assert float((up.double() - want).norm() / want.norm()) < 1e-5
