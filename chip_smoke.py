@@ -193,8 +193,12 @@ Phases, each printing its own line with its wall time:
               through the sequence input, with the corrected train losses),
               fleet_caps (iter_caps 0 / 3 / 100 / 7 on 1,000 lanes: ABORTED
               and inert lanes) and fleet_warm (a refit from the returned
-              state). Each stacked part holds 4 lanes spread over the fleet
-              against solo card fits (the same status, support, coef within
+              state); after fleet_sq, fleet_sq_window: two more of its
+              outer iterations from its state under the profiler (device
+              ops, host syncs, idle share, the lane kernels' device ms;
+              244 lane launches required). Each stacked part holds 4 lanes
+              spread over the fleet against solo card fits (the same
+              status, support, coef within
               1e-3, iterations within 2; the count that match to the
               iteration is printed), checks 121 l1 and 1 S^kappa lane
               launches an outer iteration, and prints fits per second, the
@@ -229,6 +233,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12      # dense bf16 on the tensor cores
 PEAK_F64_TC_FLOPS = 67e12     # f64 on the tensor cores (DMMA)
 PEAK_BYTES = 3.35e12
+# f32 -> f64 conversions a clock an SM at compute capability 9.0 (the CUDA
+# C++ Programming Guide's arithmetic instruction throughput table)
+F64_CONVERTS_PER_CLOCK = 16
 RTOL = 1e-4          # the JAX package's f32 kernel bound (rtol 1e-4,
 ATOL_PER_SCALE = 1e-5  # atol 1e-5 per unit of summed magnitude)
 # Flash attention against the f32 computation on the same operands: f32 at
@@ -379,6 +386,27 @@ def bound(nbytes: float, flops: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def conversion_bound(torch, conversions: int, report: dict,
+                     key: str) -> float:
+    """The l1 projections' second bound: their f32 -> f64 conversions (one
+    a (rung, entry) term of a round, an entry of a sum or a polish step) at
+    F64_CONVERTS_PER_CLOCK a clock on every SM at the card's top SM clock;
+    ms, printed and kept in ``report["lane_conversion_bounds"][key]``."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = conversions / (sms * F64_CONVERTS_PER_CLOCK * mhz * 1e6) * 1e3
+    report.setdefault("lane_conversion_bounds", {})[key] = {
+        "conversions": conversions, "sms": sms, "max_sm_mhz": mhz,
+        "conversion_bound_ms": ms}
+    print(f"  {key}: conversion bound {ms:.4f} ms ({conversions:,} f32 -> "
+          f"f64 conversions at {F64_CONVERTS_PER_CLOCK} a clock on {sms} "
+          f"SMs at {mhz:.0f} MHz)", flush=True)
+    return ms
+
+
 def check_close(torch, name, got, want, scale, rtol=RTOL,
                 atol=None) -> float:
     """``got`` against ``want`` at ``rtol`` and an atol of ``atol``, by
@@ -422,17 +450,19 @@ def dmma_kernels(build) -> dict:
 def ptxas_ladder_proj(log: str) -> list[str]:
     """One line per kernel of csrc/ladder_proj.cu from its ptxas report:
     registers and spill stores of each cluster size's instantiation (the
-    lane kernels' by (cluster size, threads)); the l1 kernels' f64-polish
-    instantiations on lines of their own."""
+    1,024-thread lane kernels' by (cluster size, threads); the warp-a-lane
+    kernels have one); the l1 kernels' f64-polish instantiations on lines
+    of their own."""
     kern, regs, spills = None, {}, {}
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            mt = re.search(r"(l1_proj_kernel|skappa_kernel|l1_lanes_kernel)"
-                           r"ILi(\d+)E(?:Li(\d+)E)?(Lb1E)?", ln)
-            kern = mt and (mt.group(1) + (" f64 polish" if mt.group(4)
-                                          else ""),
-                           int(mt.group(2)) if mt.group(3) is None
-                           else f"{mt.group(2)},{mt.group(3)}")
+            mt = re.search(r"\d(l1_proj_kernel|skappa_kernel|l1_lanes_kernel|"
+                           r"skappa_lanes_kernel|l1_warp_lanes_kernel|"
+                           r"skappa_warp_lanes_kernel)((?:I(?:L[ib]\d+E)+E)?)",
+                           ln)
+            sizes = mt and ",".join(re.findall(r"Li(\d+)E", mt.group(2)))
+            kern = mt and (mt.group(1) + (" f64 polish" if "Lb1E" in
+                                          mt.group(2) else ""), sizes)
         elif kern:
             used = re.search(r"Used (\d+) registers", ln)
             spill = re.search(r"(\d+) bytes spill stores", ln)
@@ -441,8 +471,9 @@ def ptxas_ladder_proj(log: str) -> list[str]:
             if spill:
                 spills.setdefault(kern[0], 0)
                 spills[kern[0]] += int(spill.group(1))
-    return [f"ladder_proj: {k} registers by cluster size "
-            + ", ".join(f"<{c}> {r}" for c, r in sorted(v.items()))
+    return [f"ladder_proj: {k} registers "
+            + (f"{v['']}" if "warp_lanes" in k else "by cluster size "
+               + ", ".join(f"<{c}> {r}" for c, r in sorted(v.items())))
             + f"; spill stores {spills.get(k, 0)} B" for k, v in regs.items()]
 
 
@@ -891,6 +922,58 @@ def fleet_data(B, N, m, n, seed=0, labels=False):
     return As, bs
 
 
+def fleet_window(torch, As, bs, state) -> dict:
+    """Where a fleet's time goes: two outer iterations of fleet_sq's
+    config over ``As`` / ``bs`` from ``state`` (warm, counters reset; the
+    factors set up outside the window), first with the profiler off, then
+    on: device ops, host syncs (device-to-host scalar reads), the idle
+    share and the lane projection kernels' device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import BiCADMM, BiCADMMConfig
+    from repro_torch.core import fleet as fleet_mod
+    solver = BiCADMM("squared", BiCADMMConfig(
+        **{**FLEET_CFG, "max_iter": 2, "tol": 0.0}))
+    B, N = As.shape[:2]
+    kaps, gams, rhos, dyn = fleet_mod._fleet_grids(
+        solver, B, None, None, None, As.dtype, As.device)
+    factors = fleet_mod._fleet_setup(solver, As, bs, dyn)
+    params = fleet_mod._fleet_params(solver, N, kaps, gams, rhos, dyn)
+    st0 = fleet_mod.reset_fleet_for_resume(state)
+
+    def run():
+        st = solver._run_while_fleet(factors, As, bs, params, st0)
+        torch.cuda.synchronize()
+        return st
+
+    run()
+    t_w = time.perf_counter()
+    st = run()
+    wall_ms = (time.perf_counter() - t_w) * 1e3
+    require(int(st.k.max()) == 2, f"fleet window: {int(st.k.max())} outer "
+                                  "iterations, expected 2")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_w = time.perf_counter()
+        run()
+        on_ms = (time.perf_counter() - t_w) * 1e3
+    table = device_table(prof)
+    busy = sum(v["device_ms"] for v in table.values())
+    lanes = {k: v for k, v in table.items() if "lanes_kernel" in k}
+    syncs = sum(ev.count for ev in prof.key_averages()
+                if ev.key == "aten::_local_scalar_dense")
+    top = sorted(table.items(), key=lambda kv: -kv[1]["device_ms"])[:6]
+    return {"outer_iters": 2, "wall_ms": wall_ms, "wall_ms_profiler_on":
+            on_ms, "busy_ms": busy,
+            "device_ops": sum(v["calls"] for v in table.values()),
+            "host_syncs": syncs,
+            "idle_share": 1 - busy / wall_ms if busy else None,
+            "idle_share_profiler_on": 1 - busy / on_ms if busy else None,
+            "lane_ms": sum(v["device_ms"] for v in lanes.values()),
+            "lane_launches": sum(v["calls"] for v in lanes.values()),
+            "lane_kernels": lanes, "top": dict(top)}
+
+
 def fleet_phases(torch, api, ops, report, dev) -> dict:
     """Phase 11: the fleet driver (module docstring). Returns the launch
     counts of the fleet_sq run."""
@@ -1025,6 +1108,25 @@ def fleet_phases(torch, api, ops, report, dev) -> dict:
     res_sq, As_sq, bs_sq = run_part("fleet_sq", "squared", FLEET_CFG, As_np,
                                     bs_np)
     sq_counts = report["fleet_sq"]["launches"]
+    if dev.type == "cuda":
+        t_ph = time.perf_counter()
+        win = fleet_window(torch, As_sq, bs_sq, res_sq.state)
+        report["fleet_sq_window"] = win
+        require(win["busy_ms"] > 0 and win["lane_launches"] == 2 * 122,
+                f"fleet_sq_window: the profiler saw {win['lane_launches']} "
+                f"lane kernel launches in 2 outer iterations (expected "
+                f"244) and {win['busy_ms']:.3f} ms of device time")
+        phase("fleet_sq_window", t_ph,
+              f"2 outer iterations of fleet_sq from its state: wall "
+              f"{win['wall_ms']:.2f} ms (profiler off), "
+              f"{win['wall_ms_profiler_on']:.2f} ms (on); device busy "
+              f"{win['busy_ms']:.2f} ms in {win['device_ops']} ops, "
+              f"{win['host_syncs']} host syncs; idle share "
+              f"{win['idle_share']:.3f} (profiler off); the lane kernels "
+              f"{win['lane_ms']:.3f} ms in {win['lane_launches']} launches "
+              f"({win['lane_ms'] / 2:.3f} ms an outer iteration); top: "
+              + "; ".join(f"{k[:40]} {v['device_ms']:.2f} ms/{v['calls']}"
+                          for k, v in list(win["top"].items())[:4]))
 
     # fleet_sq_wide: its second row, then per-lane kappa and gamma cycling
     # (the spectral factors)
@@ -1272,6 +1374,8 @@ def slice_phases(torch, api, ops, report, dev, kernel_row, fit_phase,
                tol=(PROJ_RTOL, PROJ_ATOL_PER_MAX * lscale), plain_eager=True,
                yardsticks={"f32 instantiation": lambda:
                            bisect_proj.l1_epigraph_proj_lanes(zl, tl)})
+    conversion_bound(torch, l1_terms, report,
+                     f"l1_epigraph_proj_lanes_f64polish ({B}, {n})")
     problem = api.SparseProblem("squared", kappa=FLEET_CFG["kappa"],
                                 gamma=FLEET_CFG["gamma"],
                                 rho_c=FLEET_CFG["rho_c"])
@@ -2187,6 +2291,8 @@ def main() -> int:
                                                                        tl),
                    None, (got[0], want[0], None), 8 * Bl * dl + 8 * Bl,
                    2 * l1_terms, tol=ptol, plain_eager=True)
+        conversion_bound(torch, l1_terms, report,
+                         f"l1_epigraph_proj_lanes ({Bl}, {dl})")
         kernel_row("skappa_support_lanes",
                    f"skappa_support_lanes ({Bl}, {dl}) kappa "
                    f"{'/'.join(map(str, kap_cycle))}",

@@ -88,12 +88,11 @@ MAX_N = MAX_PER_CTA * MAX_CTAS   # 409,600: the largest one-launch projection
 CLUSTER_FROM = ((4, 1_000), (8, 2_500))
 
 
-# The lane kernels' CTA sizes below a cluster's width: 32 threads up to
-# LANE_WARP_MAX_N entries, 128 up to LANE_SMALL_MAX_N, THREADS beyond (the
-# header of csrc/ladder_proj.cu says why).
-LANE_WARP_MAX_N = 64
-LANE_SMALL_MAX_N = 256
-LANE_THREADS = (32, 128, THREADS)
+# The lane kernels' layouts (threads a lane): one warp up to
+# LANE_WARP_MAX_N entries, a CTA of THREADS beyond (the header of
+# csrc/ladder_proj.cu says why).
+LANE_WARP_MAX_N = 256
+LANE_THREADS = (32, THREADS)
 
 
 class Plan(NamedTuple):
@@ -121,8 +120,9 @@ def plan(n: int) -> Plan:
 
 
 class LanePlan(NamedTuple):
-    """The layout of a lane launch: each lane a cluster of ``ctas`` CTAs
-    of ``threads`` threads."""
+    """The layout of a lane launch: ``threads`` threads a lane, a cluster
+    of ``ctas`` CTAs of THREADS (``threads`` == THREADS), or a warp on a
+    persistent grid (32)."""
     ctas: int
     threads: int
 
@@ -130,15 +130,15 @@ class LanePlan(NamedTuple):
 def lane_plan(d: int) -> LanePlan:
     """The layout of a lane launch over rows of ``d`` entries (a pure
     function of d): where :func:`plan` takes a cluster, that cluster of
-    THREADS-thread CTAs a lane; below it one CTA a lane, of 32, 128 or
-    THREADS threads by d."""
+    THREADS-thread CTAs a lane; below it a warp a lane up to
+    LANE_WARP_MAX_N, one CTA of THREADS beyond."""
     p = plan(d)
     if not p.one_launch:
         raise ValueError(f"a lane of d={d} entries is past the one-launch "
                          f"limit {MAX_N}")
-    if p.ctas > 1 or d > LANE_SMALL_MAX_N:
+    if p.ctas > 1 or d > LANE_WARP_MAX_N:
         return LanePlan(p.ctas, THREADS)
-    return LanePlan(1, 32 if d <= LANE_WARP_MAX_N else 128)
+    return LanePlan(1, 32)
 
 
 def _lanes_operand(name: str, z: torch.Tensor, per_lane: torch.Tensor,
@@ -166,9 +166,10 @@ def _lanes_operand(name: str, z: torch.Tensor, per_lane: torch.Tensor,
     lp = lane_plan(d)
     ctas = lp.ctas if ctas is None else ctas
     threads = lp.threads if threads is None else threads
-    if threads not in LANE_THREADS or (threads < THREADS and ctas != 1):
+    if threads not in LANE_THREADS or (threads < THREADS and (
+            ctas != 1 or d > LANE_WARP_MAX_N)):
         raise ValueError(f"{name}: no lane layout of {ctas} CTAs of "
-                         f"{threads} threads")
+                         f"{threads} threads for d={d}")
     return z.contiguous(), per_lane.contiguous(), ctas, threads
 
 

@@ -28,6 +28,20 @@ def cuda_gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+@pytest.fixture
+def profiled_gen(cuda_gen):
+    """cuda_gen, with the libraries of the kernels a test profiles
+    (ladder_stats, ladder_proj) loaded and launched before its profiler
+    starts: on the card, a kernel library first loaded after a profiler
+    session in the process left every later session without device events
+    (PERF.md section 7), so whichever test runs first loads both."""
+    like = torch.ones(1_000, device="cuda")    # cuda_gen's draws unmoved
+    bisect_proj.ladder_stats(like, like[:128] / 2)
+    bisect_proj.launch_empty(like)
+    torch.cuda.synchronize()
+    return cuda_gen
+
+
 def _close(got, want, scale):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-5 * scale)
 
@@ -69,14 +83,14 @@ def test_cuda_ladder_stats(cuda_gen, n, B):
 
 
 @pytest.mark.cuda
-def test_cuda_ladder_stats_is_one_device_kernel(cuda_gen):
+def test_cuda_ladder_stats_is_one_device_kernel(profiled_gen):
     """The profiler sees one device kernel a call (the scratch is cached
     after the first), and unsorted rungs, a theta below every entry and one
     above all agree too."""
     from torch.profiler import ProfilerActivity, profile
     az = torch.randn(bisect_proj.MAX_N + 1, device="cuda",
-                     generator=cuda_gen).abs()
-    th = torch.cat([torch.rand(126, device="cuda", generator=cuda_gen),
+                     generator=profiled_gen).abs()
+    th = torch.cat([torch.rand(126, device="cuda", generator=profiled_gen),
                     torch.tensor([-1.0, 1e9], device="cuda")])
     want = ref.ladder_stats_ref(az, th)
     bisect_proj.ladder_stats(az, th)
@@ -195,12 +209,12 @@ def test_cuda_projections_every_cluster_size(cuda_gen, ctas):
 
 
 @pytest.mark.cuda
-def test_cuda_projections_launch_once(cuda_gen):
+def test_cuda_projections_launch_once(profiled_gen):
     """A projection at the Woodbury fit's n = 10,000 is one device kernel
     (build.LAUNCHES and the profiler); past MAX_N the rounds go to
     ladder_stats, one launch a round."""
     from torch.profiler import ProfilerActivity, profile
-    z = torch.randn(10_000, device="cuda", generator=cuda_gen)
+    z = torch.randn(10_000, device="cuda", generator=profiled_gen)
     t0 = torch.tensor(5.0, device="cuda")
     bilinear.project_l1_epigraph(z, t0)          # built and loaded
     bilinear.support_skappa_ladder(z, 2_000.0)
@@ -219,7 +233,7 @@ def test_cuda_projections_launch_once(cuda_gen):
         assert counts["l1_epigraph_proj"] + counts["skappa_support"] == 1
         assert counts["ladder_stats"] == 0
     big = torch.randn(bisect_proj.MAX_N + 1, device="cuda",
-                      generator=cuda_gen)
+                      generator=profiled_gen)
     ops.reset_launch_counts()
     bilinear.project_l1_epigraph(big, t0)
     counts = ops.launch_counts()
@@ -1068,9 +1082,15 @@ def test_cuda_flash_attention_bf16_within_one_rounding(cuda_gen, BH, BHkv,
 # The lane projections (csrc/ladder_proj.cu's lane kernels): every lane of
 # one launch against the plain lane version (s* and the step counts equal,
 # z / t / theta / u_max within the solo rows' tolerance) and against the
-# solo kernel on its row (bit for bit)
-LANE_D = (1, 16, 64, 1_000, 10_000)
+# solo kernel on its row (bit for bit). The narrow layouts' widths: 1, a
+# float4 and a warp off by one, the last warp-a-lane width and one past it,
+# the four-warp widths; B = 7 is no multiple of the lanes a CTA holds, and
+# 70,000 lanes are several a warp on a full card (and past the 65,535 of a
+# grid's y extent)
+LANE_D = (1, 16, 31, 32, 33, 64, 65, 200, 256, 1_000, 10_000)
 LANE_B = (1, 7, 10_000)
+LANE_CASES = ([(d, B) for d in LANE_D for B in LANE_B]
+              + [(16, 70_000), (64, 70_000)])
 
 
 def _lane_operands(gen, B, d):
@@ -1086,8 +1106,7 @@ def _lane_operands(gen, B, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", LANE_B)
-@pytest.mark.parametrize("d", LANE_D)
+@pytest.mark.parametrize("d,B", LANE_CASES)
 def test_cuda_lane_projections_agree(cuda_gen, d, B):
     z, t0, kap = _lane_operands(cuda_gen, B, d)
     ops.reset_launch_counts()
@@ -1104,6 +1123,13 @@ def test_cuda_lane_projections_agree(cuda_gen, d, B):
         torch.testing.assert_close(a, w, rtol=1e-5, atol=atol)
     assert torch.equal(gs[1], ws[1]) and torch.equal(gs[2], ws[2])
     torch.testing.assert_close(gs[0], ws[0], rtol=1e-5, atol=atol)
+    # the f64-polish instantiation against its plain version (its f64
+    # sums of f64 terms follow the layout: the polish64 test's rtol 1e-6)
+    g64 = bisect_proj.l1_epigraph_proj_lanes(z, t0, stats=True,
+                                             polish64=True)
+    w64 = ref.l1_epigraph_proj_lanes_ref(z, t0, stats=True, polish64=True)
+    for a, w in zip(g64[:3], w64[:3]):
+        torch.testing.assert_close(a, w, rtol=1e-6, atol=atol)
     lanes = range(B) if B * d <= 1_000_000 else range(0, B, 97)
     for i in lanes:
         solo = bisect_proj.l1_epigraph_proj(z[i], t0[i], stats=True)
@@ -1113,18 +1139,96 @@ def test_cuda_lane_projections_agree(cuda_gen, d, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 64, 200, 700])
+@pytest.mark.parametrize("d", [1, 16, 33, 64, 65, 200, 256])
 def test_cuda_lane_layouts_give_the_same_bits(cuda_gen, d):
-    """Every CTA size a lane may take (32, 128, 1,024 threads) gives the
-    same outputs on the same rows."""
+    """Every layout a lane may take (a warp, a 1,024-thread CTA) gives
+    the same outputs on the same rows: z, t, theta and the polish steps;
+    s* and the search steps. Past d = 256 a lane has one layout (the
+    warp is refused there)."""
     z, t0, kap = _lane_operands(cuda_gen, 33, d)
-    outs = [(bisect_proj.l1_epigraph_proj_lanes(z, t0, ctas=1, threads=t),
-             bisect_proj.skappa_support_lanes(z, kap, ctas=1, threads=t))
+    outs = [(bisect_proj.l1_epigraph_proj_lanes(z, t0, ctas=1, threads=t,
+                                                stats=True),
+             bisect_proj.skappa_support_lanes(z, kap, ctas=1, threads=t,
+                                              stats=True))
             for t in bisect_proj.LANE_THREADS]
     for (l1, sk) in outs[1:]:
-        assert torch.equal(l1[0], outs[0][0][0])
-        assert torch.equal(l1[1], outs[0][0][1])
+        for j in range(4):
+            assert torch.equal(l1[j], outs[0][0][j])
         assert torch.equal(sk[1], outs[0][1][1])
+        assert torch.equal(sk[2], outs[0][1][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [bisect_proj.LANE_WARP_MAX_N + 1, 700])
+def test_cuda_lane_warp_layout_stops_at_its_width(cuda_gen, d):
+    """A warp a lane is a layout only up to LANE_WARP_MAX_N: past it the
+    wrappers refuse it, and a call that reaches the C entry point anyway
+    gets cudaErrorInvalidValue."""
+    z, t0, kap = _lane_operands(cuda_gen, 3, d)
+    with pytest.raises(ValueError, match="no lane layout"):
+        bisect_proj.l1_epigraph_proj_lanes(z, t0, ctas=1, threads=32)
+    with pytest.raises(ValueError, match="no lane layout"):
+        bisect_proj.skappa_support_lanes(z, kap, ctas=1, threads=32)
+    lib = build.library("ladder_proj", bisect_proj._PROJ_SIGNATURES)
+    out = torch.empty_like(z)
+    val = torch.empty(3, device="cuda")
+    assert lib.l1_epigraph_proj_lanes_f32(
+        z.data_ptr(), t0.data_ptr(), out.data_ptr(), val.data_ptr(), None,
+        None, 3, d, 1, 32, 2, 64, build.stream(z)) == 1
+    assert lib.skappa_support_lanes_f32(
+        z.data_ptr(), kap.float().data_ptr(), out.data_ptr(),
+        val.data_ptr(), None, 3, d, 1, 32, 2, 64, build.stream(z)) == 1
+
+
+def _same_bits(a, b):
+    """Equal, NaN for NaN (no payload compared)."""
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 200])
+def test_cuda_lane_projections_with_nan_and_inf(cuda_gen, d):
+    """Rows holding NaN, inf and -inf, and NaN / inf t0 and kappa: each
+    lane gives the solo kernel's outputs on its row (NaN where it has NaN),
+    in f32 and with the f64 polish; the other rows agree with the plain
+    lane version as in the agreement test."""
+    B = 40
+    z, t0, kap = _lane_operands(cuda_gen, B, d)
+    kap = kap.float()
+    z[2, d // 2] = float("nan")
+    z[3, 0] = float("inf")
+    z[4, d - 1] = -float("inf")
+    z[5, :] = float("inf")
+    t0[6] = float("nan")
+    t0[7] = float("inf")
+    t0[8] = -float("inf")
+    kap[9] = float("nan")
+    kap[10] = float("inf")
+    special = list(range(2, 11))
+    for polish64 in (False, True):
+        got = bisect_proj.l1_epigraph_proj_lanes(z, t0, stats=True,
+                                                 polish64=polish64)
+        for i in range(B):
+            solo = bisect_proj.l1_epigraph_proj(z[i], t0[i], stats=True,
+                                                polish64=polish64)
+            if not polish64 or i in special:
+                assert all(_same_bits(a, b[i]) for a, b in zip(solo, got)), i
+    gs = bisect_proj.skappa_support_lanes(z, kap, stats=True)
+    for i in range(B):
+        solo = bisect_proj.skappa_support(z[i], float(kap[i]), stats=True)
+        assert all(_same_bits(a, b[i]) for a, b in zip(solo, gs)), i
+    rest = torch.tensor([i for i in range(B) if i not in special],
+                        device="cuda")
+    want = ref.l1_epigraph_proj_lanes_ref(z[rest], t0[rest], stats=True)
+    atol = 1e-6 * float(z[rest].abs().max())
+    got = bisect_proj.l1_epigraph_proj_lanes(z, t0, stats=True)
+    assert torch.equal(got[3][rest], want[3])
+    for a, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(a[rest], w, rtol=1e-5, atol=atol)
+    ws = ref.skappa_support_lanes_ref(z[rest], kap[rest], stats=True)
+    assert torch.equal(gs[1][rest], ws[1]) and torch.equal(gs[2][rest],
+                                                           ws[2])
 
 
 @pytest.mark.cuda

@@ -196,7 +196,8 @@ def test_probe_labels_every_stamp_of_the_source():
     spec = importlib.util.spec_from_file_location("ladder_proj_probe", path)
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    assert codes[0] == "kStart" and codes[-1] == "kEnd"
+    assert codes[0] == "kStart" and codes[13] == "kEnd"
+    assert codes[14] == "kLaneStart" and codes[-1] == "kLaneEnd"
     assert len(probe.STAMPS) == len(codes)
 
 

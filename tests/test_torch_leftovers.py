@@ -288,11 +288,12 @@ def test_lane_cpu_path_equals_the_solo_cpu_path(B, d):
 
 
 def test_lane_plan_follows_the_width():
-    assert bisect_proj.lane_plan(1) == (1, 32)
+    # a warp a lane up to d = 256 (the narrow layout), a CTA beyond
+    for d in (1, 16, 64, 65, 100, 200):
+        assert bisect_proj.lane_plan(d) == (1, 32)
+    assert bisect_proj.LANE_WARP_MAX_N == 256
     assert bisect_proj.lane_plan(bisect_proj.LANE_WARP_MAX_N) == (1, 32)
-    assert bisect_proj.lane_plan(bisect_proj.LANE_WARP_MAX_N + 1) == (1, 128)
-    assert bisect_proj.lane_plan(bisect_proj.LANE_SMALL_MAX_N) == (1, 128)
-    assert bisect_proj.lane_plan(bisect_proj.LANE_SMALL_MAX_N + 1) == (
+    assert bisect_proj.lane_plan(bisect_proj.LANE_WARP_MAX_N + 1) == (
         1, bisect_proj.THREADS)
     for d in (999, 1_000, 2_500, 10_000, bisect_proj.MAX_N):
         p = bisect_proj.plan(d)
@@ -301,10 +302,17 @@ def test_lane_plan_follows_the_width():
         assert lp.threads == bisect_proj.THREADS
     with pytest.raises(ValueError, match="one-launch"):
         bisect_proj.lane_plan(bisect_proj.MAX_N + 1)
-    # the layouts the source's lane entry points take
+    # the layouts the source's lane entry points take: a warp a lane on the
+    # narrow kernels, a cluster of 1,024-thread CTAs on the solo body
     src = (bisect_proj.build.CSRC / "ladder_proj.cu").read_text()
-    for t in bisect_proj.LANE_THREADS[:-1]:
-        assert f"threads == {t}" in src
+    assert bisect_proj.LANE_THREADS == (32, bisect_proj.THREADS)
+    assert ("threads == kThreads ||\n"
+            "          (ctas == 1 && threads == 32 && n <= kLaneWarpMaxN)"
+            in src)
+    assert "constexpr int kLaneWarpMaxN = 256;" in src
+    assert "launch_narrow(l1_warp_lanes_kernel<kF64>," in src
+    assert "launch_narrow(skappa_warp_lanes_kernel," in src
+    assert "l1_lanes_kernel<C, kThreads, kF64>" in src
 
 
 def test_lane_kernels_have_a_cuda_and_a_cpu_row_and_no_default():
