@@ -36,7 +36,13 @@ Phases, each printing its own line with its wall time:
               projections at the fleet's (10,000, 16) and (2,000, 64)
               against their plain versions and, lane by lane, against the
               solo kernel (bit for bit); gram, matvec, rmatvec and
-              normal_matvec at the fleet's (B N, m, n) views.
+              normal_matvec at the fleet's (B N, m, n) views. The bf16 /
+              fp16 block_matvec and block_rmatvec at the sharded engine's
+              per-rank block (1, 25,000, 1,000) with K = 1 and 3, at
+              Fig. 3's (8, 25,000, 4,000) with M = 4 and at the ragged
+              (2, 3,000, 1,001), held to the f32-accumulation bound
+              1e-5 x scale + 1e-6, beside torch.matmul on the half-width
+              block view.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
               past the one-launch limit, where the bracketing rounds run on
               the one-launch ladder_stats kernel; ladder_stats is held
@@ -206,6 +212,31 @@ Phases, each printing its own line with its wall time:
               extrapolated to B as fleet_bench does, the launches and the
               peak device memory above the fleet's start.
 
+12. sharded — the sharded engine (``engine="sharded"``) on 8 spawned
+              ranks as a (nodes = 2, feat = 4) grid on the one card, each
+              rank Fig. 3's A_ij (25,000 x 1,000) of Fig. 3's point cut to
+              N = 2 nodes (seed 0; kappa 800, gamma 10, rho_c 4, the
+              sub-solver, ladder_exact, SHARDED_ITERS outer iterations:
+              the depth cut), through gloo (NCCL refuses two ranks on one
+              device, so every collective is staged through the host):
+              every rank's result the same, held to the single-process
+              feature split (n_feature_blocks = 4, polish off) on the same
+              data in the band (status, support, coef within 1e-3,
+              iterations within 2); ms an outer iteration, launches and
+              collectives (and their host time) an outer iteration, and
+              peak memory, by rank.
+   sharded_bf16 — the same grid and data under ``precision="bf16"``:
+              every rank launches the bf16 block kernels and no f32 ones;
+              finite, not DIVERGED; its support's agreement with the f32
+              fit.
+   sharded_cg — a (1, 1) grid on NCCL in this process, one node of that
+              data (25,000 x 4,000), x_update "auto" (cg: nb = 4,000 >
+              2,048), SHARDED_CG_ITERS outer iterations, held to the
+              single-process PCG x-update (polish off) in the band.
+   sharded_fp16 — the same node in fp16 through the engine directly
+              (the api certifies float32 and bfloat16 for the sharded
+              engine, as the JAX package): the f16 block kernels launch.
+
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result; so does a machine with no CUDA device. With
@@ -312,7 +343,8 @@ SOURCES = {
 # the bf16 / fp16 instantiations, each a row of the kernels line
 HALF_TYPES = ("bf16", "f16")
 HALF_KERNELS = tuple(f"{k}_{t}" for k in ("gram", "matvec", "rmatvec",
-                                          "normal_matvec")
+                                          "normal_matvec", "block_matvec",
+                                          "block_rmatvec")
                      for t in HALF_TYPES)
 # the l1 projections' f64-polish instantiations (precision "fp64_polish"),
 # each a row of the kernels line
@@ -972,6 +1004,352 @@ def fleet_window(torch, As, bs, state) -> dict:
             "lane_ms": sum(v["device_ms"] for v in lanes.values()),
             "lane_launches": sum(v["calls"] for v in lanes.values()),
             "lane_kernels": lanes, "top": dict(top)}
+
+
+# the sharded engine's phases: Fig. 3's per-rank blocks on a (2, 4) grid of
+# ranks on the one card, and a (1, 1) NCCL grid of one Fig. 3 node
+SHARDED_GRID = (2, 4)          # (nodes, feat): 8 ranks, one process each
+SHARDED_CFG = dict(kappa=800, gamma=10.0, rho_c=4.0)
+# outer iterations of the grid's fits: the depth cut (each outer iteration
+# issues ~1,300 host-staged collectives a rank)
+SHARDED_ITERS = 2
+SHARDED_CG_ITERS = 12          # the (1, 1) grid's cg fit, on NCCL
+SHARDED_FP16_ITERS = 5         # its fp16 sub-solver fit (the f16 rows)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _timed_collectives(sharded):
+    """Count the sharded engine's collectives and their host time (the
+    clock around each call: gloo stages a CUDA tensor through the host and
+    returns when the result is back on the card's stream). Returns the
+    stats dict, reset by the caller."""
+    stats = {"calls": 0, "s": 0.0}
+
+    def timed(fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            stats["s"] += time.perf_counter() - t0
+            stats["calls"] += 1
+            return out
+        return call
+    sharded._all_reduce = timed(sharded._all_reduce)
+    sharded._gather = timed(sharded._gather)
+    return stats
+
+
+def sharded_rank(rank: int, world: int, port: int, A, b, iters: int,
+                 queue) -> None:
+    """One rank of the sharded phases' (2, 4) grid on the one card: a gloo
+    group (NCCL refuses two ranks on one device), the global data on the
+    card (the api's contract: every rank passes the same global arrays),
+    the f32 and then the bf16 fit through the estimator; each fit's
+    launches, collectives and their host time, wall time and peak device
+    memory, and its result, sent to the parent."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import api
+    from repro_torch.core import sharded
+    from repro_torch.kernels import ops
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", SHARDED_GRID,
+                                mesh_dim_names=("nodes", "feat"))
+        stats = _timed_collectives(sharded)
+        A, b = A.to("cuda"), b.to("cuda")
+        out = {}
+        for name, precision in (("sharded", "fp32"),
+                                ("sharded_bf16", "bf16")):
+            est = api.SparseLinearRegression(
+                **SHARDED_CFG, options=api.SolverOptions(
+                    engine="sharded", mesh=mesh, x_update="subsolver",
+                    max_iter=iters, tol=0.0, precision=precision))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            # the set-up, timed on its own (the block's gram and Cholesky);
+            # the fit below finds it in the engine's set-up cache (keyed on
+            # the same data)
+            block = est._adapter.solver._prepare(
+                A.reshape(-1, A.shape[-1]), b.reshape(-1))[0]
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            dist.barrier()
+            stats.update(calls=0, s=0.0)
+            t0 = time.perf_counter()
+            est.fit(A, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res = est.result_
+            # numpy, not tensors: a tensor crosses the queue as a handle
+            # to this process's memory, gone once the rank exits
+            out[name] = {
+                "iters": int(res.iters), "status": int(res.status),
+                "z": res.z.cpu().numpy(), "coef": res.coef.cpu().numpy(),
+                "support": res.support.cpu().numpy(), "wall_s": wall,
+                "setup_s": setup_s,
+                "launches": {k: v for k, v in ops.launch_counts().items()
+                             if v},
+                "launches_by_type": ops.launch_counts_by_type(),
+                "collectives": stats["calls"],
+                "collective_s": stats["s"],
+                "peak_bytes_above_start": (torch.cuda.max_memory_allocated()
+                                           - mem0),
+                "dtype": str(block.dtype), "block": tuple(block.shape)}
+        queue.put((rank, out))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phases(torch, api, ops, report, A2, b2) -> None:
+    """The ``sharded`` and ``sharded_bf16`` phases: 8 spawned ranks as a
+    (nodes = 2, feat = 4) grid on the one card, each rank holding Fig. 3's
+    A_ij (25,000 x 1,000) of the (2, 25,000, 4,000) data ``A2``, ``b2``;
+    the f32 fit held to the single-process port's feature split
+    (``n_feature_blocks=4``, ``polish=False``) on the same data in PERF.md
+    section 2's band; the bf16 fit on the bf16 block kernels only, finite
+    and not DIVERGED, its support beside the f32 fit's."""
+    import collections
+    import torch.multiprocessing as mp
+    from queue import Empty
+    from types import SimpleNamespace
+    from repro_torch.core.results import SolveStatus
+    t_ph = time.perf_counter()
+    N, m, n = A2.shape
+    M = SHARDED_GRID[1]
+    world = SHARDED_GRID[0] * M
+    # the reference first, on the card: the single-process feature split
+    ref_est = api.SparseLinearRegression(
+        **SHARDED_CFG, n_feature_blocks=M, polish=False,
+        max_iter=SHARDED_ITERS, tol=0.0)
+    ref_est._adapter.solver._setup(A2, b2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_est.fit(A2, b2)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    ref = ref_est.result_
+    # the ranks read the global data from shared host memory and move it
+    # to the card themselves; every kernel library is already built
+    A_host = A2.cpu().share_memory_()
+    b_host = b2.cpu().share_memory_()
+    queue = mp.get_context("spawn").Queue()
+    t0 = time.perf_counter()
+    ranks = mp.spawn(sharded_rank, args=(world, _free_port(), A_host,
+                                         b_host, SHARDED_ITERS, queue),
+                     nprocs=world, join=False)
+    outs = {}
+    while len(outs) < world:
+        try:
+            rank, out = queue.get(timeout=1)
+            outs[rank] = out
+        except Empty:
+            ranks.join(timeout=0)            # raises when a rank failed
+    while not ranks.join():
+        pass
+    grid_s = time.perf_counter() - t0
+    del A_host, b_host
+    for name in ("sharded", "sharded_bf16"):
+        per = [outs[r][name] for r in range(world)]
+        first = per[0]
+        for r, o in enumerate(per[1:], 1):
+            require((o["z"] == first["z"]).all()
+                    and (o["support"] == first["support"]).all(),
+                    f"{name}: rank {r}'s result differs from rank 0's")
+        needed = ("block_matvec", "block_rmatvec", "ladder_stats", "gram")
+        sfx = "f32" if name == "sharded" else "bf16"
+        for r, o in enumerate(per):
+            for k in needed:
+                require(o["launches"].get(k, 0) > 0,
+                        f"{name}: rank {r} launched no {k}")
+            for k in ("block_matvec", "block_rmatvec"):
+                require(o["launches_by_type"].get(f"{k}_{sfx}", 0) > 0,
+                        f"{name}: rank {r} launched no {k}_{sfx}")
+                if sfx != "f32":
+                    require(not o["launches_by_type"].get(f"{k}_f32", 0),
+                            f"{name}: rank {r} launched {k}_f32")
+            require(o["dtype"] == ("torch.float32" if sfx == "f32"
+                                   else "torch.bfloat16"),
+                    f"{name}: rank {r}'s block is {o['dtype']}")
+        require(first["block"] == (m, n // M),
+                f"{name}: rank 0 holds a {first['block']} block")
+        res = SimpleNamespace(**{k: torch.as_tensor(first[k]) for k in
+                                 ("z", "coef", "support", "iters",
+                                  "status")})
+        require(bool(torch.isfinite(res.z).all()),
+                f"{name}: non-finite iterates")
+        require(int(res.status) != 2, f"{name}: DIVERGED")
+        iters = max(first["iters"], 1)
+        rep = {"grid": list(SHARDED_GRID), "iters": first["iters"],
+               "status": SolveStatus(int(res.status)).name,
+               "s_per_outer_iter": [o["wall_s"] / iters for o in per],
+               "setup_s": [o["setup_s"] for o in per],
+               "launches": [o["launches"] for o in per],
+               "launches_by_type": dict(sum(
+                   (collections.Counter(o["launches_by_type"]) for o in per),
+                   collections.Counter())),
+               "collectives_per_outer_iter": [o["collectives"] / iters
+                                              for o in per],
+               "collective_s_per_outer_iter": [o["collective_s"] / iters
+                                               for o in per],
+               "peak_bytes_above_start": [o["peak_bytes_above_start"]
+                                          for o in per]}
+        if name == "sharded":
+            rep["band"] = check_band(torch, name, res, SimpleNamespace(
+                z=ref.z, coef=ref.coef, support=ref.support,
+                iters=ref.iters, status=ref.status),
+                "the single-process feature split")
+            rep["reference_s_per_outer_iter"] = ref_wall / max(
+                int(ref.iters), 1)
+            f32_support = res.support
+        else:
+            both = int((res.support & f32_support).sum())
+            rep["support_agreement_with_f32"] = both / max(
+                int(f32_support.sum()), 1)
+        report[name] = rep
+        ms = [1e3 * t for t in rep["s_per_outer_iter"]]
+        coll = rep["collectives_per_outer_iter"]
+        coll_ms = [1e3 * t for t in rep["collective_s_per_outer_iter"]]
+        extra = (f"band against the single-process feature split "
+                 f"({rep['reference_s_per_outer_iter'] * 1e3:.2f} ms/outer "
+                 f"iter): iters {rep['band']['iters']} vs "
+                 f"{rep['band']['iters_ref']}, coef max abs diff "
+                 f"{rep['band']['coef_max_abs_diff']:.2e}, z "
+                 f"{rep['band']['z_max_abs_diff']:.2e}"
+                 if name == "sharded" else
+                 f"support agreement with the f32 fit "
+                 f"{rep['support_agreement_with_f32']:.4f}")
+        phase(name, t_ph,
+              f"{world} ranks as a {SHARDED_GRID} (nodes, feat) grid on one "
+              f"card (gloo, host-staged), N={N} m={m} n={n} (A_ij "
+              f"{m} x {n // M}), {iters} iters, {rep['status']}; ms/outer "
+              f"iter by rank {[round(x, 1) for x in ms]}; collectives/outer "
+              f"iter {coll[0]:.0f}, their host ms/outer iter by rank "
+              f"{[round(x, 1) for x in coll_ms]}; launches rank 0 "
+              f"{per[0]['launches']}, by type {per[0]['launches_by_type']};"
+              f" peak MB by rank "
+              f"{[round(p / 1e6, 1) for p in rep['peak_bytes_above_start']]}"
+              f"; {extra}; the spawned grid took {grid_s:.1f} s")
+
+
+def sharded_cg_phase(torch, api, ops, report, A1, b1) -> None:
+    """The ``sharded_cg`` phase: a (1, 1) grid on NCCL in this process, one
+    node of Fig. 3 (``A1`` (1, 25,000, 4,000)), x_update "auto" (cg: nb =
+    4,000 > 2,048), held to the single-process PCG x-update
+    (``x_solver="pcg"``, ``polish=False``) in PERF.md section 2's band;
+    then ``sharded_fp16``: an fp16 sub-solver fit through the engine on the
+    same grid (the bf16 / fp16 block kernels' f16 launches)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import BiCADMMConfig, sharded
+    from repro_torch.core.results import SolveStatus
+    t_ph = time.perf_counter()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("nodes", "feat"))
+        plain = (sharded._all_reduce, sharded._gather)
+        stats = _timed_collectives(sharded)
+        try:
+            est = api.SparseLinearRegression(
+                **SHARDED_CFG, engine="sharded", mesh=mesh,
+                max_iter=SHARDED_CG_ITERS, tol=0.0)
+            solver = est._adapter.solver
+            require(solver._x_mode(A1.shape[-1]) == "cg",
+                    "sharded_cg: x_update 'auto' did not take cg")
+            ops.reset_launch_counts()
+            solver._prepare(A1.reshape(-1, A1.shape[-1]), b1.reshape(-1))
+            torch.cuda.synchronize()
+            stats.update(calls=0, s=0.0)
+            t0 = time.perf_counter()
+            est.fit(A1, b1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            calls, coll_s = stats["calls"], stats["s"]
+            res = est.result_
+            for k in ("matvec", "rmatvec", "ladder_stats"):
+                require(counts.get(k, 0) > 0,
+                        f"sharded_cg: {k} was not launched")
+            require(not counts.get("normal_matvec", 0),
+                    "sharded_cg: the cg x-update launched normal_matvec")
+            ref_est = api.SparseLinearRegression(
+                **SHARDED_CFG, x_solver="pcg", polish=False,
+                max_iter=SHARDED_CG_ITERS, tol=0.0)
+            ref_est._adapter.solver._setup(A1, b1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref_est.fit(A1, b1)
+            torch.cuda.synchronize()
+            ref_wall = time.perf_counter() - t0
+            band = check_band(torch, "sharded_cg", res, ref_est.result_,
+                              "the single-process PCG x-update")
+            iters = max(int(res.iters), 1)
+            report["sharded_cg"] = {
+                "backend": dist.get_backend(), "iters": int(res.iters),
+                "status": SolveStatus(int(res.status)).name,
+                "s_per_outer_iter": wall / iters,
+                "reference_s_per_outer_iter": ref_wall / max(
+                    int(ref_est.result_.iters), 1),
+                "launches": counts, "collectives_per_outer_iter":
+                    calls / iters, "collective_s_per_outer_iter":
+                    coll_s / iters, "band": band}
+            phase("sharded_cg", t_ph,
+                  f"a (1, 1) grid on {dist.get_backend()}, one Fig. 3 node "
+                  f"{tuple(A1.shape)}, x_update auto -> cg, {iters} iters, "
+                  f"{SolveStatus(int(res.status)).name}: "
+                  f"{wall / iters * 1e3:.2f} ms/outer iter against the "
+                  f"single-process PCG x-update's "
+                  f"{ref_wall / iters * 1e3:.2f}; collectives/outer iter "
+                  f"{calls / iters:.0f} ({coll_s / iters * 1e3:.2f} ms of "
+                  f"host time); launches {counts}; band: iters "
+                  f"{band['iters']} vs {band['iters_ref']}, coef max abs "
+                  f"diff {band['coef_max_abs_diff']:.2e}, z "
+                  f"{band['z_max_abs_diff']:.2e}")
+            # fp16 through the engine directly (the api certifies float32
+            # and bfloat16 for the sharded engine, as the JAX package)
+            t_ph = time.perf_counter()
+            eng = sharded.ShardedBiCADMM(
+                "squared", BiCADMMConfig(
+                    **SHARDED_CFG, max_iter=SHARDED_FP16_ITERS, tol=0.0,
+                    precision="fp16"), mesh, x_update="subsolver")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res16 = eng.fit(A1.reshape(-1, A1.shape[-1]), b1.reshape(-1))
+            torch.cuda.synchronize()
+            wall16 = time.perf_counter() - t0
+            by_type = ops.launch_counts_by_type()
+            for k in ("block_matvec_f16", "block_rmatvec_f16"):
+                require(by_type.get(k, 0) > 0,
+                        f"sharded_fp16: {k} was not launched")
+            require(bool(torch.isfinite(res16.z).all())
+                    and int(res16.status) != 2,
+                    "sharded_fp16: non-finite or DIVERGED")
+            report["sharded_fp16"] = {"iters": int(res16.iters),
+                                      "fit_s": wall16,
+                                      "launches_by_type": by_type}
+            phase("sharded_fp16", t_ph,
+                  f"the same node in fp16 through the engine (sub-solver, "
+                  f"nb = {A1.shape[-1]}), {int(res16.iters)} iters, fit "
+                  f"{wall16:.2f} s (set-up included); launches by type "
+                  f"{ {k: v for k, v in by_type.items() if 'block' in k} }")
+        finally:
+            sharded._all_reduce, sharded._gather = plain
+    finally:
+        dist.destroy_process_group()
 
 
 def fleet_phases(torch, api, ops, report, dev) -> dict:
@@ -2626,6 +3004,69 @@ def main() -> int:
                    (lambda view=view, y=y: torch.matmul(view.mT, y)),
                    (got, want, scale), nbytes, flops)
         del got, want
+    # the bf16 / fp16 block kernels: the sharded engine's per-rank block
+    # (1, 25,000, 1,000) first (its sub-solver's shape; K = 3 for softmax),
+    # then Fig. 3's (8, 25,000, 4,000) with M = 4 and the ragged
+    # (2, 3,000, 1,001) (the scalar paths), held to their plain versions at
+    # the f32-accumulation bound 1e-5 x scale + 1e-6; bytes count 2 for an
+    # element of A; the yardstick is torch.matmul on the half-width (N, M,
+    # m, nb) view and half-width blocks (bf16 out: another rounding)
+    for sfx, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        for Ab, Mb, K in ((A3[:1, :, :1_000].to(dt), 1, 1),
+                          (A3[:1, :, :1_000].to(dt), 1, 3),
+                          (A3.to(dt), M3, 1), (Ar.to(dt), M3, 1)):
+            Nb, mb, nbb = Ab.shape
+            nb = -(-nbb // Mb)
+            x = torch.randn(Nb, Mb, nb, K, device=dev, generator=g)
+            y = torch.randn(Nb, Mb, mb, K, device=dev, generator=g)
+            label = f"{tuple(Ab.shape)} {sfx} M={Mb} K={K}"
+            nbytes = 2 * Ab.numel() + 4 * Nb * Mb * (nb + mb) * K
+            flops = 2 * Ab.numel() * K
+            view = (Ab.view(Nb, mb, Mb, nb).transpose(1, 2)
+                    if nbb == Mb * nb else None)
+            for adj, v in ((False, x), (True, y)):
+                kname = "block_rmatvec" if adj else "block_matvec"
+                fn = block_matvec.block_rmatvec if adj \
+                    else block_matvec.block_matvec
+                plain = ref.block_rmatvec_ref if adj \
+                    else ref.block_matvec_ref
+                got = fn(Ab, v, Mb)
+                require(got.dtype == torch.float32, f"{kname}_{sfx}: f32 out")
+                scale = float(plain(Ab.float().abs(), v.abs(), Mb).max())
+                kernel_row(f"{kname}_{sfx}", f"{kname} {label}",
+                           lambda Ab=Ab, v=v, fn=fn, Mb=Mb: fn(Ab, v, Mb),
+                           lambda Ab=Ab, v=v, plain=plain, Mb=Mb:
+                               plain(Ab, v, Mb),
+                           None if view is None else
+                           (lambda view=view, vh=v.to(dt), adj=adj:
+                               torch.matmul(view.mT if adj else view, vh)),
+                           (got, plain(Ab, v, Mb), scale), nbytes, flops,
+                           tol=(0.0, 1e-5 * scale + 1e-6))
+                del got
+            del Ab, view, x, y
+        torch.cuda.empty_cache()
+    # gram at a sharded rank's block, A_ij^T A_ij of (1, 1, 25,000, 1,000)
+    # (its sub-solver's set-up), in f32 and in bf16 (the FP64 tensor cores:
+    # one f32 rounding of the f64 plain version, as the rows above)
+    for dt in (torch.float32, torch.bfloat16):
+        Xr = A3[:1, :, :1_000].contiguous().to(dt)[:, None]
+        sfx = "" if dt == torch.float32 else "_bf16"
+        _, _, mm, nx = Xr.shape
+        got, want = gram.gram(Xr), ref.gram_ref(Xr)
+        Xd = Xr.double()
+        kernel_row(f"gram{sfx}", f"gram A_ij^T A_ij {tuple(Xr.shape)} "
+                                 f"{str(dt)[6:]} (a sharded rank's set-up)",
+                   lambda Xr=Xr: gram.gram(Xr), lambda Xr=Xr:
+                       ref.gram_ref(Xr),
+                   (lambda Xr=Xr: torch.matmul(Xr.mT, Xr)) if not sfx
+                   else (lambda Xd=Xd: torch.matmul(Xd.mT, Xd)),
+                   (got, want, float(ref.gram_ref(Xr.float().abs()).max())
+                    if not sfx else None),
+                   Xr.element_size() * Xr.numel() + 4 * nx * nx,
+                   nx * (nx + 1) * mm,
+                   peak=PEAK_F32_FLOPS if not sfx else PEAK_F64_TC_FLOPS,
+                   tol=None if not sfx else (2.0 ** -23, 0.0))
+        del Xr, Xd, got, want
     # gram on every node's blocks, the strided (N, M, m, nb) view of A that
     # the feature split's set-up passes in one call
     Xb = A3.unflatten(-1, (M3, -1)).permute(0, 2, 1, 3)
@@ -2699,15 +3140,19 @@ def main() -> int:
     # ladder_stats at the shape this path gives it: |zb| against the first
     # round's 128 rungs lo + (hi - lo) * b / B over [0, max |zb|] (the row
     # whose time the kernels line reports); then an odd B at a partial
-    # chunk. Counts exactly, sums at rtol / atol x sum |z|.
+    # chunk, and the sharded engine's: a rank's shard of d = nb K = 1,000
+    # entries (one CTA) against a first round. Counts exactly, sums at
+    # rtol / atol x sum |z|.
     azb = zb.abs()
+    azr = torch.randn(1_000, device=dev, generator=g).abs()
     B = bisect_proj.RUNGS
     ar = torch.arange(1, B + 1, dtype=torch.float32, device=dev)
     lo = torch.zeros((), device=dev)
     for az, th in ((azb, lo + (azb.max() - lo) * ar / B),
                    (torch.rand(10_001, device=dev, generator=g),
                     torch.sort(torch.rand(7, device=dev,
-                                          generator=g)).values)):
+                                          generator=g)).values),
+                   (azr, lo + (azr.max() - lo) * ar / B)):
         want = ref.ladder_stats_ref(az, th)
         got = bisect_proj.ladder_stats(az, th)
         require(torch.equal(got[1], want[1]),
@@ -2720,7 +3165,7 @@ def main() -> int:
                    (got[0], want[0], float(az.sum())),
                    4 * (az.shape[0] + th.shape[0]) + 8 * th.shape[0],
                    4 * az.shape[0] * th.shape[0])
-    del azb, az, th, got, want
+    del azb, azr, az, th, got, want
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     z_l, t_l = bilinear.project_l1_epigraph(zb, tb)
@@ -3399,6 +3844,20 @@ def main() -> int:
     fleet_counts = fleet_phases(torch, api, ops, report, dev)
     torch.cuda.empty_cache()
 
+    # 12. the sharded engine: Fig. 3's point cut to N = 2 nodes (seed 0) on
+    # a (2, 4) grid of ranks, and one of its nodes on a (1, 1) NCCL grid
+    t0 = time.perf_counter()
+    As_s, bs_s, _ = make_sparse_regression(0, SyntheticSpec(
+        2, 25_000, 4_000, sparsity_level=0.8))
+    A_s = torch.as_tensor(As_s, device=dev)
+    b_s = torch.as_tensor(bs_s, device=dev)
+    del As_s
+    phase("sharded_data", t0, f"As {tuple(A_s.shape)} f32 on the card")
+    sharded_phases(torch, api, ops, report, A_s, b_s)
+    sharded_cg_phase(torch, api, ops, report, A_s[:1], b_s[:1])
+    del A_s, b_s
+    torch.cuda.empty_cache()
+
     # 9. the LM serving path; 10. its parity checks
     lm_counts = lm_phase(torch, dev, report)
     lm_parity_phase(torch, dev, report)
@@ -3414,7 +3873,13 @@ def main() -> int:
         "rmatvec_bf16": "woodbury_bf16", "normal_matvec_bf16": "pcg_bf16",
         "gram_f16": "dense_fp16", "rmatvec_f16": "dense_fp16",
         "matvec_f16": "parity_woodbury_fp16",
-        "normal_matvec_f16": "parity_pcg_fp16"}
+        "normal_matvec_f16": "parity_pcg_fp16",
+        # the sharded grid's bf16 fit, every rank's launches; the (1, 1)
+        # grid's fp16 fit
+        "block_matvec_bf16": "sharded_bf16",
+        "block_rmatvec_bf16": "sharded_bf16",
+        "block_matvec_f16": "sharded_fp16",
+        "block_rmatvec_f16": "sharded_fp16"}
     kernels = []
     for name in (*ops.KERNELS, *HALF_KERNELS, *POLISH_KERNELS):
         row = dict(rows[name])

@@ -1,5 +1,5 @@
-"""Estimator front-end of the port (counterpart of ``repro.api``), on the
-reference engine.
+"""Estimator front-end of the port (counterpart of ``repro.api``): the
+reference engine and the sharded one.
 
 >>> from repro_torch.api import SparseLinearRegression
 >>> model = SparseLinearRegression(kappa=20, gamma=10.0)   # runs on "cuda"
@@ -15,6 +15,11 @@ device they raise ``RuntimeError``. ``precision="bf16"`` / ``"fp16"`` fit
 bf16 / fp16 data (or f32 data, which the engine casts once) through the
 dense, Woodbury and PCG x-updates and Newton-CG, with f32 iterates.
 ``precision="fp64_polish"`` runs the (7b) projection's polish in f64.
+``SolverOptions(engine="sharded", mesh=<DeviceMesh>)`` runs the sharded
+engine (:class:`~repro_torch.core.sharded.ShardedBiCADMM`) on a
+``torch.distributed`` (nodes, feat) grid, one process a rank, each rank
+calling the same entry point on the same global data; ``engine="auto"``
+picks it from the mesh and the data's shape (:func:`select_engine`).
 Hyperparameter sweeps run through :func:`solve_path` / :func:`solve_grid` and
 the estimators' ``fit_path`` / ``fit_grid`` (kappa, gamma and rho_c grids;
 kappa only under the feature split), and one solve may override kappa,
@@ -25,9 +30,11 @@ through the escalation ladder (:func:`recover`; retry, rho restart,
 precision, x-solver), logged in ``FitResult.recovery``. :func:`stream` and
 the estimators' ``partial_fit`` fit a growing or sliding-window dataset
 chunk by chunk over incrementally maintained factors.
-What the port has not ported raises :class:`CapabilityError` up front: the
-sharded engine and meshes, the feature split under a reduced precision,
-and the serving plane (``serve``).
+What an engine cannot do raises :class:`CapabilityError` up front (the
+sharded engine's per-solve overrides, penalty grids, fleets, streams and
+fp16 data, as in the JAX package); so do the feature split under a reduced
+precision on the reference engine and the serving plane (``serve``), which
+the port has not ported.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from typing import Any
 import torch
 
 from . import runtime
-from .core.bicadmm import BiCADMM, BiCADMMConfig
+from .core.bicadmm import BiCADMM, BiCADMMConfig, BiCADMMState
 from .core.fleet import fit_many as _ref_fit_many
 from .core.fleet import fit_many_stacked as _ref_fit_many_stacked
 from .core.losses import Loss, get_loss
@@ -49,6 +56,8 @@ from .core.prox import XSOLVERS
 from .core.recovery import (RecoveryAttempt, RecoveryPolicy, SolveDiverged,
                             sanitize_state)
 from .core.results import FitResult, FleetResult, SolveStatus, SparsePath
+from .core.sharded import PROJECTIONS as SHARDED_PROJECTIONS
+from .core.sharded import X_UPDATE_MODES, ShardedBiCADMM
 from .core.streaming import StreamingBiCADMM
 from .kernels.ops import matvec_auto
 from .runtime import CapabilityError
@@ -59,8 +68,9 @@ __all__ = ["CapabilityError", "Capabilities", "FitResult", "FleetResult",
            "SparseLinearRegression", "SparseLogisticRegression",
            "SparsePath", "SparseProblem", "SparseSVM",
            "SparseSoftmaxRegression", "StreamingSolver",
-           "engine_capabilities", "fit_many", "recover", "solve",
-           "solve_grid", "solve_path", "stream", "validate_data"]
+           "engine_capabilities", "fit_many", "make_adapter", "recover",
+           "select_engine", "solve", "solve_grid", "solve_path", "stream",
+           "validate_data"]
 
 ENGINES = ("auto", "reference", "sharded")
 
@@ -105,13 +115,18 @@ class SparseProblem:
 @dataclasses.dataclass(frozen=True)
 class SolverOptions:
     """HOW to solve it. ``device`` is where the solve runs: ``None`` (the
-    card) or ``"cuda"``, or ``"cpu"`` when asked for explicitly."""
+    card) or ``"cuda"``, or ``"cpu"`` when asked for explicitly. ``mesh``:
+    a :class:`torch.distributed.device_mesh.DeviceMesh` with named
+    dimensions ``nodes_axis`` (a name or a tuple of names) and
+    ``feat_axis``, for the sharded engine; ``x_update`` and
+    ``sharded_projection`` are its x-update and projection modes."""
     engine: str = "auto"
     mesh: Any = None
     max_iter: int = 300
     tol: float = 1e-4
     zt_iters: int = 120
     x_solver: str = "auto"
+    x_update: str = "auto"
     n_feature_blocks: int = 1
     inner_iters: int = 15
     rho_l: float = 1.0
@@ -120,11 +135,14 @@ class SolverOptions:
     cg_tol: float = 1e-6
     force_feature_split: bool = False
     projection: str = "ladder"
+    sharded_projection: str = "ladder_exact"
     polish: bool = True
     over_relax: float = 1.0
     precision: Any = "fp32"
     divergence_tol: float = 1e12
     recovery: Any = None
+    nodes_axis: str | tuple[str, ...] = "nodes"
+    feat_axis: str = "feat"
     device: Any = None
 
     def __post_init__(self):
@@ -133,27 +151,54 @@ class SolverOptions:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; expected one "
                              f"of {ENGINES}")
+        if self.engine == "sharded" and self.mesh is None:
+            raise ValueError("engine='sharded' requires a mesh")
+        if self.engine == "reference" and self.mesh is not None:
+            raise ValueError("a mesh requires engine='sharded' (or 'auto', "
+                             "which selects the sharded engine from it)")
         if self.projection not in ("ladder", "sort"):
             raise ValueError(f"unknown projection mode {self.projection!r}")
+        if self.sharded_projection not in SHARDED_PROJECTIONS:
+            raise ValueError(
+                f"unknown sharded projection {self.sharded_projection!r}; "
+                f"expected one of {SHARDED_PROJECTIONS}")
         if self.x_solver not in XSOLVERS:
             raise ValueError(f"unknown x_solver {self.x_solver!r}; expected "
                              f"one of {XSOLVERS}")
+        if self.x_update not in X_UPDATE_MODES:
+            raise ValueError(f"unknown x_update mode {self.x_update!r}; "
+                             f"expected one of {X_UPDATE_MODES}")
         if self.divergence_tol <= 0:
             raise ValueError("divergence_tol must be positive")
         if self.recovery is not None and not isinstance(self.recovery,
                                                         RecoveryPolicy):
             raise TypeError("recovery must be a RecoveryPolicy or None, "
                             f"got {type(self.recovery).__name__}")
+        if self.mesh is not None:
+            names = set(getattr(self.mesh, "mesh_dim_names", None) or ())
+            nodes = (self.nodes_axis if isinstance(self.nodes_axis, tuple)
+                     else (self.nodes_axis,))
+            missing = (set(nodes) | {self.feat_axis}) - names
+            if missing:
+                raise ValueError(f"mesh lacks the axis name(s) "
+                                 f"{sorted(missing)}; has {sorted(names)}")
+
+    @property
+    def use_feature_split(self) -> bool:
+        """Whether these options take the reference engine's feature-split
+        sub-solver."""
+        return self.n_feature_blocks > 1 or self.force_feature_split
 
 
 @dataclasses.dataclass(frozen=True)
 class Capabilities:
-    """What the port's engine can do (see ``repro.api.Capabilities``).
-    ``grid_strategy`` is ``"vmap"``: a grid's points run together on a lane
-    axis (``"cold-scan"`` under the feature split, whose per-point factors
-    and inner state have no lane axis). ``fleet``: ``fit_many``, and
+    """What an engine can do (see ``repro.api.Capabilities``). On the
+    reference engine ``grid_strategy`` is ``"vmap"``: a grid's points run
+    together on a lane axis (``"cold-scan"`` under the feature split, whose
+    per-point factors and inner state have no lane axis); the sharded
+    engine runs a grid as a cold scan. ``fleet``: ``fit_many``, and
     ``stream``: ``partial_fit`` / :func:`stream`, both off under the feature
-    split as in the JAX package."""
+    split and on the sharded engine, as in the JAX package."""
     engine: str
     distributed: bool
     dynamic_penalties: bool
@@ -171,33 +216,59 @@ class Capabilities:
 def engine_capabilities(engine: str = "reference",
                         options: SolverOptions | None = None
                         ) -> Capabilities:
-    """The reference engine's capabilities under ``options`` (defaults when
-    omitted); other engines raise :class:`CapabilityError`. The feature
-    split bakes the penalties into its per-block factors, so with it only
-    kappa may change between solves."""
-    if engine != "reference":
-        raise CapabilityError(f"engine {engine!r} is not ported to "
-                              "repro_torch yet; use engine='reference'")
+    """The :class:`Capabilities` of ``engine`` under ``options`` (defaults
+    when omitted). The feature split bakes the penalties into its per-block
+    factors, so with it only kappa may change between solves; the sharded
+    engine bakes them into its per-rank factors too, and certifies float32
+    and bfloat16 data (fp16's narrow exponent underflows the psum'd ladder
+    statistics on badly scaled shards), as in the JAX package."""
     options = options if options is not None else SolverOptions()
-    dyn = not BiCADMMConfig(
-        kappa=1, n_feature_blocks=options.n_feature_blocks,
-        force_feature_split=options.force_feature_split).use_feature_split
-    return Capabilities(engine="reference", distributed=False,
-                        dynamic_penalties=dyn, per_solve_overrides=True,
-                        penalty_grids=dyn,
-                        grid_strategy="vmap" if dyn else "cold-scan",
-                        gather_free=False, fleet=dyn, stream=dyn)
+    if engine == "reference":
+        dyn = not options.use_feature_split
+        return Capabilities(engine="reference", distributed=False,
+                            dynamic_penalties=dyn, per_solve_overrides=True,
+                            penalty_grids=dyn,
+                            grid_strategy="vmap" if dyn else "cold-scan",
+                            gather_free=False, fleet=dyn, stream=dyn)
+    if engine == "sharded":
+        return Capabilities(
+            engine="sharded", distributed=True, dynamic_penalties=False,
+            per_solve_overrides=False, penalty_grids=False,
+            grid_strategy="cold-scan",
+            gather_free=options.sharded_projection != "exact",
+            precisions=("float32", "bfloat16"))
+    raise ValueError(f"unknown engine {engine!r}")
 
 
-def _check_options(options: SolverOptions) -> None:
-    """Raise :class:`CapabilityError` for every option this slice has not
-    ported."""
-    unported = []
-    if options.engine == "sharded" or options.mesh is not None:
-        unported.append("the sharded engine (engine='sharded' / mesh=)")
-    if unported:
-        raise CapabilityError("not ported to repro_torch yet: "
-                              + "; ".join(unported))
+def _mesh_sizes(options: SolverOptions) -> tuple[int, int]:
+    """(N, M): the node and feature extents of ``options.mesh``."""
+    shape = dict(zip(options.mesh.mesh_dim_names, options.mesh.mesh.shape))
+    nodes = (options.nodes_axis if isinstance(options.nodes_axis, tuple)
+             else (options.nodes_axis,))
+    N = 1
+    for a in nodes:
+        N *= shape[a]
+    return N, shape[options.feat_axis]
+
+
+def select_engine(options: SolverOptions, *, n_samples: int | None = None,
+                  n_features: int | None = None) -> str:
+    """Resolve ``options.engine`` (``repro.api.select_engine``): ``"auto"``
+    picks the sharded engine when a mesh of more than one rank is given and
+    the data's shape fits its layout (rows divisible over the nodes, at
+    least one column a feature block), else the reference engine."""
+    if options.engine != "auto":
+        return options.engine
+    if options.mesh is None:
+        return "reference"
+    N, M = _mesh_sizes(options)
+    if N * M == 1:
+        return "reference"      # one rank adds collectives, not speed
+    if n_samples is not None and n_samples % N != 0:
+        return "reference"      # rows do not tile the node axis
+    if n_features is not None and n_features < M:
+        return "reference"      # fewer columns than feature blocks
+    return "sharded"
 
 
 def _check_sweep(caps: Capabilities, gammas, rho_cs) -> None:
@@ -261,11 +332,12 @@ def build_config(problem: SparseProblem,
 # --------------------------------------------------------------------------
 # data
 # --------------------------------------------------------------------------
-def _as_tensor(a, device: torch.device) -> torch.Tensor:
+def _as_tensor(a, device: torch.device | None) -> torch.Tensor:
+    """``a`` as a tensor on ``device`` (where it lies when None)."""
     t = torch.as_tensor(a)
     if t.dtype == torch.float64:
         t = t.to(torch.float32)       # the fp32 policy's data dtype
-    return t.to(device)
+    return t if device is None else t.to(device)
 
 
 def validate_data(X: torch.Tensor, y: torch.Tensor) -> None:
@@ -290,11 +362,12 @@ def validate_data(X: torch.Tensor, y: torch.Tensor) -> None:
                          "clean or impute the targets before fitting")
 
 
-def _stack(X, y, device: torch.device,
+def _stack(X, y, device: torch.device | None,
            precision: runtime.PrecisionPolicy):
-    """(samples, n) or (N, m, n) data on ``device`` in the stacked layout:
-    float32, or already in the precision policy's data dtype (bf16 / fp16
-    data that the engine reads as it is)."""
+    """(samples, n) or (N, m, n) data on ``device`` (where it lies when
+    None) in the stacked layout: float32, or already in the precision
+    policy's data dtype (bf16 / fp16 data that the engine reads as it
+    is)."""
     X, y = _as_tensor(X, device), _as_tensor(y, device)
     if X.ndim not in (2, 3):
         raise ValueError(f"X must be (samples, n) or (N, m, n); "
@@ -323,12 +396,15 @@ class _ReferenceAdapter:
     name = "reference"
 
     def __init__(self, problem: SparseProblem, options: SolverOptions):
-        _check_options(options)
         self.caps = engine_capabilities("reference", options)
         _check_precision(self.caps, options)
         self.device = runtime.resolve_device(options.device)
         self.solver = BiCADMM(problem.resolve_loss(),
                               build_config(problem, options))
+
+    def place(self, As, bs):
+        """The stacked data on the engine's device."""
+        return As.to(self.device), bs.to(self.device)
 
     def fit(self, As, bs, *, kappa=None, gamma=None, rho_c=None,
             state=None) -> FitResult:
@@ -373,6 +449,100 @@ class _ReferenceAdapter:
                              on_bucket=on_bucket)
 
 
+class _ShardedAdapter:
+    """The sharded engine behind the uniform surface
+    (``repro.api._ShardedAdapter``): every rank calls it with the same
+    global data, re-flattened to the (N m, n) rows the grid splits; each
+    rank moves only its block to its device."""
+    name = "sharded"
+
+    def __init__(self, problem: SparseProblem, options: SolverOptions):
+        self.caps = engine_capabilities("sharded", options)
+        _check_precision(self.caps, options)
+        self.device = runtime.resolve_device(options.device)
+        self.solver = ShardedBiCADMM(
+            problem.resolve_loss(), build_config(problem, options),
+            options.mesh, nodes_axis=options.nodes_axis,
+            feat_axis=options.feat_axis,
+            projection=options.sharded_projection,
+            x_update=options.x_update, device=self.device)
+
+    @staticmethod
+    def place(As, bs):
+        """The data where it lies: the engine cuts each rank's block."""
+        return As, bs
+
+    @staticmethod
+    def _flat(As, bs):
+        N, m, n = As.shape
+        return As.reshape(N * m, n), bs.reshape(-1)
+
+    def fit(self, As, bs, *, kappa=None, gamma=None, rho_c=None,
+            state=None, **kw) -> FitResult:
+        """One sharded solve (no per-solve hyperparameter overrides)."""
+        if not (kappa is None and gamma is None and rho_c is None):
+            raise CapabilityError(
+                "per-solve kappa/gamma/rho_c overrides are unavailable on "
+                "the sharded engine (Capabilities.per_solve_overrides="
+                "False): penalties are baked into its cached per-rank "
+                "factors — use fit_path for kappa sweeps, or a new problem")
+        A, b = self._flat(As, bs)
+        return self.solver.fit(A, b, state=state, **kw)
+
+    def fit_path(self, As, bs, kappas, *, gammas=None, rho_cs=None,
+                 warm_start=True, **kw) -> SparsePath:
+        """Warm-started kappa path."""
+        _check_sweep(self.caps, gammas, rho_cs)
+        A, b = self._flat(As, bs)
+        return self.solver.fit_path(A, b, kappas, warm_start=warm_start,
+                                    **kw)
+
+    def fit_grid(self, As, bs, kappas, *, gammas=None, rho_cs=None
+                 ) -> SparsePath:
+        """Independent cold fits of the grid: a sequential cold scan
+        (``.strategy`` says "cold-scan")."""
+        _check_sweep(self.caps, gammas, rho_cs)
+        A, b = self._flat(As, bs)
+        return self.solver.fit_path(A, b, kappas, warm_start=False)
+
+    def fit_many_stacked(self, As, bs, **kw) -> FleetResult:
+        """Fleets are a reference-engine capability: raises
+        :class:`CapabilityError`."""
+        _check_fleet(self.caps)
+
+    def fit_many(self, problems, **kw) -> list[FitResult]:
+        """Unsupported on the sharded engine: raises
+        :class:`CapabilityError`."""
+        _check_fleet(self.caps)
+
+
+def make_adapter(problem: SparseProblem, options: SolverOptions,
+                 engine: str | None = None):
+    """The engine adapter (and its solver; every configuration check
+    happens here, at construction)."""
+    engine = engine if engine is not None else select_engine(options)
+    if engine == "reference":
+        return _ReferenceAdapter(problem, options)
+    if engine == "sharded":
+        if options.mesh is None:
+            raise ValueError("engine='sharded' requires a mesh")
+        return _ShardedAdapter(problem, options)
+    raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+
+
+def _data(problem: SparseProblem, options: SolverOptions, X, y,
+          adapter_for=None):
+    """(adapter, As, bs): the stacked data, the engine negotiated from its
+    shape (``adapter_for(engine)`` builds its adapter; ``make_adapter`` by
+    default), and the data placed for that engine."""
+    As, bs = _stack(X, y, None, options.precision)
+    N, m, n = As.shape
+    engine = select_engine(options, n_samples=N * m, n_features=n)
+    adapter = (adapter_for(engine) if adapter_for is not None
+               else make_adapter(problem, options, engine))
+    return (adapter, *adapter.place(As, bs))
+
+
 def _diverged(res: FitResult) -> bool:
     return (res.status is not None
             and int(res.status) == int(SolveStatus.DIVERGED))
@@ -386,8 +556,7 @@ def solve(problem: SparseProblem, X, y, *,
     DIVERGED is rerun through the escalation ladder (:func:`recover`),
     every attempt logged in ``FitResult.recovery``."""
     options = options if options is not None else SolverOptions()
-    adapter = _ReferenceAdapter(problem, options)
-    As, bs = _stack(X, y, adapter.device, options.precision)
+    adapter, As, bs = _data(problem, options, X, y)
     res = adapter.fit(As, bs, state=state)
     if options.recovery is not None and _diverged(res):
         res = _run_ladder(problem, options, As, bs, failed=res,
@@ -454,9 +623,13 @@ def _run_ladder(problem: SparseProblem, options: SolverOptions, As, bs, *,
     attempts: list[RecoveryAttempt] = []
     state = None
     result = failed
+    device = runtime.resolve_device(options.device)
+    As, bs = As.to(device), bs.to(device)     # the rungs run the reference
     if failed is not None:
         attempts = list(failed.recovery or ())
-        state = sanitize_state(failed.state)
+        # a sharded engine's state does not carry over: a cold restart
+        state = (sanitize_state(failed.state)
+                 if isinstance(failed.state, BiCADMMState) else None)
     plan = _ladder_plan(problem, options, policy, As.shape[2], overrides)
     for idx, (stage, detail, prob, opts) in enumerate(plan):
         if policy.backoff_s > 0:
@@ -491,7 +664,6 @@ def recover(problem: SparseProblem, X, y, *,
     options = options if options is not None else SolverOptions()
     policy = (policy if policy is not None
               else options.recovery or RecoveryPolicy())
-    _check_options(options)
     device = runtime.resolve_device(options.device)
     As, bs = _stack(X, y, device, options.precision)
     return _run_ladder(problem, options, As, bs, failed=failed,
@@ -505,8 +677,7 @@ def solve_path(problem: SparseProblem, X, y, kappas, *,
     """Warm-started hyperparameter path over ``kappas`` (and optional
     ``gammas`` / ``rho_cs`` grids of the same length)."""
     options = options if options is not None else SolverOptions()
-    adapter = _ReferenceAdapter(problem, options)
-    As, bs = _stack(X, y, adapter.device, options.precision)
+    adapter, As, bs = _data(problem, options, X, y)
     return adapter.fit_path(As, bs, kappas, gammas=gammas, rho_cs=rho_cs,
                             warm_start=warm_start)
 
@@ -516,10 +687,9 @@ def solve_grid(problem: SparseProblem, X, y, kappas, *,
                rho_cs=None) -> SparsePath:
     """Independent cold fits of every grid point; ``path.strategy`` says
     how the grid ran (``"vmap"``, or ``"cold-scan"`` under the feature
-    split)."""
+    split and on the sharded engine)."""
     options = options if options is not None else SolverOptions()
-    adapter = _ReferenceAdapter(problem, options)
-    As, bs = _stack(X, y, adapter.device, options.precision)
+    adapter, As, bs = _data(problem, options, X, y)
     return adapter.fit_grid(As, bs, kappas, gammas=gammas, rho_cs=rho_cs)
 
 
@@ -554,11 +724,14 @@ def fit_many(problem: SparseProblem, Xs, ys, *, kappas=None, gammas=None,
       :class:`FitResult` in input order.
 
     ``kappas`` / ``gammas`` / ``rho_cs`` are optional per-problem vectors.
-    Fleets need the direct x-update (``Capabilities.fleet``); the data is
-    float32 and the fit runs on ``options.device``.
+    Fleets need the direct x-update on the reference engine
+    (``Capabilities.fleet``; ``engine="sharded"`` raises
+    :class:`CapabilityError`); the data is float32 and the fit runs on
+    ``options.device``.
     """
     options = options if options is not None else SolverOptions()
-    adapter = _ReferenceAdapter(problem, options)
+    adapter = make_adapter(problem, options, engine="reference"
+                           if options.engine == "auto" else options.engine)
     if isinstance(Xs, (list, tuple)):
         if not isinstance(ys, (list, tuple)) or len(ys) != len(Xs):
             raise ValueError("sequence input needs per-problem ys of the "
@@ -600,8 +773,8 @@ class StreamingSolver:
                  options: SolverOptions | None = None, *,
                  window: int | None = None, drift_tol: float = 0.5):
         options = options if options is not None else SolverOptions()
-        _check_options(options)
-        self.caps = engine_capabilities("reference", options)
+        engine = "reference" if options.engine == "auto" else options.engine
+        self.caps = engine_capabilities(engine, options)
         _check_stream(self.caps)
         _check_precision(self.caps, options)
         self.problem = problem
@@ -659,7 +832,8 @@ def stream(problem: SparseProblem, *, options: SolverOptions | None = None,
     >>> for X_t, y_t in chunks:
     ...     res = s.partial_fit(X_t, y_t)     # incremental factor updates
 
-    The feature split cannot stream and raises :class:`CapabilityError`."""
+    The feature split and the sharded engine cannot stream and raise
+    :class:`CapabilityError`."""
     return StreamingSolver(problem, options, window=window,
                            drift_tol=drift_tol)
 
@@ -677,9 +851,11 @@ def _unported(what: str):
 # estimators
 # --------------------------------------------------------------------------
 class SparseEstimator:
-    """Base estimator: a :class:`SparseProblem` on the reference engine,
-    with sklearn-shaped ``fit`` / ``predict`` / ``score``. ``device=``
-    (or ``options=SolverOptions(device=...)``) says where it runs."""
+    """Base estimator: a :class:`SparseProblem` on a negotiated engine
+    (:func:`select_engine` from the options and the data's shape; an
+    explicit engine is built, and checked, at construction), with
+    sklearn-shaped ``fit`` / ``predict`` / ``score``. ``device=`` (or
+    ``options=SolverOptions(device=...)``) says where it runs."""
     _loss_name: str = "squared"
     _score_kind: str = "r2"           # "r2" | "accuracy"
 
@@ -696,9 +872,27 @@ class SparseEstimator:
             gamma=gamma, rho_c=rho_c, alpha=alpha, rho_b=rho_b)
         self.options = (options if options is not None
                         else SolverOptions(device=device, **option_kw))
-        self._adapter = _ReferenceAdapter(self.problem, self.options)
+        self._adapters: dict = {}
+        # the adapter of the last fit: the configured engine's until then
+        self._adapter = self._adapter_named(
+            "reference" if self.options.engine == "auto"
+            else self.options.engine)
         self.result_: FitResult | None = None
         self._stream: StreamingSolver | None = None
+
+    def _adapter_named(self, name: str):
+        ad = self._adapters.get(name)
+        if ad is None:
+            ad = self._adapters[name] = make_adapter(self.problem,
+                                                     self.options, name)
+        return ad
+
+    def _data(self, X, y):
+        """(adapter, As, bs) of a fit, the adapter kept for the next call
+        (module ``_data``)."""
+        out = _data(self.problem, self.options, X, y, self._adapter_named)
+        self._adapter = out[0]
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -710,8 +904,8 @@ class SparseEstimator:
         result's ``.state``. With ``options=SolverOptions(recovery=...)`` a
         DIVERGED fit reruns through the recovery ladder, as in
         :func:`solve`. Returns ``self``."""
-        As, bs = _stack(X, y, self.device, self.options.precision)
-        res = self._adapter.fit(As, bs, state=state)
+        adapter, As, bs = self._data(X, y)
+        res = adapter.fit(As, bs, state=state)
         if self.options.recovery is not None and _diverged(res):
             res = _run_ladder(self.problem, self.options, As, bs,
                               failed=res, policy=self.options.recovery)
@@ -738,9 +932,9 @@ class SparseEstimator:
                  warm_start: bool = True) -> SparsePath:
         """Warm-started sweep; the estimator is left fitted on the LAST
         grid point (the sparsest, for descending kappa ladders)."""
-        As, bs = _stack(X, y, self.device, self.options.precision)
-        path = self._adapter.fit_path(As, bs, kappas, gammas=gammas,
-                                      rho_cs=rho_cs, warm_start=warm_start)
+        adapter, As, bs = self._data(X, y)
+        path = adapter.fit_path(As, bs, kappas, gammas=gammas,
+                                rho_cs=rho_cs, warm_start=warm_start)
         self._set_fitted(self._last_point(path))
         return path
 
@@ -748,9 +942,9 @@ class SparseEstimator:
                  ) -> SparsePath:
         """Independent cold fits; the estimator is left fitted on the last
         grid point."""
-        As, bs = _stack(X, y, self.device, self.options.precision)
-        path = self._adapter.fit_grid(As, bs, kappas, gammas=gammas,
-                                      rho_cs=rho_cs)
+        adapter, As, bs = self._data(X, y)
+        path = adapter.fit_grid(As, bs, kappas, gammas=gammas,
+                                rho_cs=rho_cs)
         self._set_fitted(self._last_point(path))
         return path
 

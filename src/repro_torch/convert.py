@@ -8,7 +8,10 @@ Its ``inner`` field, the feature-split sub-solver's state, crosses as
 ``SubsolverState`` itself). :func:`state_from_numpy` turns it into the
 port's state on a device, and :func:`state_to_numpy` /
 :func:`result_to_numpy` go back, with ``inner`` as a dict. Warm starts then
-move between the packages. :func:`path_to_numpy` does the same for a
+move between the packages. :func:`sharded_state_from_numpy` /
+:func:`sharded_state_to_numpy` carry the sharded engine's global state
+(a JAX ``ShardedGlobalState``'s eight arrays), so both sharded engines
+warm-start from the same state. :func:`path_to_numpy` does the same for a
 :class:`~repro_torch.core.results.SparsePath`, and :func:`fleet_to_numpy`
 for a :class:`~repro_torch.core.results.FleetResult`;
 :func:`fleet_state_from_numpy` takes a fleet's batched state (a JAX
@@ -38,6 +41,7 @@ import torch
 from .core.bicadmm import BiCADMMState
 from .core.recovery import RecoveryAttempt
 from .core.results import FitResult, FleetResult, SparsePath
+from .core.sharded import ShardedGlobalState
 from .core.streaming import (CGStreamAccum, DenseStreamAccum,
                              StreamingBiCADMM, WoodburyStreamAccum)
 from .core.subsolver import SubsolverState
@@ -86,6 +90,23 @@ def state_to_numpy(st: BiCADMMState) -> dict:
     return out
 
 
+def sharded_state_from_numpy(d, device) -> ShardedGlobalState:
+    """The port's sharded global state on ``device`` from a dict of numpy
+    arrays, or any object with the eight fields (a JAX
+    ``ShardedGlobalState`` itself): x / u (N, n_pad, K), z / s
+    (n_pad, K), t, v, nu / omega (n_samples, K)."""
+    get = d.__getitem__ if isinstance(d, Mapping) else (
+        lambda name: getattr(d, name))
+    return ShardedGlobalState(**{name: _tensor(get(name), device)
+                                 for name in ShardedGlobalState._fields})
+
+
+def sharded_state_to_numpy(gs: ShardedGlobalState) -> dict:
+    """A dict of numpy arrays, one per field of the sharded global state
+    (the JAX ``ShardedGlobalState(**d)`` takes it)."""
+    return {name: _numpy(val) for name, val in gs._asdict().items()}
+
+
 def result_to_numpy(res: FitResult) -> dict:
     """The result's arrays as numpy, with its state as a nested dict."""
     out = {}
@@ -93,7 +114,10 @@ def result_to_numpy(res: FitResult) -> dict:
                  "status"):
         val = getattr(res, name)
         out[name] = None if val is None else _numpy(val)
-    out["state"] = None if res.state is None else state_to_numpy(res.state)
+    out["state"] = (None if res.state is None
+                    else sharded_state_to_numpy(res.state)
+                    if isinstance(res.state, ShardedGlobalState)
+                    else state_to_numpy(res.state))
     out["recovery"] = (None if res.recovery is None
                        else recovery_to_numpy(res.recovery))
     return out

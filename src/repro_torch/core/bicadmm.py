@@ -101,7 +101,8 @@ class BiCADMMConfig:
                 f"the feature split under precision {name!r} is not ported: "
                 "the JAX package's own sub-solver fails on bf16 / fp16 data "
                 "(ROADMAP Queue 3); use precision='fp32' with "
-                "n_feature_blocks > 1")
+                "n_feature_blocks > 1, or the sharded engine "
+                "(engine='sharded'), whose sub-solver factors in f32")
         if self.divergence_tol <= 0:
             raise ValueError("divergence_tol must be positive")
         if self.x_solver not in prox.XSOLVERS:
@@ -174,19 +175,23 @@ def _col(v):
 
 
 def _zt_update(z0, t0, w, s, v, N: float, rho_c, rho_b, iters: int, *,
-               projection: str = "ladder", polish_dtype=None):
+               projection: str = "ladder", polish_dtype=None, ops=None):
     """Step (7b): min over {(z,t): ||z||_1 <= t} of
     (N rho_c / 2) ||z - w||^2 + (rho_b / 2) (s^T z - t + v)^2
     by FISTA with the exact sort-free cone projection (``projection=
     "sort"``: the sort oracle; ``polish_dtype``: the projection's polish
     dtype, the policy's ``kkt_polish``). With a lane axis (z0 (B, d), t0
     (B,), rho_c and rho_b scalars or (B,) tensors) every lane takes the same
-    steps, each FISTA step's projection one call for all lanes."""
+    steps, each FISTA step's projection one call for all lanes. ``ops``
+    (solo only): every reduction injected (:class:`bilinear.LadderOps`:
+    the sharded engine's reductions over its feature blocks), the default
+    ones when None."""
+    ops = bilinear.DEFAULT_OPS if ops is None else ops
     if projection == "sort":
         project = bilinear.project_l1_epigraph_sort
     else:
         def project(z, t):
-            return bilinear.project_l1_epigraph(z, t,
+            return bilinear.project_l1_epigraph(z, t, ops=ops,
                                                 polish_dtype=polish_dtype)
     a = N * rho_c
     lanes = z0.ndim == 2
@@ -197,10 +202,10 @@ def _zt_update(z0, t0, w, s, v, N: float, rho_c, rho_b, iters: int, *,
             r = torch.sum(s * z, dim=-1) - t + v
             return _col(a) * (z - w) + _col(rho_b * r) * s, -rho_b * r
     else:
-        L = a + rho_b * (torch.sum(s * s) + 1.0)  # ||Hessian||_2 bound
+        L = a + rho_b * (ops.sum_fn(s * s) + 1.0)  # ||Hessian||_2 bound
 
         def grads(z, t):
-            r = torch.sum(s * z) - t + v
+            r = ops.sum_fn(s * z) - t + v
             return a * (z - w) + rho_b * r * s, -rho_b * r
     step = 1.0 / L
     step_z = _col(step) if lanes else step

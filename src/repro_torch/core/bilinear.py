@@ -72,12 +72,13 @@ NEWTON_CAP = 64    # hard cap on polish / search steps
 CHUNK = {"cuda": 4, "cpu": 1}
 
 
-def g(z: torch.Tensor, s: torch.Tensor, t) -> torch.Tensor:
+def g(z: torch.Tensor, s: torch.Tensor, t, *, sum_fn=None) -> torch.Tensor:
     """Bi-linear constraint residual g(z, s, t) = z^T s - t (per lane for
-    (B, d) operands)."""
+    (B, d) operands); ``sum_fn`` replaces the sum (the sharded engine's sum
+    over its feature blocks)."""
     if z.ndim == 2:
         return torch.sum(z * s, dim=-1) - t
-    return torch.sum(z * s) - t
+    return (torch.sum if sum_fn is None else sum_fn)(z * s) - t
 
 
 # --------------------------------------------------------------------------

@@ -233,34 +233,38 @@ def _dot(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def pcg(matvec: Callable, rhs: torch.Tensor, x0: torch.Tensor,
-        precond: Callable, iters: int, tol: float) -> torch.Tensor:
+        precond: Callable, iters: int, tol: float,
+        dot_fn: Callable | None = None) -> torch.Tensor:
     """Preconditioned conjugate gradients with a relative-residual stop,
     warm-started at ``x0``. A leading axis holds independent systems (the
     nodes): each stops on its own — a finished system's iterates are
     frozen, which is how the JAX package's vmapped ``while_loop`` behaves.
-    The host reads the stopping test once per CG iteration."""
+    The host reads the stopping test once per CG iteration. ``dot_fn``
+    replaces every inner product (the sharded engine's dot over its feature
+    blocks; ``repro.core.prox.pcg``)."""
+    dot = _dot if dot_fn is None else dot_fn
     r0 = rhs - matvec(x0)
     z0 = precond(r0)
-    rz = _dot(r0, z0)
-    tol2 = tol * tol * torch.clamp_min(_dot(rhs, rhs), 1e-30)
-    x, r, p, rr = x0, r0, z0, _dot(r0, r0)
+    rz = dot(r0, z0)
+    tol2 = tol * tol * torch.clamp_min(dot(rhs, rhs), 1e-30)
+    x, r, p, rr = x0, r0, z0, dot(r0, r0)
     for _ in range(iters):
         active = rr > tol2
         if not bool(active.any()):
             break
         Ap = matvec(p)
-        alpha = rz / torch.clamp_min(_dot(p, Ap), 1e-30)
+        alpha = rz / torch.clamp_min(dot(p, Ap), 1e-30)
         x_n = x + alpha[..., None] * p
         r_n = r - alpha[..., None] * Ap
         z = precond(r_n)
-        rz_n = _dot(r_n, z)
+        rz_n = dot(r_n, z)
         p_n = z + (rz_n / torch.clamp_min(rz, 1e-30))[..., None] * p
         keep = active[..., None]
         x = torch.where(keep, x_n, x)
         r = torch.where(keep, r_n, r)
         p = torch.where(keep, p_n, p)
         rz = torch.where(active, rz_n, rz)
-        rr = torch.where(active, _dot(r_n, r_n), rr)
+        rr = torch.where(active, dot(r_n, r_n), rr)
     return x
 
 

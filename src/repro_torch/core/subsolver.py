@@ -81,31 +81,37 @@ class SubsolverFactors:
         return self.chol.shape[-1]
 
 
-def _block_grams(A: torch.Tensor, M: int, nb: int) -> torch.Tensor:
+def _block_grams(A: torch.Tensor, M: int, nb: int,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
     """G_j = A_j^T A_j per node and block, (N, M, nb, nb), zero in the
-    padded rows and columns. The full-width blocks of every node reach the
-    ``gram`` kernel as one strided (N, full, m, nb) view of A (no copy, one
-    launch); a ragged last block takes a second call on its own column
-    slice of every node."""
+    padded rows and columns, in ``dtype`` (A's by default). The full-width
+    blocks of every node reach the ``gram`` kernel as one strided
+    (N, full, m, nb) view of A (no copy, one launch); a ragged last block
+    takes a second call on its own column slice of every node."""
     N, m, n = A.shape
+    dtype = A.dtype if dtype is None else dtype
     full, rest = block_widths(n, nb, M)
-    G = torch.zeros((N, M, nb, nb), dtype=A.dtype, device=A.device)
+    G = torch.zeros((N, M, nb, nb), dtype=dtype, device=A.device)
     if full:
         view = A[:, :, :full * nb].unflatten(-1, (full, nb))
-        G[:, :full] = gram_auto(view.permute(0, 2, 1, 3))
+        G[:, :full] = gram_auto(view.permute(0, 2, 1, 3), out_dtype=dtype)
     if rest:
-        G[:, full, :rest, :rest] = gram_auto(A[:, :, full * nb:])
+        G[:, full, :rest, :rest] = gram_auto(A[:, :, full * nb:],
+                                             out_dtype=dtype)
     return G
 
 
 def subsolver_setup(A: torch.Tensor, sigma: float, rho_c: float,
-                    rho_l: float, M: int) -> SubsolverFactors:
+                    rho_l: float, M: int,
+                    dtype: torch.dtype | None = None) -> SubsolverFactors:
     """Per-block Gram matrices through the ``gram`` kernel, then the
-    Cholesky factors of rho_l G_j + (sigma + rho_c) I."""
+    Cholesky factors of rho_l G_j + (sigma + rho_c) I, in ``dtype`` (A's by
+    default; the sharded engine factors bf16 / fp16 data in f32, its
+    precision policy's accumulation dtype)."""
     N, m, n = A.shape
     nb = -(-n // M)
     c = sigma + rho_c
-    H = rho_l * _block_grams(A, M, nb)
+    H = rho_l * _block_grams(A, M, nb, dtype)
     H.diagonal(dim1=-2, dim2=-1).add_(c)
     return SubsolverFactors(A, torch.linalg.cholesky(H), rho_l, sigma, rho_c,
                             M, n)

@@ -9,10 +9,16 @@ j is its columns [j nb, min(n, (j+1) nb)) with nb = ceil(n / M):
 * ``block_rmatvec(a, y_blocks, M)``: y_blocks (N, M, m, K) -> (N, M, nb, K),
   block j of node z is A_zj^T @ y_zj, with the padded rows 0.
 
-On CUDA tensors they launch ``csrc/block_matvec.cu``, which indexes the
-blocks inside ``a`` — no padded or blocked copy of the data is made, where
-the JAX package pads A and moves the block axis to the front. On CPU
-tensors they are the plain versions of :mod:`repro_torch.kernels.ref`.
+``a`` is float32, bfloat16 or float16 (the sharded engine's sub-solver
+runs the bf16 one under ``precision="bf16"``); the blocks and the output
+are float32 whatever ``a`` holds: each element of ``a`` is widened to f32
+exactly and every sum runs in f32, the natural promotion the JAX package's
+CPU row gives. On CUDA tensors they launch ``csrc/block_matvec.cu`` (the
+``block_*_f32`` / ``_bf16`` / ``_f16`` instantiations, counted by type in
+``ops.launch_counts_by_type``), which indexes the blocks inside ``a`` — no
+padded or blocked copy of the data is made, where the JAX package pads A
+and moves the block axis to the front. On CPU tensors they are the plain
+versions of :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
@@ -21,14 +27,29 @@ import torch
 from . import build
 from .ref import block_matvec_ref, block_rmatvec_ref
 
-_SIGNATURES = {
-    "block_matvec_f32": [build.P, build.P, build.P, build.I, build.I,
-                         build.I, build.I, build.I, build.I, build.P],
-    "block_rmatvec_f32": [build.P, build.P, build.P, build.P, build.I,
-                          build.I, build.I, build.I, build.I, build.I,
-                          build.P],
-    "block_rmatvec_slices": [build.I, build.I, build.I, build.I],
-}
+# the C entries' suffix for each element type of A
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+          torch.float16: "f16"}
+HALF_COLUMNS = 8    # block_rmatvec's columns a thread on 2-byte A (one
+                    # 16-byte load a row)
+_SIGNATURES = {"block_rmatvec_slices": [build.I] * 5}
+for _sfx in SUFFIX.values():
+    _SIGNATURES[f"block_matvec_{_sfx}"] = [build.P, build.P, build.P,
+                                           *[build.I] * 6, build.P]
+    _SIGNATURES[f"block_rmatvec_{_sfx}"] = [build.P, build.P, build.P,
+                                            build.P, *[build.I] * 7,
+                                            build.P]
+
+
+def rmatvec_columns(esize: int, n: int, nb: int, aligned16: bool) -> int:
+    """block_rmatvec's columns a thread: 8 for 2-byte A whose every block's
+    rows start 16-byte aligned (n and nb multiples of 8, A 16-byte
+    aligned), one load of 8 columns a row; 1 otherwise (f32 A always: its
+    kernel is the one-column design)."""
+    if esize == 2 and n % HALF_COLUMNS == 0 and nb % HALF_COLUMNS == 0 \
+            and aligned16:
+        return HALF_COLUMNS
+    return 1
 
 
 def block_matvec(a: torch.Tensor, x_blocks: torch.Tensor,
@@ -59,9 +80,10 @@ def _launch(a: torch.Tensor, v: torch.Tensor, M: int, *,
         raise ValueError(f"{name}: a must be (N, m, n) and the blocks "
                          f"(N, M, ., K), got {tuple(a.shape)}, "
                          f"{tuple(v.shape)}")
-    if a.dtype != torch.float32 or v.dtype != torch.float32:
-        raise ValueError(f"{name}: the kernel takes float32 operands, got "
-                         f"{a.dtype}, {v.dtype}")
+    if a.dtype not in SUFFIX or v.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes float32, bfloat16 or "
+                         f"float16 data and float32 blocks, got {a.dtype}, "
+                         f"{v.dtype}")
     if not a.is_contiguous():
         raise ValueError(f"{name}: a must be contiguous (row-major); the "
                          "wrapper does not copy the data matrix")
@@ -86,18 +108,22 @@ def _launch(a: torch.Tensor, v: torch.Tensor, M: int, *,
     if m == 0:                     # an empty sum
         return out.zero_()
     lib = build.library("block_matvec", _SIGNATURES)
+    sfx = SUFFIX[a.dtype]
     if adjoint:
-        slices = lib.block_rmatvec_slices(N, M, m, nb)
+        cols = rmatvec_columns(a.element_size(), n, nb,
+                               a.data_ptr() % 16 == 0)
+        slices = lib.block_rmatvec_slices(N, M, m, nb, cols)
         part = torch.empty((slices, N, M, nb, K) if slices > 1 else (0,),
                            dtype=torch.float32, device=a.device)
-        rc = lib.block_rmatvec_f32(a.data_ptr(), v.data_ptr(),
-                                   part.data_ptr(), out.data_ptr(), N, M, m,
-                                   n, nb, K, build.stream(a))
+        rc = getattr(lib, f"block_rmatvec_{sfx}")(
+            a.data_ptr(), v.data_ptr(), part.data_ptr(), out.data_ptr(), N,
+            M, m, n, nb, K, cols, build.stream(a))
         launches = 1 + (slices > 1)   # block_rmatvec_kernel (+ sum_slices)
     else:
-        rc = lib.block_matvec_f32(a.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  N, M, m, n, nb, K, build.stream(a))
+        rc = getattr(lib, f"block_matvec_{sfx}")(
+            a.data_ptr(), v.data_ptr(), out.data_ptr(), N, M, m, n, nb, K,
+            build.stream(a))
         launches = 1
     build.check(rc, name)
-    build.LAUNCHES[name] += launches
+    build.count_launches(name, sfx, launches)
     return out

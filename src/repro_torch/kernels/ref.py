@@ -293,7 +293,8 @@ def block_widths(n: int, nb: int, M: int) -> tuple[int, int]:
 
 def block_matvec_ref(a: torch.Tensor, x_blocks: torch.Tensor,
                      M: int) -> torch.Tensor:
-    """Per feature block j: A_j @ x_j, in f32.
+    """Per feature block j: A_j @ x_j, in f32 (bf16 / fp16 ``a`` widened
+    exactly: the plain version of the half-width kernels too).
 
     ``a`` (N, m, n) row-major, ``x_blocks`` (N, M, nb, K) with nb = ceil(n/M);
     block j is the columns [j nb, min(n, (j+1) nb)) of ``a``. Entries of
@@ -316,7 +317,8 @@ def block_matvec_ref(a: torch.Tensor, x_blocks: torch.Tensor,
 
 def block_rmatvec_ref(a: torch.Tensor, y_blocks: torch.Tensor,
                       M: int) -> torch.Tensor:
-    """Per feature block j: A_j^T @ y_j, in f32. ``y_blocks`` is
+    """Per feature block j: A_j^T @ y_j, in f32 (any float ``a`` widened
+    exactly). ``y_blocks`` is
     (N, M, m, K); returns (N, M, nb, K) with the padded rows 0 (the einsum
     ``jmn,jmk->jnk`` on the zero-padded blocks)."""
     N, m, n = a.shape

@@ -1,7 +1,10 @@
 """The port's estimator front-end (repro_torch.api) against the JAX
 package's (repro.api), and the port's boundaries: what is not ported
 raises CapabilityError up front, nothing runs on the CPU unless asked,
-and neither repro_torch nor chip_smoke.py imports jax or repro.
+and neither repro_torch nor chip_smoke.py imports jax or repro. The
+sharded engine's options run and negotiate on a (1, 1) DeviceMesh of a
+world-size-1 gloo group (tests/test_torch_sharded.py holds the engine
+against JAX).
 
 Fit tolerances are those of tests/test_torch_bicadmm.py: same support,
 coef within 1e-3, iterations within 2; predictions within 1e-3 and R^2
@@ -19,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 import repro.api as japi
 from repro_torch import api, runtime
@@ -86,17 +91,11 @@ def test_entry_points_need_a_device_or_an_explicit_cpu(monkeypatch):
         runtime.resolve_device("mps")
 
 
-# the feature split itself is ported; combined with an unported option it
-# still raises up front
-UNPORTED_OPTIONS = {"engine": dict(engine="sharded"),
-                    "mesh": dict(mesh="a mesh"),
-                    "feature_blocks": dict(n_feature_blocks=2,
+# the feature split and the reduced presets are ported; the reference
+# engine's feature split under a reduced preset (which fails in the JAX
+# package itself) still raises up front
+UNPORTED_OPTIONS = {"feature_blocks": dict(n_feature_blocks=2,
                                            precision="bf16"),
-                    "feature_split": dict(force_feature_split=True,
-                                          engine="sharded"),
-                    # the reduced presets are ported; with the feature
-                    # split (which fails in the JAX package itself) they
-                    # still raise
                     "bf16": dict(precision="bf16", force_feature_split=True),
                     "fp16": dict(precision="fp16", n_feature_blocks=4)}
 
@@ -108,14 +107,47 @@ def test_unported_options_raise_capability_error(name):
                                    **UNPORTED_OPTIONS[name])
 
 
+@pytest.fixture(scope="module")
+def mesh(tmp_path_factory):
+    """A (1, 1) DeviceMesh on a world-size-1 gloo group."""
+    if not dist.is_initialized():
+        store = tmp_path_factory.mktemp("gloo") / "store"
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+    return init_device_mesh("cpu", (1, 1), mesh_dim_names=("nodes", "feat"))
+
+
+# the options that raised CapabilityError before the sharded engine was
+# ported: each now runs, on the engine it negotiates
+SHARDED_OPTIONS = {"engine": (dict(engine="sharded"), "sharded"),
+                   "mesh": ({}, "reference"),    # one rank: reference
+                   "feature_split": (dict(force_feature_split=True,
+                                          engine="sharded"), "sharded")}
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED_OPTIONS))
+def test_sharded_options_run_and_negotiate(mesh, name):
+    opts, engine = SHARDED_OPTIONS[name]
+    spec, As, bs = _data()
+    est = api.SparseLinearRegression(kappa=spec.kappa, device="cpu",
+                                     mesh=mesh, max_iter=5, zt_iters=10,
+                                     **opts).fit(As, bs)
+    assert est.engine_ == engine == est.capabilities_.engine
+    assert est.capabilities_.distributed is (engine == "sharded")
+    assert est.coef_.shape == (60,) and est.n_iter_ == 5
+    assert api.select_engine(est.options, n_samples=60,
+                             n_features=60) == engine
+
+
 def test_unported_models_and_entry_points_raise_capability_error():
     """Every model is ported (each loss resolves), and so are the path,
     the grid and per-solve overrides: they run, for the classifiers and the
     feature split too (kappa only there: a gamma / rho_c override or grid
     raises ValueError, as in the JAX package). Streaming fits
     (``partial_fit``) and recovery run too. What the models still lack —
-    serving and the sharded engine — raises CapabilityError up front; the
-    fleet and streaming refuse the feature split."""
+    serving — raises CapabilityError up front; the fleet and streaming
+    refuse the feature split. The sharded engine's capabilities are the
+    JAX package's."""
     for name in ("logistic", "hinge", "smoothed_hinge"):
         assert losses.get_loss(name).name == name
     assert losses.get_loss("softmax", 3).n_classes == 3
@@ -166,8 +198,12 @@ def test_unported_models_and_entry_points_raise_capability_error():
                     adapter.fit(As, bs, **over)
             else:
                 assert adapter.fit(As, bs, **over).status is not None
-    with pytest.raises(api.CapabilityError):
-        api.engine_capabilities("sharded")
+    caps = api.engine_capabilities("sharded")
+    assert caps.distributed and caps.grid_strategy == "cold-scan"
+    assert caps.precisions == ("float32", "bfloat16")
+    assert not (caps.fleet or caps.stream or caps.per_solve_overrides)
+    with pytest.raises(ValueError, match="unknown engine"):
+        api.engine_capabilities("mesh")
 
 
 def test_validate_data_rejects_bad_input():

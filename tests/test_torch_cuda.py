@@ -956,6 +956,140 @@ def test_cuda_block_launch_counts_and_refusals(cuda_gen):
         block_matvec.block_matvec(a, x[:, :3], 4)       # wrong block count
 
 
+# bf16 / fp16 A: the sharded engine's per-rank block and Fig. 3's point
+# (16-byte loads; block_rmatvec 8 columns a thread), the ragged shape and an
+# odd n (scalar loads; one column a thread), nb a multiple of 8 on few rows,
+# and a last block with no column
+HALF_BLOCK_SHAPES = [(1, 25_000, 1_000, 1), (8, 25_000, 4_000, 4),
+                     (2, 3_000, 1_001, 4), (3, 130, 517, 3), (2, 300, 256, 4),
+                     (1, 5, 5, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("shape", HALF_BLOCK_SHAPES)
+def test_cuda_half_width_block_matvec_rmatvec(cuda_gen, shape, K, dtype):
+    """The bf16 / fp16 instantiations against their plain versions (A
+    widened exactly, f32 sums): f32-accumulation error <= 1e-5 x scale +
+    1e-6; f32 out, one launch of the typed kernel, the padded rows 0."""
+    N, m, n, M = shape
+    if N * m * n > 10 ** 8 and K > 1:
+        pytest.skip("K = 3 runs at the per-rank and smaller shapes")
+    nb = -(-n // M)
+    a = torch.randn((N, m, n), device="cuda", generator=cuda_gen).to(dtype)
+    x = torch.randn((N, M, nb, K), device="cuda", generator=cuda_gen)
+    y = torch.randn((N, M, m, K), device="cuda", generator=cuda_gen)
+    sfx = block_matvec.SUFFIX[dtype]
+    for fn, plain, v in ((block_matvec.block_matvec, ref.block_matvec_ref, x),
+                         (block_matvec.block_rmatvec, ref.block_rmatvec_ref,
+                          y)):
+        ops.reset_launch_counts()
+        got = fn(a, v, M)
+        counts = ops.launch_counts_by_type()
+        want = plain(a, v, M)
+        scale = float(plain(a.float().abs(), v.abs(), M).max())
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 1e-5 * scale + 1e-6
+        assert counts.get(f"{fn.__name__}_{sfx}", 0) >= 1
+        assert not counts.get(f"{fn.__name__}_f32", 0)
+    assert not block_matvec.block_rmatvec(a, y, M).reshape(
+        N, M * nb, K)[:, n:].any()
+    # A two bytes past 16: every row segment unaligned, the scalar paths
+    flat = torch.randn(a.numel() + 1, device="cuda",
+                       generator=cuda_gen).to(dtype)
+    a1 = flat[1:].view(N, m, n)
+    assert block_matvec.rmatvec_columns(2, n, nb,
+                                        a1.data_ptr() % 16 == 0) == 1
+    scale = float(ref.block_matvec_ref(a1.float().abs(), x.abs(), M).max())
+    err = float((block_matvec.block_matvec(a1, x, M)
+                 - ref.block_matvec_ref(a1, x, M)).abs().max())
+    assert err <= 1e-5 * scale + 1e-6
+    scale = float(ref.block_rmatvec_ref(a1.float().abs(), y.abs(), M).max())
+    err = float((block_matvec.block_rmatvec(a1, y, M)
+                 - ref.block_rmatvec_ref(a1, y, M)).abs().max())
+    assert err <= 1e-5 * scale + 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_half_width_block_refusals(cuda_gen):
+    a = torch.randn(2, 40, 16, device="cuda", generator=cuda_gen)
+    x = torch.randn(2, 4, 4, 1, device="cuda", generator=cuda_gen)
+    with pytest.raises(ValueError):
+        block_matvec.block_matvec(a.double(), x.double(), 4)
+    with pytest.raises(ValueError):             # the blocks stay f32
+        block_matvec.block_matvec(a.bfloat16(), x.bfloat16(), 4)
+    assert block_matvec.rmatvec_columns(2, 16, 8, True) == 8
+    assert block_matvec.rmatvec_columns(4, 16, 8, True) == 1
+
+
+def _grid_rank(rank, store, A, b, queue):
+    """One of two ranks of a (1, 2) grid on the card (gloo): an f32 and a
+    bf16 sharded fit, their z and launches by type."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import BiCADMMConfig
+    from repro_torch.core.sharded import ShardedBiCADMM
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("nodes", "feat"))
+        out = {}
+        for precision in ("fp32", "bf16"):
+            ops.reset_launch_counts()
+            res = ShardedBiCADMM("squared", BiCADMMConfig(
+                **GRID_KW, precision=precision), mesh).fit(A, b)
+            out[precision] = (res.z.cpu().numpy(), int(res.iters),
+                              ops.launch_counts_by_type())
+        queue.put((rank, out))
+    finally:
+        dist.destroy_process_group()
+
+
+GRID_KW = dict(kappa=30, gamma=10.0, rho_c=4.0, max_iter=12, tol=0.0,
+               inner_iters=10, zt_iters=40)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_grid_of_two_ranks(cuda_gen, tmp_path):
+    """The sharded engine on a (1, 2) grid of two spawned ranks sharing the
+    card through gloo: its f32 fit against the single-process feature split
+    (M = 2) on the card after the same 12 outer iterations (z within 1e-4 x
+    max |z|: the projections' sums psum two halves), the bf16 fit on the
+    bf16 block kernels only; both ranks' results equal."""
+    import torch.multiprocessing as mp
+    from repro_torch.core import BiCADMM, BiCADMMConfig
+    A = torch.randn(1, 4_000, 512, generator=torch.Generator().manual_seed(
+        0))
+    x = torch.zeros(512)
+    x[:30] = torch.randn(30)
+    b = (A[0] @ x)[None]
+    ref = BiCADMM("squared", BiCADMMConfig(
+        **GRID_KW, n_feature_blocks=2, polish=False)).fit(A.cuda(), b.cuda())
+    queue = mp.get_context("spawn").Queue()
+    ranks = mp.spawn(_grid_rank, args=(str(tmp_path / "store"), A[0],
+                                       b[0], queue), nprocs=2, join=False)
+    outs = dict(queue.get(timeout=300) for _ in range(2))
+    while not ranks.join():
+        pass
+    z, iters, _ = outs[0]["fp32"]
+    assert iters == int(ref.iters) == GRID_KW["max_iter"]
+    zr = ref.z.cpu().numpy()
+    assert abs(z - zr).max() <= 1e-4 * abs(zr).max()
+    for precision in ("fp32", "bf16"):
+        assert (outs[1][precision][0] == outs[0][precision][0]).all()
+        sfx = "f32" if precision == "fp32" else "bf16"
+        for rank in range(2):
+            by_type = outs[rank][precision][2]
+            assert by_type.get(f"block_matvec_{sfx}", 0) > 0
+            assert by_type.get(f"block_rmatvec_{sfx}", 0) > 0
+            if sfx == "bf16":
+                assert not by_type.get("block_matvec_f32", 0)
+                assert not by_type.get("block_rmatvec_f32", 0)
+
+
 FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 1e-1)}
 
 

@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 import repro.api as japi
 from repro.core import BiCADMM as JaxBiCADMM
@@ -370,7 +372,7 @@ def test_api_fit_many_stacked_3d_and_sequence_inputs():
                      options=api.SolverOptions(device="cpu", **opts))
 
 
-def test_fleet_capability_negotiation():
+def test_fleet_capability_negotiation(tmp_path):
     As, bs = _fleet_data()
     caps = api.engine_capabilities("reference", api.SolverOptions())
     jcaps = japi.engine_capabilities("reference", japi.SolverOptions())
@@ -384,9 +386,15 @@ def test_fleet_capability_negotiation():
     with pytest.raises((api.CapabilityError, ValueError)):
         api.fit_many(prob, As, bs,
                      options=api.SolverOptions(device="cpu", **fs))
-    with pytest.raises(api.CapabilityError):
+    # the sharded engine's own refusal (JAX _ShardedAdapter.fit_many)
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("nodes", "feat"))
+    assert not api.engine_capabilities("sharded").fleet
+    with pytest.raises(api.CapabilityError, match="fleet"):
         api.fit_many(prob, As, bs,
-                     options=api.SolverOptions(device="cpu",
+                     options=api.SolverOptions(device="cpu", mesh=mesh,
                                                engine="sharded"))
     solver, _ = _solvers(force_feature_split=True, n_feature_blocks=2)
     with pytest.raises(ValueError, match="feature-split"):
