@@ -42,7 +42,10 @@ Phases, each printing its own line with its wall time:
               Fig. 3's (8, 25,000, 4,000) with M = 4 and at the ragged
               (2, 3,000, 1,001), held to the f32-accumulation bound
               1e-5 x scale + 1e-6, beside torch.matmul on the half-width
-              block view.
+              block view. Flash attention at the qwen3-8b prefill's shape
+              (Dh 128) and at the zamba2-2.7b prefill's, q, k and v
+              (128, 2,048, 80), beside SDPA; ragged, GQA and non-causal
+              cases and the other head dims between multiples of 64.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
               past the one-launch limit, where the bracketing rounds run on
               the one-launch ladder_stats kernel; ladder_stats is held
@@ -73,7 +76,7 @@ Phases, each printing its own line with its wall time:
               each rung's wall time.
    stream_dense — ``api.stream`` at n = 2,048 (DENSE_MAX_N), 12 chunks of
               256 rows of benchmarks/stream_bench.py's data and config
-              (kappa 8, gamma 20, rho_c 2, tol 1e-3; max_iter cut to 100 a
+              (kappa 8, gamma 20, rho_c 2, tol 1e-3; max_iter cut to 60 a
               refit), window 8 chunks (four rank-256 downdates): ms a chunk
               for absorb, evict and refit, the maintained factor against
               chol(G + cI) in f64 at every chunk, the final refit against a
@@ -174,10 +177,12 @@ Phases, each printing its own line with its wall time:
               from seed 0, 16.4 GB in bf16), 4 prompts of 2,048 tokens
               (numpy seed 0) through ``zoo.prefill`` (max_seq 2,080), then
               32 greedy ``zoo.decode_step``s. Each prefill must launch the
-              flash-attention kernel once per layer. Prints the prefill's
-              time and prompt tokens per second, the decode time per
-              token, the peak device memory and the flash kernel's share
-              of the prefill's device time (profiler).
+              flash-attention kernel once per layer, a decode step never.
+              Prints the prefill's time and prompt tokens per second, the
+              decode time per token, the launches and idle share of a
+              profiled window of 2 decode steps, the peak device memory
+              above the phase's start and the flash kernel's share of the
+              prefill's device time (profiler).
 10. lm_parity — (a) qwen3-8b at full width cut to 2 layers, bf16: prefill
               and decode through the kernel against the same model through
               the plain ``impl="full"``, and the first layer's attention
@@ -236,6 +241,24 @@ Phases, each printing its own line with its wall time:
    sharded_fp16 — the same node in fp16 through the engine directly
               (the api certifies float32 and bfloat16 for the sharded
               engine, as the JAX package): the f16 block kernels launch.
+13. zamba2   — the hybrid LM's serving path at full width and depth, with
+              the lm phase's traffic and checks: zamba2-2.7b (54 Mamba2
+              layers in 9 groups of 6, each group followed by the one
+              shared attention + MLP block of 32 heads of dim 80; 2.42e9
+              parameters drawn on the card from seed 0, 4.85 GB in bf16).
+              Each prefill must launch the flash kernel at head dim 80 once
+              a group (9 times), a decode step never.
+14. zamba2_parity — (a) zamba2-2.7b at full width cut to 2 groups (12
+              Mamba2 layers, 2 applications of the shared block), bf16,
+              4 x 2,048: the kernel path against ``impl="full"``, the
+              shared block's first attention output held to one bf16
+              rounding of the f32 attention of its q, k and v; (b) the
+              reduced config at head dim 80 (4 layers, d_model 160), f32,
+              over two SSD chunks, card against the port's CPU run (rtol
+              1e-4, atol 1e-4 per unit of each tensor's scale); (c)
+              decode steps 256 to 383 after a two-chunk prefill against
+              the forward pass over 384 tokens, 2 groups at full width in
+              f32.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
@@ -340,6 +363,11 @@ SOURCES = {
     "l1_epigraph_proj_lanes_f64polish": "src/repro_torch/csrc/ladder_proj.cu",
     "chol_rank_update": "src/repro_torch/csrc/chol_update.cu",
 }
+# the flash kernel at zamba2-2.7b's head dim 80 (the 128-column bf16 kernel
+# on zero-filled columns), a row of the kernels line of its own
+FLASH_DH80 = "flash_attention_dh80"
+REPLACES[FLASH_DH80] = REPLACES["flash_attention"]
+SOURCES[FLASH_DH80] = SOURCES["flash_attention"]
 # the bf16 / fp16 instantiations, each a row of the kernels line
 HALF_TYPES = ("bf16", "f16")
 HALF_KERNELS = tuple(f"{k}_{t}" for k in ("gram", "matvec", "rmatvec",
@@ -1013,7 +1041,8 @@ SHARDED_CFG = dict(kappa=800, gamma=10.0, rho_c=4.0)
 # outer iterations of the grid's fits: the depth cut (each outer iteration
 # issues ~1,300 host-staged collectives a rank)
 SHARDED_ITERS = 2
-SHARDED_CG_ITERS = 12          # the (1, 1) grid's cg fit, on NCCL
+SHARDED_CG_ITERS = 8           # the (1, 1) grid's cg fit, on NCCL (12
+                               # until PR 27)
 SHARDED_FP16_ITERS = 5         # its fp16 sub-solver fit (the f16 rows)
 
 
@@ -1635,8 +1664,10 @@ def fleet_phases(torch, api, ops, report, dev) -> dict:
 
 
 # benchmarks/stream_bench.py's config (kappa 8, gamma 20, rho_c 2, tol 1e-3)
-# with max_iter cut from 2,000 to 100 a refit; its chunk data (seed 0)
-STREAM_CFG = dict(kappa=8, gamma=20.0, rho_c=2.0, max_iter=100, tol=1e-3)
+# with max_iter cut from 2,000 to 60 a refit (100 until PR 27, cut for the
+# zamba2 phases' time: no refit converges in either); its chunk data
+# (seed 0)
+STREAM_CFG = dict(kappa=8, gamma=20.0, rho_c=2.0, max_iter=60, tol=1e-3)
 # (n, rows a chunk, window in chunks, chunks): dense at DENSE_MAX_N, four
 # rank-256 downdates; Woodbury at Fig. 2's width and one node's m, the
 # window 6,400 rows < WOODBURY_MAX_M, two rank-800 evictions
@@ -2070,10 +2101,26 @@ def M_spd(torch, n, dev, g):
     return a.T @ a / n + torch.eye(n, device=dev)
 
 
-def lm_phase(torch, dev, report) -> dict:
-    """9. The qwen3-8b serving path at full width and depth (module
-    docstring). Returns the launch counts of the timed prefill and decode
-    steps."""
+# the serving cells' traffic: 4 prompts of 2,048 tokens (numpy seed 0) into
+# a cache of 2,080 positions, then 32 greedy decode steps
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2_048, 32
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches a prefill: one a layer, or for the hybrid family one
+    an application of the shared block (n_layers / attn_every)."""
+    return (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+            else cfg.n_layers)
+
+
+def _gen(torch, device, seed=0):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def serve_phase(torch, dev, report, arch: str, key: str) -> dict:
+    """9. / 13. The serving path of ``arch`` at full width and depth (module
+    docstring), reported under ``key``. Returns the launch counts of the
+    timed prefill and decode steps."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -2082,15 +2129,15 @@ def lm_phase(torch, dev, report) -> dict:
     from repro_torch.models import zoo
 
     t0 = time.perf_counter()
-    cfg = get_config("qwen3-8b")
-    B, S, n_new = 4, 2048, 32
+    cfg = get_config(arch)
+    B, S, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
     max_seq = S + n_new
+    n_flash = flash_per_prefill(cfg)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t_init = time.perf_counter()
-    model = zoo.init_params(
-        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    model = zoo.init_params(cfg, generator=_gen(torch, dev), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_init
     w_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
@@ -2121,6 +2168,8 @@ def lm_phase(torch, dev, report) -> dict:
     dec_busy = sum(v["device_ms"] for v in device_table(prof).values())
     dec_launches = sum(ev.count for ev in prof.key_averages()
                        if ev.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    dec_idle = (None if dec_busy == 0
+                else max(0.0, 1.0 - dec_busy / (dec_window * 1e3)))
     del logits, cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2131,11 +2180,11 @@ def lm_phase(torch, dev, report) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t_p
     flash_prefill = ops.launch_counts()["flash_attention"]
-    require(flash_prefill == cfg.n_layers,
-            f"lm: the prefill launched the flash kernel {flash_prefill} "
-            f"times, not once per layer ({cfg.n_layers})")
+    require(flash_prefill == n_flash,
+            f"{key}: the prefill launched the flash kernel {flash_prefill} "
+            f"times, not {n_flash}")
     require(tuple(logits.shape) == (B, 1, cfg.padded_vocab),
-            f"lm: prefill logits of shape {tuple(logits.shape)}")
+            f"{key}: prefill logits of shape {tuple(logits.shape)}")
     finite = torch.isfinite(logits).all()
     tok = greedy(logits)
     generated = [tok]
@@ -2149,9 +2198,12 @@ def lm_phase(torch, dev, report) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t_d
     counts = ops.launch_counts()
-    require(bool(finite), "lm: non-finite logits")
+    require(counts["flash_attention"] == flash_prefill,
+            f"{key}: decode launched the flash kernel "
+            f"{counts['flash_attention'] - flash_prefill} times")
+    require(bool(finite), f"{key}: non-finite logits")
     peak = torch.cuda.max_memory_allocated() - mem0
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    cache_bytes = {k: t.numel() * t.element_size() for k, t in cache.items()}
     del logits, cache
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2166,39 +2218,48 @@ def lm_phase(torch, dev, report) -> dict:
     flash_ms = sum(v["device_ms"] for k, v in table.items()
                    if any(n in k for n in FLASH_KERNEL_NAMES))
     require(busy == 0 or flash_ms > 0,
-            "lm: the profiled prefill shows no flash-attention kernel")
+            f"{key}: the profiled prefill shows no flash-attention kernel")
     top = sorted(table.items(), key=lambda kv: -kv[1]["device_ms"])[:6]
     share = flash_ms / busy if busy > 0 else None
-    report["lm"] = {
-        "config": "qwen3-8b", "batch": B, "prompt_len": S, "max_seq": max_seq,
+    report[key] = {
+        "config": arch, "batch": B, "prompt_len": S, "max_seq": max_seq,
         "decode_steps": n_new, "init_s": init_s, "prefill_s": prefill_s,
         "prompt_tokens_per_s": B * S / prefill_s,
         "decode_ms_per_token": decode_s / n_new * 1e3,
         "weights_bytes": w_bytes, "cache_bytes": cache_bytes,
         "peak_bytes_above_start": peak, "launches": counts,
+        "flash_per_prefill": flash_prefill,
         "profile": {"window_s_profiler_on": window, "device_busy_ms": busy,
                     "flash_ms": flash_ms, "flash_share": share,
                     "top": dict(top)},
         "decode_profile": {"steps": 2, "window_s_profiler_on": dec_window,
                            "device_busy_ms": dec_busy,
+                           "idle_share": dec_idle,
                            "kernel_launches": dec_launches},
         "generated": torch.cat(generated, 1).tolist()}
     share_txt = ("not measured (the profiler saw no device time)"
                  if share is None else
                  f"{share:.3f} ({flash_ms:.1f} of {busy:.1f} ms busy in a "
                  f"{window * 1e3:.1f} ms window with the profiler on)")
-    phase("lm", t0, f"qwen3-8b, {cfg.n_layers} layers, bf16, "
-                    f"{w_bytes / 1e9:.2f} GB of weights drawn in "
+    idle_txt = ("idle share not measured" if dec_idle is None
+                else f"idle share {dec_idle:.3f}")
+    cache_txt = " + ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                           cache_bytes.items())
+    phase(key, t0, f"{arch}, {cfg.n_layers} layers"
+                   + (f" ({cfg.n_layers // cfg.attn_every} groups, shared "
+                      f"attention block)" if cfg.family == "hybrid" else "")
+                   + f", {cfg.dtype}, {w_bytes / 1e9:.2f} GB of weights "
+                    f"drawn in "
                     f"{init_s:.2f} s: prefill {B} x {S} tokens "
                     f"{prefill_s * 1e3:.1f} ms ({B * S / prefill_s:.0f} "
                     f"prompt tokens/s), {n_new} decode steps "
                     f"{decode_s / n_new * 1e3:.2f} ms per token (profiled: "
                     f"device busy {dec_busy / 2:.2f} ms of "
-                    f"{dec_window * 1e3 / 2:.2f} ms per step, "
+                    f"{dec_window * 1e3 / 2:.2f} ms per step, {idle_txt}, "
                     f"{dec_launches // 2} kernel launches per step); flash "
-                    f"launches {flash_prefill} per prefill; peak device "
-                    f"memory above the start {peak / 1e9:.2f} GB (weights "
-                    f"{w_bytes / 1e9:.2f} GB + cache {cache_bytes / 1e9:.2f} "
+                    f"launches {flash_prefill} per prefill, 0 in decode; "
+                    f"peak device memory above the start {peak / 1e9:.2f} GB "
+                    f"(weights {w_bytes / 1e9:.2f} GB + cache {cache_txt} "
                     f"GB); flash share of the prefill's device time "
                     f"{share_txt}; top: "
                     + "; ".join(f"{k[:40]} {v['device_ms']:.1f} ms/"
@@ -2208,63 +2269,54 @@ def lm_phase(torch, dev, report) -> dict:
     return counts
 
 
-def lm_parity_phase(torch, dev, report) -> None:
-    """10. The LM on the card against its plain attention, against the
-    port's CPU run, and its decode against its forward pass."""
-    import copy
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.configs import get_config, reduced_config
+def flash_vs_full(torch, report, key, label, cfg, model, attn, tokens,
+                  n_new, what) -> None:
+    """(a) of the parity phases: the prefill of ``tokens`` and ``n_new``
+    greedy decode steps through the kernel against the same model through
+    the plain ``impl="full"`` (logits within LM_TOL of their scale), and
+    the first output of the attention ``attn`` on the kernel path against
+    the f32 attention of the same q, k and v within one bf16 rounding (its
+    input and output caught by forward pre-hooks on ``wq`` and ``wo``)."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention, transformer, zoo
-    from repro_torch.models.layers import rms_norm
 
-    def gen(device, seed=0):
-        return torch.Generator(device=device).manual_seed(seed)
-
-    # (a) full width, 2 layers, bf16: the kernel against impl="full"
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2)
-    V, B, S, n_new = cfg.vocab_size, 4, 2048, 8
-    model = zoo.init_params(cfg, generator=gen(dev), device=dev)
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, V, (B, S)), device=dev)
-    steps = {}
-    caches = {}
-    attn_out = {}                   # layer 0's attention output, before wo
-    hook = model.blocks[0].attn.wo.register_forward_pre_hook(
-        lambda mod, args: attn_out.__setitem__(impl, args[0].clone()))
+    V, (B, S) = cfg.vocab_size, tuple(tokens.shape)
+    steps, caches, first = {}, {}, {}
+    impl = "flash"
+    hooks = [attn.wq.register_forward_pre_hook(
+                 lambda mod, args: first.setdefault("x", args[0].clone())),
+             attn.wo.register_forward_pre_hook(
+                 lambda mod, args: first.setdefault(impl, args[0].clone()))]
     ops.reset_launch_counts()
     for impl in ("flash", "full"):
         logits, caches[impl] = zoo.prefill(model, cfg, {"tokens": tokens},
                                            max_seq=S + n_new, impl=impl)
         steps[impl] = [logits[:, -1, :V].float()]
-    hook.remove()
-    require(ops.launch_counts()["flash_attention"] == cfg.n_layers,
-            "lm_parity: only the flash prefill launches the kernel")
-    # the kernel path's layer-0 attention against the f32 attention of the
-    # same bf16 q, k, v (recomputed: the same calls on the same inputs)
+    for hook in hooks:
+        hook.remove()
+    require(ops.launch_counts()["flash_attention"] == flash_per_prefill(cfg),
+            f"{key}: only the flash prefill launches the kernel, "
+            f"{flash_per_prefill(cfg)} times")
+    # the kernel path's attention against the f32 attention of the same
+    # bf16 q, k, v (recomputed: the same calls on the same inputs)
     with torch.inference_mode():
-        blk = model.blocks[0]
-        h = rms_norm(transformer._embed_tokens(model, cfg, tokens), blk.norm1)
         q, k, v = attention._project_qkv(
-            blk.attn, cfg, h, transformer._prompt_rope(cfg, tokens))
+            attn, cfg, first.pop("x"), transformer._prompt_rope(cfg, tokens))
         exact = attention._sdpa_full(q.float(), k.float(), v.float(),
                                      causal=True).reshape(B, S, -1)
-    del h, q, k, v
-    attn_err = {i: float((attn_out[i].float() - exact).abs().max())
-                for i in attn_out}
+    del q, k, v
+    attn_err = {i: float((first[i].float() - exact).abs().max())
+                for i in first}
     attn_scale = float(exact.abs().max())
-    require(torch.allclose(attn_out["flash"].float(), exact,
+    require(torch.allclose(first["flash"].float(), exact,
                            rtol=FLASH_TOL["bfloat16"][0],
                            atol=FLASH_TOL["bfloat16"][1]),
-            f"lm_parity: layer 0's attention on the kernel path is "
-            f"{attn_err['flash']:.3e} from the f32 attention of its q, k, v "
-            f"(limit rtol {FLASH_TOL['bfloat16'][0]}, atol "
-            f"{FLASH_TOL['bfloat16'][1]}; |o| up to {attn_scale:.3e})")
-    del exact, attn_out
+            f"{key}: {what} on the kernel path is {attn_err['flash']:.3e} "
+            f"from the f32 attention of its q, k, v (limit rtol "
+            f"{FLASH_TOL['bfloat16'][0]}, atol {FLASH_TOL['bfloat16'][1]}; "
+            f"|o| up to {attn_scale:.3e})")
+    del exact, first
     tok = steps["flash"][0].argmax(-1, keepdim=True)
     for i in range(n_new):          # both fed the kernel path's tokens
         for impl in ("flash", "full"):
@@ -2278,7 +2330,7 @@ def lm_parity_phase(torch, dev, report) -> None:
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         require(err <= LM_TOL * scale,
-                f"lm_parity: step {i} logits differ by {err:.3f}, over "
+                f"{key}: step {i} logits differ by {err:.3f}, over "
                 f"{LM_TOL} of the logit scale {scale:.1f}")
         worst = max(worst, err / scale)
     # the greedy next token of each prompt: equal, unless the reference's
@@ -2290,85 +2342,189 @@ def lm_parity_phase(torch, dev, report) -> None:
     ties = (top2[:, 0] - top2[:, 1]) <= bf16_step
     same = got.argmax(-1) == want.argmax(-1)
     require(bool((same | ties).all()),
-            f"lm_parity: greedy next tokens differ: "
+            f"{key}: greedy next tokens differ: "
             f"{got.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}")
     agree = [int((a.argmax(-1) == b.argmax(-1)).sum())
              for a, b in zip(steps["flash"][1:], steps["full"][1:])]
-    del model, caches, steps
+    del caches, steps
     torch.cuda.empty_cache()
-    report["lm_parity_flash_vs_full"] = {
-        "layer0_attention_max_abs_err_vs_f32": attn_err,
-        "layer0_attention_max_abs": attn_scale,
+    report[f"{key}_flash_vs_full"] = {
+        "attention_max_abs_err_vs_f32": attn_err,
+        "attention_max_abs": attn_scale,
         "worst_err_over_scale": worst, "steps": n_new + 1,
         "next_token_equal": same.tolist(), "next_token_ties": ties.tolist(),
         "decode_greedy_agree_per_step": agree}
-    phase("lm_parity", t0, f"qwen3-8b cut to 2 layers, bf16, {B} x {S}: "
-                           f"prefill + {n_new} decode steps through the "
-                           f"kernel vs impl='full': layer 0's attention "
-                           f"output within {attn_err['flash']:.3e} of the "
-                           f"f32 attention (limit rtol 2^-8, atol 1e-4; "
-                           f"impl='full' {attn_err['full']:.3e}; |o| up to "
-                           f"{attn_scale:.3e}); logits within "
-                           f"{worst:.2e} of their scale (limit {LM_TOL}); "
-                           f"greedy next token equal for "
-                           f"{int(same.sum())} of {B} prompts "
-                           f"({int((ties & ~same).sum())} bf16 ties); "
-                           f"decode steps' greedy tokens agree in "
-                           f"{sum(agree)} of {B * n_new}")
+    phase(key, t0, f"{label}, {cfg.dtype}, {B} x {S}: prefill + {n_new} "
+                   f"decode steps through the kernel vs impl='full': {what} "
+                   f"output within {attn_err['flash']:.3e} of the f32 "
+                   f"attention (limit rtol 2^-8, atol 1e-4; impl='full' "
+                   f"{attn_err['full']:.3e}; |o| up to {attn_scale:.3e}); "
+                   f"logits within {worst:.2e} of their scale (limit "
+                   f"{LM_TOL}); greedy next token equal for "
+                   f"{int(same.sum())} of {B} prompts "
+                   f"({int((ties & ~same).sum())} bf16 ties); decode steps' "
+                   f"greedy tokens agree in {sum(agree)} of {B * n_new}")
 
-    # (b) the reduced f32 config: the card against the port's CPU run
+
+def card_vs_cpu(torch, dev, report, key, label, cfg, n_prompt,
+                per_scale=False) -> None:
+    """(b): a reduced f32 config on the card against the port's CPU run:
+    forward over ``n_prompt`` tokens (numpy seed 1), the prefill of those
+    (logits and every cache entry) and one decode step at ``n_prompt``
+    (logits and the cache), rtol and atol 1e-4; with ``per_scale`` the
+    atol is 1e-4 per unit of each tensor's scale (its largest |entry| on
+    the CPU)."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
     t0 = time.perf_counter()
-    cfg = reduced_config(get_config("qwen3-8b"))
-    on_cpu = zoo.init_params(cfg, generator=gen("cpu"), device="cpu")
+    on_cpu = zoo.init_params(cfg, generator=_gen(torch, "cpu"), device="cpu")
     on_card = copy.deepcopy(on_cpu).to(dev)
-    tok_np = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
+    tok_np = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (2, n_prompt + 1))
+    prompt = {"tokens": tok_np[:, :n_prompt]}
     ops.reset_launch_counts()
     outs = {}
     for name, model in (("card", on_card), ("cpu", on_cpu)):
-        full, _ = zoo.forward(model, cfg, {"tokens": tok_np})
-        last, cache = zoo.prefill(model, cfg, {"tokens": tok_np[:, :-1]},
-                                  max_seq=32)
-        pre_k = cache["k"].clone()
-        step, cache = zoo.decode_step(model, cfg, {"token": tok_np[:, -1:],
-                                                   "pos": 31}, cache)
-        outs[name] = [t.cpu() for t in (full, last, pre_k, step,
-                                        cache["v"])]
-    require(ops.launch_counts()["flash_attention"] == 2 * cfg.n_layers,
-            "lm_parity: the card's forward and prefill launch the kernel "
-            "once per layer each")
-    err = 0.0
+        full, _ = zoo.forward(model, cfg, prompt)
+        last, cache = zoo.prefill(model, cfg, prompt, max_seq=n_prompt + 1)
+        pre = [t.clone() for t in cache.values()]
+        step, cache = zoo.decode_step(model, cfg, {
+            "token": tok_np[:, n_prompt:], "pos": n_prompt}, cache)
+        outs[name] = [t.cpu() for t in (full, last, *pre, step,
+                                        *cache.values())]
+    require(ops.launch_counts()["flash_attention"]
+            == 2 * flash_per_prefill(cfg),
+            f"{key}: the card's forward and prefill launch the kernel "
+            f"{flash_per_prefill(cfg)} times each")
+    err = worst = 0.0
     for got, want in zip(outs["card"], outs["cpu"]):
-        err = max(err, float((got - want).abs().max()))
-        require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-                f"lm_parity: reduced config, card vs CPU differ by {err}")
-    phase("lm_parity", t0, f"reduced qwen3-8b (2 layers, d_model 64, f32): "
-                           f"forward, prefill logits and cache, decode "
-                           f"logits and cache on the card within {err:.2e} "
-                           f"of the port's CPU run (limit 1e-4)")
-    report["lm_parity_card_vs_cpu"] = {"max_abs_diff": err}
+        diff, scale = float((got - want).abs().max()), float(want.abs().max())
+        err, worst = max(err, diff), max(worst, diff / max(scale, 1e-30))
+        atol = 1e-4 * scale if per_scale else 1e-4
+        require(torch.allclose(got, want, rtol=1e-4, atol=atol),
+                f"{key}: {label}, card vs CPU differ by {diff} (atol "
+                f"{atol:.2e})")
+    limit = "1e-4 x scale" if per_scale else "1e-4"
+    phase(key, t0, f"{label}, f32: forward, prefill logits and cache, "
+                   f"decode logits and cache over {n_prompt} tokens on the "
+                   f"card within {err:.2e} of the port's CPU run, "
+                   f"{worst:.2e} of a tensor's scale (limit rtol 1e-4, atol "
+                   f"{limit})")
+    report[f"{key}_card_vs_cpu"] = {"max_abs_diff": err,
+                                    "max_diff_over_scale": worst}
 
-    # (c) decode after prefill against the forward pass, full width, f32
+
+def decode_vs_forward(torch, dev, report, key, label, cfg, n_forward,
+                      n_prompt) -> None:
+    """(c): the prefill of ``n_prompt`` tokens and decode steps to
+    ``n_forward`` against the forward pass over ``n_forward`` tokens at
+    each of those positions, on the card (rtol and atol 2e-3)."""
+    import numpy as np
+
+    from repro_torch.models import zoo
+
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2,
-                              dtype="float32")
-    model = zoo.init_params(cfg, generator=gen(dev), device=dev)
+    model = zoo.init_params(cfg, generator=_gen(torch, dev), device=dev)
     x = torch.as_tensor(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (2, 128)), device=dev)
+        0, cfg.vocab_size, (2, n_forward)), device=dev)
     full, _ = zoo.forward(model, cfg, {"tokens": x})
-    _, cache = zoo.prefill(model, cfg, {"tokens": x[:, :-1]}, max_seq=128)
-    step, _ = zoo.decode_step(model, cfg, {"token": x[:, -1:], "pos": 127},
-                              cache)
-    got, want = step[:, 0, :cfg.vocab_size], full[:, -1]
-    err = float((got - want).abs().max())
-    require(torch.allclose(got, want, rtol=2e-3, atol=2e-3),
-            f"lm_parity: decode after prefill differs from forward by {err}")
+    _, cache = zoo.prefill(model, cfg, {"tokens": x[:, :n_prompt]},
+                           max_seq=n_forward)
+    err = 0.0
+    for pos in range(n_prompt, n_forward):
+        step, cache = zoo.decode_step(model, cfg, {"token": x[:, pos:pos + 1],
+                                                   "pos": pos}, cache)
+        got, want = step[:, 0, :cfg.vocab_size], full[:, pos]
+        err = max(err, float((got - want).abs().max()))
+        require(torch.allclose(got, want, rtol=2e-3, atol=2e-3),
+                f"{key}: decode at {pos} after prefill differs from forward "
+                f"by {err}")
     del model, cache, full
     torch.cuda.empty_cache()
-    report["lm_parity_decode_vs_forward"] = {"max_abs_diff": err}
-    phase("lm_parity", t0, f"qwen3-8b cut to 2 layers, f32, 2 x 128: "
-                           f"decode(prefill(x[:-1]), x[-1]) within "
-                           f"{err:.2e} of forward(x)[:, -1] (rtol and atol "
-                           f"2e-3)")
+    report[f"{key}_decode_vs_forward"] = {"max_abs_diff": err}
+    phase(key, t0, f"{label}, f32, 2 x {n_forward}: decode steps "
+                   f"{n_prompt}..{n_forward - 1} after prefill(x[:"
+                   f"{n_prompt}]) within {err:.2e} of forward(x) (rtol and "
+                   f"atol 2e-3)")
+
+
+def lm_parity_phase(torch, dev, report) -> None:
+    """10. The dense LM on the card against its plain attention, against
+    the port's CPU run, and its decode against its forward pass."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import zoo
+
+    # (a) full width, 2 layers, bf16: the kernel against impl="full"
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2)
+    model = zoo.init_params(cfg, generator=_gen(torch, dev), device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    flash_vs_full(torch, report, "lm_parity", "qwen3-8b cut to 2 layers",
+                  cfg, model, model.blocks[0].attn, tokens, 8,
+                  "layer 0's attention")
+    del model
+    torch.cuda.empty_cache()
+    # (b) the reduced f32 config: the card against the port's CPU run
+    card_vs_cpu(torch, dev, report, "lm_parity",
+                "reduced qwen3-8b (2 layers, d_model 64)",
+                reduced_config(get_config("qwen3-8b")), 31)
+    # (c) decode after prefill against the forward pass, full width, f32
+    decode_vs_forward(torch, dev, report, "lm_parity",
+                      "qwen3-8b cut to 2 layers",
+                      dataclasses.replace(get_config("qwen3-8b"), n_layers=2,
+                                          dtype="float32"), 128, 127)
+
+
+def zamba2_parity_phase(torch, dev, report) -> None:
+    """14. The hybrid LM on the card against its plain attention (at head
+    dim 80), against the port's CPU run, and its decode against its
+    forward pass across SSD chunks."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import zoo
+
+    full_width = get_config("zamba2-2.7b")
+    two_groups = 2 * full_width.attn_every
+    # (a) full width, 2 groups (12 Mamba2 layers, 2 applications of the
+    # shared block), bf16: the kernel against impl="full"
+    cfg = dataclasses.replace(full_width, n_layers=two_groups)
+    model = zoo.init_params(cfg, generator=_gen(torch, dev), device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    flash_vs_full(torch, report, "zamba2_parity",
+                  f"zamba2-2.7b cut to 2 groups ({two_groups} Mamba2 "
+                  f"layers)", cfg, model, model.shared.attn, tokens, 8,
+                  "the shared block's first attention")
+    del model
+    torch.cuda.empty_cache()
+    # (b) the reduced config at head dim 80, f32, two SSD chunks. The atol
+    # is per unit of scale: rounding the matmuls otherwise (f64 products
+    # rounded once, on the CPU) moves this run's 256-token logits by 5.4e-4
+    # at a scale of 59, and the SSD's decays carry such changes through
+    # whole chunks
+    red = reduced_config(full_width, n_layers=4, d_model=160)
+    require(red.resolved_head_dim == 80, "zamba2_parity: reduced Dh 80")
+    card_vs_cpu(torch, dev, report, "zamba2_parity",
+                "reduced zamba2-2.7b (2 groups of 2, d_model 160, Dh 80)",
+                red, 256, per_scale=True)
+    # (c) decode after a two-chunk prefill against the forward pass, full
+    # width, 2 groups, f32
+    decode_vs_forward(torch, dev, report, "zamba2_parity",
+                      "zamba2-2.7b cut to 2 groups",
+                      dataclasses.replace(full_width, n_layers=two_groups,
+                                          dtype="float32"), 384, 256)
 
 
 def main() -> int:
@@ -3085,7 +3241,11 @@ def main() -> int:
 
     # flash attention: the qwen3-8b prefill's shape first (4 prompts x 32
     # query heads over 8 KV heads, S = 2,048, Dh = 128), in bf16 and f32;
-    # then ragged S, GQA groups 1, 3 and 8, Dh 64, non-causal, Sq != Sk
+    # then ragged S, GQA groups 1, 3 and 8, Dh 64, non-causal, Sq != Sk;
+    # then the zamba2-2.7b prefill's (4 prompts x 32 heads over 32 KV
+    # heads, S = 2,048, Dh = 80; the row FLASH_DH80) in bf16 and f32, Dh 80
+    # ragged and non-causal, and the other head dims between multiples of
+    # 64 (48, 96, 112) ragged
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for B, Hq, Hkv, Sq, Sk, Dh, causal, dt in (
             (4, 32, 8, 2048, 2048, 128, True, torch.bfloat16),
@@ -3094,7 +3254,14 @@ def main() -> int:
             (1, 24, 8, 1000, 1000, 128, True, torch.bfloat16),
             (2, 32, 4, 1000, 1000, 64, True, torch.bfloat16),
             (1, 32, 8, 512, 1024, 128, False, torch.bfloat16),
-            (1, 32, 8, 300, 2048, 128, True, torch.float32)):
+            (1, 32, 8, 300, 2048, 128, True, torch.float32),
+            (4, 32, 32, 2048, 2048, 80, True, torch.bfloat16),
+            (4, 32, 32, 2048, 2048, 80, True, torch.float32),
+            (1, 32, 32, 1000, 1000, 80, True, torch.bfloat16),
+            (1, 32, 8, 512, 1024, 80, False, torch.bfloat16),
+            (1, 8, 8, 333, 333, 48, True, torch.bfloat16),
+            (1, 8, 2, 333, 333, 96, True, torch.bfloat16),
+            (1, 8, 8, 333, 333, 112, True, torch.float32)):
         q = torch.randn(B * Hq, Sq, Dh, device=dev, generator=g).to(dt)
         k = torch.randn(B * Hkv, Sk, Dh, device=dev, generator=g).to(dt)
         v = torch.randn(B * Hkv, Sk, Dh, device=dev, generator=g).to(dt)
@@ -3107,7 +3274,7 @@ def main() -> int:
         views = [t.view(B, -1, t.shape[1], Dh) for t in (q, k, v)]
         dname = str(dt).removeprefix("torch.")
         kernel_row(
-            "flash_attention",
+            FLASH_DH80 if Dh == 80 else "flash_attention",
             f"flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} "
             f"{'causal' if causal else 'full'} {dname}",
             lambda q=q, k=k, v=v, c=causal:
@@ -3858,13 +4025,17 @@ def main() -> int:
     del A_s, b_s
     torch.cuda.empty_cache()
 
-    # 9. the LM serving path; 10. its parity checks
-    lm_counts = lm_phase(torch, dev, report)
+    # 9. the dense LM's serving path; 10. its parity checks
+    lm_counts = serve_phase(torch, dev, report, "qwen3-8b", "lm")
     lm_parity_phase(torch, dev, report)
+    # 13. the hybrid LM's serving path; 14. its parity checks
+    zamba2_counts = serve_phase(torch, dev, report, "zamba2-2.7b", "zamba2")
+    zamba2_parity_phase(torch, dev, report)
 
     # launches: each kernel's count from the full-width path that runs it
     # (the Fig. 2 Woodbury fit, the Fig. 3 feature-split fit, the Fig. 3
-    # PCG fit, the qwen3-8b prefill and decode, the projections past the
+    # PCG fit, the qwen3-8b prefill and decode (and at head dim 80 the
+    # zamba2-2.7b prefill and decode), the projections past the
     # one-launch limit, the lane projections' from fleet_sq); the bf16 instantiations' from woodbury_bf16 and
     # pcg_bf16, the fp16 ones' from dense_fp16 and the fp16 parity fits
     # (no full-width fp16 cell runs matvec or normal_matvec)
@@ -3881,7 +4052,7 @@ def main() -> int:
         "block_matvec_f16": "sharded_fp16",
         "block_rmatvec_f16": "sharded_fp16"}
     kernels = []
-    for name in (*ops.KERNELS, *HALF_KERNELS, *POLISH_KERNELS):
+    for name in (*ops.KERNELS, FLASH_DH80, *HALF_KERNELS, *POLISH_KERNELS):
         row = dict(rows[name])
         for key in ("shape", "call_ms", "yardsticks_ms"):
             row.pop(key)
@@ -3895,6 +4066,8 @@ def main() -> int:
             row["launches"] = slice_launches[name]
         else:
             counts = (lm_counts if name == "flash_attention" else
+                      {name: zamba2_counts["flash_attention"]}
+                      if name == FLASH_DH80 else
                       fleet_counts if name in LANE_KERNELS else
                       block_counts if name in BLOCK_KERNELS else
                       large_counts if name == "ladder_stats" else

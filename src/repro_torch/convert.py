@@ -28,7 +28,8 @@ accumulators, its replay window's chunks and its state) into a port
 ``StreamingBiCADMM``, so a port stream continues a JAX one.
 
 :func:`lm_params_from_jax` carries the JAX package's LM parameters (a tree
-of numpy arrays) into the port's model.
+of numpy arrays) into the port's model, the dense or the hybrid one
+(:func:`hybrid_params_from_jax`).
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ from .core.sharded import ShardedGlobalState
 from .core.streaming import (CGStreamAccum, DenseStreamAccum,
                              StreamingBiCADMM, WoodburyStreamAccum)
 from .core.subsolver import SubsolverState
-from .models import transformer, zoo
+from .models import ssm, transformer, zoo
 
 _INT_FIELDS = ("k",)
 _INNER_FIELDS = tuple(f.name for f in dataclasses.fields(SubsolverState))
@@ -237,38 +238,97 @@ def fleet_state_from_numpy(d: dict, device) -> BiCADMMState:
     return state_from_numpy(d, device)
 
 
-def lm_params_from_jax(params: Mapping, cfg, device) -> transformer.LM:
-    """The port's dense LM with the weights of a JAX ``zoo.init_params``
-    tree, given as numpy arrays (any float dtype; cast to ``cfg.dtype``).
+def lm_params_from_jax(params: Mapping, cfg, device) -> zoo.Model:
+    """The port's LM with the weights of a JAX ``zoo.init_params`` tree,
+    given as numpy arrays (any float dtype; cast to ``cfg.dtype``): the
+    dense LM, or for the hybrid family :func:`hybrid_params_from_jax`.
 
     The JAX tree stacks the blocks on a leading L axis and lays dense
     weights out (d_in, d_out) for ``x @ W``; the port's ``nn.Linear``
     weights are (d_out, d_in), so those are transposed. Embedding, LM head
     and norm weights keep their layout."""
-    zoo._require_dense(cfg)
+    if zoo._hybrid(cfg):
+        return hybrid_params_from_jax(params, cfg, device)
     dtype = zoo.dtype_of(cfg.dtype)
     dev = torch.device(device)
     model = transformer.lm_init(None, cfg, dtype, dev)
-
-    def t(arr) -> torch.Tensor:
-        return torch.as_tensor(np.array(arr, dtype=np.float32)).to(
-            device=dev, dtype=dtype)
-
-    blocks = params["blocks"]
+    t = _caster(dtype, dev)
     with torch.no_grad():
-        model.embed.copy_(t(params["embed"]))
-        model.lm_head.copy_(t(params["lm_head"]))
-        model.final_norm.copy_(t(params["final_norm"]))
+        _outer_from_jax(model, params, t)
         for i, blk in enumerate(model.blocks):
-            blk.norm1.copy_(t(blocks["norm1"][i]))
-            blk.norm2.copy_(t(blocks["norm2"][i]))
-            for name in ("wq", "wk", "wv", "wo"):
-                getattr(blk.attn, name).weight.copy_(
-                    t(blocks["attn"][name][i]).T)
-            if cfg.qk_norm:
-                blk.attn.q_norm.copy_(t(blocks["attn"]["q_norm"][i]))
-                blk.attn.k_norm.copy_(t(blocks["attn"]["k_norm"][i]))
-            for name in ("w_gate", "w_up", "w_down"):
-                getattr(blk.mlp, name).weight.copy_(
-                    t(blocks["mlp"][name][i]).T)
+            _block_from_jax(blk, params["blocks"], cfg, t, i)
     return model
+
+
+def hybrid_params_from_jax(params: Mapping, cfg,
+                           device) -> transformer.HybridLM:
+    """The port's hybrid (Zamba2) LM with the weights of a JAX
+    ``zoo.init_params`` tree as numpy arrays: the tree's ``mgroups``,
+    stacked (G, A, ...), unstacked into ``groups[g][a]``; ``in_proj`` and
+    ``out_proj`` transposed into ``nn.Linear`` layout; the conv weights and
+    the f32 SSD parameters as they are; the shared block as a dense
+    block."""
+    dtype = zoo.dtype_of(cfg.dtype)
+    dev = torch.device(device)
+    model = transformer.hybrid_init(None, cfg, dtype, dev)
+    t = _caster(dtype, dev)
+    mg = params["mgroups"]
+    with torch.no_grad():
+        _outer_from_jax(model, params, t)
+        _block_from_jax(model.shared, params["shared"], cfg, t)
+        for g, group in enumerate(model.groups):
+            for a, layer in enumerate(group):
+                layer.norm.copy_(t(mg["norm"][g, a]))
+                _mamba_from_jax(layer.mamba, {k: v[g, a] for k, v in
+                                              mg["mamba"].items()}, t)
+    return model
+
+
+def mamba_params_from_jax(params: Mapping, cfg, device) -> ssm.Mamba2:
+    """One Mamba2 mixer from a JAX ``ssm.mamba_init`` tree of numpy
+    arrays, as :func:`hybrid_params_from_jax` converts each layer."""
+    dtype = zoo.dtype_of(cfg.dtype)
+    dev = torch.device(device)
+    m = ssm.mamba_init(None, cfg, dtype, dev)
+    with torch.no_grad():
+        _mamba_from_jax(m, params, _caster(dtype, dev))
+    return m
+
+
+def _mamba_from_jax(m: ssm.Mamba2, tree: Mapping, t) -> None:
+    for name in ("in_proj", "out_proj"):
+        getattr(m, name).weight.copy_(t(tree[name]).T)
+    for name in ("conv_w", "conv_bias_w", "gate_norm", "a_log", "dt_bias",
+                 "d_skip"):
+        param = getattr(m, name)
+        param.copy_(t(tree[name], param.dtype))
+
+
+def _caster(dtype, dev):
+    """numpy -> a tensor on ``dev`` in ``dtype`` (or the given one)."""
+    def t(arr, to=dtype) -> torch.Tensor:
+        return torch.as_tensor(np.array(arr, dtype=np.float32)).to(
+            device=dev, dtype=to)
+    return t
+
+
+def _outer_from_jax(model, params: Mapping, t) -> None:
+    model.embed.copy_(t(params["embed"]))
+    model.lm_head.copy_(t(params["lm_head"]))
+    model.final_norm.copy_(t(params["final_norm"]))
+
+
+def _block_from_jax(blk: transformer.Block, tree: Mapping, cfg, t,
+                    i: int | None = None) -> None:
+    """A dense block from a JAX block tree, entry ``i`` of a stacked one."""
+    def leaf(arr):
+        return t(arr if i is None else arr[i])
+    blk.norm1.copy_(leaf(tree["norm1"]))
+    blk.norm2.copy_(leaf(tree["norm2"]))
+    for name in ("wq", "wk", "wv", "wo"):
+        getattr(blk.attn, name).weight.copy_(leaf(tree["attn"][name]).T)
+    if cfg.qk_norm:
+        blk.attn.q_norm.copy_(leaf(tree["attn"]["q_norm"]))
+        blk.attn.k_norm.copy_(leaf(tree["attn"]["k_norm"]))
+    for name in ("w_gate", "w_up", "w_down"):
+        getattr(blk.mlp, name).weight.copy_(leaf(tree["mlp"][name]).T)

@@ -21,7 +21,7 @@
 // at the bf16 tensor-core peak. bf16 operands therefore run on the tensor
 // cores through wgmma (flash_wgmma_kernel: two consumer warpgroups and a TMA
 // producer warp around a ring of K/V tiles; the split P makes its work 1.5x
-// the bound's).
+// the bound's). Head dims: the multiples of 16 up to 128.
 // f32 operands run on the CUDA cores (flash_fwd_kernel, the 67 TFLOP/s f32
 // rate at 700 W), where they keep the f32 parity.
 //
@@ -251,9 +251,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // softmax at once with the tensor cores idle: 1.3x this kernel's time at
 // the qwen3-8b prefill shape; see PERF.md.) q, k and v
 // are described as 3-D (heads, rows, Dh) tensor maps, so a box that runs
-// past Sq or Sk reads zeros rather than the next head's rows, and a box
-// 64 columns wide over Dh 16 or 32 zero-fills the columns past Dh: GQA and
-// ragged lengths need no padded copy. The maps are built on the host for
+// past Sq or Sk reads zeros rather than the next head's rows, and the
+// 64-column boxes zero-fill the columns past Dh: GQA and ragged lengths need
+// no padded copy. A row is DP = Dh rounded up to 64 or 128 columns in shared
+// memory (one or two slabs), so a head dim that is a multiple of 16 but not
+// of 64 (16 to 48, 80 to 112) runs the DP kernel on zero columns: the work,
+// the registers and the shared memory of Dh = DP, and exact, since the zero
+// columns add nothing to Q K^T and produce output columns that are never
+// stored. The kernel is compiled once a DP, Dh a run-time argument. The
+// maps are built on the host for
 // each call (cuTensorMapEncodeTiled) and passed as __grid_constant__
 // parameters. No setmaxnreg: a thread may hold 168 registers (288 threads
 // put three warps on one of the SM's four 16,384-register sub-partitions)
@@ -261,9 +267,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kConsumers = 256, kWgThreads = kConsumers + 32;
 constexpr int WBQ = 128, WBK = 128, kStages = 2;
 
+// The row width in shared memory of head dim DH: 64 or 128 columns.
 template <int DH>
+constexpr int wg_width() {
+  return DH <= 64 ? 64 : 128;
+}
+
+template <int DP>
 struct WgTile {
-  static constexpr int DP = DH < 64 ? 64 : DH;   // row width in shared memory
+  static_assert(DP == 64 || DP == 128, "one or two 64-column slabs");
   static constexpr int kQ = WBQ * DP * 2;           // bytes of the Q tile
   static constexpr int kKV = WBK * DP * 2;          // bytes of one K or V tile
   static constexpr int kBars = 8 * (1 + 2 * kStages);   // the mbarriers
@@ -402,15 +414,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 }
 #undef WG_D8
 
-template <int DH>
+template <int DP>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
-                   __nv_bfloat16* __restrict__ o, int Sq, int Sk, int group,
-                   float scale_log2, int causal) {
-  using L = WgTile<DH>;
-  constexpr int DP = L::DP, NS = WBK / 8, NO = DP / 8, SLABS = DP / 64;
+                   __nv_bfloat16* __restrict__ o, int Sq, int Sk, int dh,
+                   int group, float scale_log2, int causal) {
+  using L = WgTile<DP>;
+  constexpr int NS = WBK / 8, NO = DP / 8, SLABS = DP / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const unsigned sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const unsigned sKV = sQ + L::kQ;            // stage s: K, then V
@@ -563,10 +575,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row = row0 + h * 8;
     if (row >= Sq) continue;
     const float denom = fmaxf(l, 1e-30f);
-    __nv_bfloat16* op = o + ((size_t)bh * Sq + row) * DH + tq * 2;
+    __nv_bfloat16* op = o + ((size_t)bh * Sq + row) * dh + tq * 2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
-      if (8 * j < DH)
+      if (8 * j < dh)
         *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(
             acc[4 * j + 2 * h] / denom, acc[4 * j + 2 * h + 1] / denom);
   }
@@ -635,16 +647,16 @@ int launch_dh(const __nv_bfloat16* q, const __nv_bfloat16* k,
               const __nv_bfloat16* v, __nv_bfloat16* o, int bh, int sq,
               int sk, int group, float scale, int causal,
               cudaStream_t stream) {
-  constexpr int bytes = WgTile<DH>::kBytes;
-  const cudaError_t e = allow_smem<flash_wgmma_kernel<DH>>(bytes);
+  constexpr int DP = wg_width<DH>(), bytes = WgTile<DP>::kBytes;
+  const cudaError_t e = allow_smem<flash_wgmma_kernel<DP>>(bytes);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap mq, mk, mv;
   if (!encode_map(&mq, q, DH, sq, bh) ||
       !encode_map(&mk, k, DH, sk, bh / group) ||
       !encode_map(&mv, v, DH, sk, bh / group))
     return (int)cudaErrorInvalidValue;
-  flash_wgmma_kernel<DH><<<dim3((sq + WBQ - 1) / WBQ, bh), kWgThreads, bytes,
-                           stream>>>(mq, mk, mv, o, sq, sk, group,
+  flash_wgmma_kernel<DP><<<dim3((sq + WBQ - 1) / WBQ, bh), kWgThreads, bytes,
+                           stream>>>(mq, mk, mv, o, sq, sk, DH, group,
                                      scale * 1.4426950408889634f,  // log2(e)
                                      causal);
   return (int)cudaGetLastError();
@@ -663,7 +675,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   switch (dh) {
     FLASH_DH(16);
     FLASH_DH(32);
+    FLASH_DH(48);
     FLASH_DH(64);
+    FLASH_DH(80);
+    FLASH_DH(96);
+    FLASH_DH(112);
     FLASH_DH(128);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -673,7 +689,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 }  // namespace
 
 // q (bh, sq, dh), k and v (bh / group, sk, dh), o (bh, sq, dh), all
-// contiguous; dh in {16, 32, 64, 128}. One kernel launch. Returns
+// contiguous; dh a multiple of 16 up to 128. One kernel launch. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for another dh).
 #define FLASH_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \

@@ -4,9 +4,11 @@
 ``flash_attention_flat(q, k, v)`` takes the flat head-major layout: q
 (BHq, Sq, Dh) and k/v (BHkv, Sk, Dh), query row b reading KV row
 b // (BHq / BHkv). On CUDA tensors it launches ``csrc/flash_attention.cu``
-(one kernel per call; Dh in {16, 32, 64, 128}; f32 softmax state inside,
-output in q.dtype): bf16 operands on the tensor cores (wgmma, K and V
-brought in by TMA), f32 on the CUDA cores. Any other head dim, operand
+(one kernel per call; Dh a multiple of 16 up to 128, ``HEAD_DIMS``; f32
+softmax state inside, output in q.dtype): bf16 operands on the tensor cores
+(wgmma, K and V brought in by TMA; a head dim between the multiples of 64,
+such as zamba2-2.7b's 80, runs the 128-column kernel on zero-filled
+columns), f32 on the CUDA cores. Any other head dim, operand
 type or layout raises. On CPU tensors it is the plain version of
 :mod:`repro_torch.kernels.ref`. Both keep the JAX contract at its default
 ``block_k`` of 128: a non-causal call whose Sk is above 128 and not a
@@ -22,7 +24,7 @@ import torch
 from . import build
 from .ref import flash_attention_flat_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 BLOCK_K = 128          # the JAX function's default key block
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}

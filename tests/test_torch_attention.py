@@ -67,6 +67,8 @@ FLASH_CASES = [
     # non-causal, and queries fewer than keys (causal and not)
     (1, 128, 128, 2, 2, 64, False), (2, 64, 128, 4, 2, 32, False),
     (1, 40, 96, 3, 1, 16, True),
+    # zamba2-2.7b's head dim 80 (its 32:32 heads cut to 2), S ragged
+    (1, 100, 100, 2, 2, 80, True),
 ]
 
 
@@ -155,7 +157,7 @@ def test_rms_norm_matches_jax():
 
 
 @pytest.mark.parametrize("head_dim,theta", [(16, 1e6), (128, 1e6),
-                                            (128, 1e4)])
+                                            (128, 1e4), (80, 1e4)])
 def test_rope_matches_jax_up_to_position_4096(head_dim, theta):
     pos = np.arange(4097, dtype=np.int32)[None, :]
     cos, sin = tlayers.rope_freqs(head_dim, theta, torch.as_tensor(pos))

@@ -1095,7 +1095,7 @@ FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 1e-1)}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 48, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("BH,BHkv,Sq,Sk,causal", [
     (4, 4, 128, 128, True),      # group 1, whole tiles
     (6, 2, 100, 100, True),      # group 3, ragged S
@@ -1147,9 +1147,9 @@ def test_cuda_flash_attention_launches_once_and_refuses(cuda_gen):
     ops.flash_attention_auto(q, k, k)
     assert ops.launch_counts()["flash_attention"] == 2
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention.flash_attention_flat(q[..., :48].contiguous(),
-                                             k[..., :48].contiguous(),
-                                             k[..., :48].contiguous())
+        flash_attention.flash_attention_flat(q[..., :40].contiguous(),
+                                             k[..., :40].contiguous(),
+                                             k[..., :40].contiguous())
     with pytest.raises(ValueError, match="non-causal"):
         flash_attention.flash_attention_flat(q, k, k, causal=False)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1165,6 +1165,7 @@ def test_cuda_flash_attention_launches_once_and_refuses(cuda_gen):
 @pytest.mark.parametrize("BH,BHkv,Sq,Sk,Dh,causal", [
     (4, 2, 200, 200, 128, True),
     (6, 2, 130, 300, 64, True),       # Sq < Sk
+    (6, 2, 130, 300, 80, True),       # two slabs, the second part zeros
     (8, 2, 70, 100, 32, False),       # Sk < one key tile
     (3, 3, 129, 129, 16, True),       # one key tile and one key
 ])
@@ -1188,6 +1189,8 @@ def test_cuda_flash_attention_bf16_reads_no_key_past_sk(cuda_gen, BH, BHkv,
 @pytest.mark.cuda
 @pytest.mark.parametrize("BH,BHkv,Sq,Sk,Dh,causal", [
     (8, 2, 2048, 2048, 128, True), (4, 4, 333, 333, 64, True),
+    (4, 4, 2048, 2048, 80, True), (6, 3, 257, 257, 48, True),
+    (6, 2, 130, 512, 112, False),
     (6, 2, 130, 512, 32, False), (3, 1, 77, 77, 16, True),
     # fewer keys than the K/V ring holds: below one tile, one tile and one
     # key, two tiles and one key (a non-causal Sk above 128 is a multiple
@@ -1554,3 +1557,45 @@ def test_cuda_fp64_polish_fit_and_stream_agree_with_the_cpu(cuda_gen,
     assert by_type["l1_epigraph_proj_f64polish"] == \
         counts["l1_epigraph_proj"] > 0
     assert counts["chol_rank_update"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_at_head_dim_80_matches_the_cpu(cuda_gen):
+    """The reduced zamba2-2.7b at head dim 80 (4 layers: 2 groups of 2
+    Mamba2 layers and the shared block; d_model 160, 2 heads of 80) in f32:
+    forward, the prefill's logits and cache over two SSD chunks, and one
+    decode step on the card against the port's CPU run, at rtol 1e-4 and
+    an atol of 1e-4 per unit of each tensor's scale (rounding the matmuls
+    otherwise, f64 products rounded once on the CPU, moves the 256-token
+    logits by 5.4e-4 at a scale of 59); the prefill launches the flash
+    kernel once a group, the decode step never."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import zoo
+    cfg = reduced_config(get_config("zamba2-2.7b"), n_layers=4, d_model=160)
+    assert cfg.resolved_head_dim == 80
+    on_cpu = zoo.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    on_card = copy.deepcopy(on_cpu).to("cuda")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 257))
+    outs = {}
+    for name, model in (("card", on_card), ("cpu", on_cpu)):
+        full, _ = zoo.forward(model, cfg, {"tokens": tokens[:, :256]})
+        ops.reset_launch_counts()
+        last, cache = zoo.prefill(model, cfg, {"tokens": tokens[:, :256]},
+                                  max_seq=264)
+        prefill_launches = ops.launch_counts()["flash_attention"]
+        pre = {k: v.clone() for k, v in cache.items()}
+        step, cache = zoo.decode_step(
+            model, cfg, {"token": tokens[:, 256:], "pos": 256}, cache)
+        assert ops.launch_counts()["flash_attention"] == prefill_launches
+        outs[name] = [t.cpu() for t in (full, last, step, *pre.values(),
+                                        *cache.values())]
+        if name == "card":
+            assert prefill_launches == cfg.n_layers // cfg.attn_every
+    for got, want in zip(outs["card"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))

@@ -146,7 +146,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_NAMES
-                                  if get_config(a).family != "dense"])
+                                  if get_config(a).family not in zoo.PORTED])
 def test_other_families_raise_capability_error(arch):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(CapabilityError, match="ROADMAP"):
