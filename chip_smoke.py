@@ -39,11 +39,15 @@ Phases, each printing its own line with its wall time:
               normal_matvec at the fleet's (B N, m, n) views. The bf16 /
               fp16 block_matvec and block_rmatvec at the sharded engine's
               per-rank block (1, 25,000, 1,000) with K = 1 and 3, at
-              Fig. 3's (8, 25,000, 4,000) with M = 4 and at the ragged
-              (2, 3,000, 1,001), held to the f32-accumulation bound
-              1e-5 x scale + 1e-6, beside torch.matmul on the half-width
-              block view. Flash attention at the qwen3-8b prefill's shape
-              (Dh 128) and at the zamba2-2.7b prefill's, q, k and v
+              Fig. 3's (8, 25,000, 4,000) with M = 4, at the ragged
+              (2, 3,000, 1,001) and (fp16) at sharded_fp16's one-node
+              block (1, 25,000, 4,000), held to the f32-accumulation bound
+              1e-5 x scale + 1e-6 and two calls bit for bit, beside
+              torch.matmul on the half-width block view, each with the
+              plan it ran (route, tiles, ring, threads, CTAs, launches);
+              the f32 ones also at the sharded cell's (1, 25,000, 1,000).
+              Flash attention at the qwen3-8b prefill's shape (Dh 128)
+              and at the zamba2-2.7b prefill's, q, k and v
               (128, 2,048, 80), beside SDPA; ragged, GQA and non-causal
               cases and the other head dims between multiples of 64.
    large_n  — one l1-epigraph projection and one S^kappa support one entry
@@ -207,7 +211,9 @@ Phases, each printing its own line with its wall time:
               state); after fleet_sq, fleet_sq_window: two more of its
               outer iterations from its state under the profiler (device
               ops, host syncs, idle share, the lane kernels' device ms;
-              244 lane launches required). Each stacked part holds 4 lanes
+              244 lane launches required, by the wrappers' counts and in
+              the trace, which is taken again, up to 3 times, while it
+              lacks kernel records). Each stacked part holds 4 lanes
               spread over the fleet against solo card fits (the same
               status, support, coef within
               1e-3, iterations within 2; the count that match to the
@@ -240,7 +246,9 @@ Phases, each printing its own line with its wall time:
               single-process PCG x-update (polish off) in the band.
    sharded_fp16 — the same node in fp16 through the engine directly
               (the api certifies float32 and bfloat16 for the sharded
-              engine, as the JAX package): the f16 block kernels launch.
+              engine, as the JAX package): the f16 block kernels launch;
+              its ms an outer iteration (set-up included) and launches by
+              type.
 13. zamba2   — the hybrid LM's serving path at full width and depth, with
               the lm phase's traffic and checks: zamba2-2.7b (54 Mamba2
               layers in 9 groups of 6, each group followed by the one
@@ -965,6 +973,7 @@ PROBE_CFG = dict(kappa=4, gamma=1000.0, rho_c=10.0, max_iter=20, tol=1e-3)
 # PR 22 to keep the script within its time with the new phases: the solo
 # loops were ~140 s of the fleet phases)
 FLEET_SAMPLE = 4
+WINDOW_TRACES = 3             # profiled runs of fleet_sq_window at most
 
 
 def fleet_data(B, N, m, n, seed=0, labels=False):
@@ -992,6 +1001,7 @@ def fleet_window(torch, As, bs, state) -> dict:
 
     from repro_torch.core import BiCADMM, BiCADMMConfig
     from repro_torch.core import fleet as fleet_mod
+    from repro_torch.kernels import ops
     solver = BiCADMM("squared", BiCADMMConfig(
         **{**FLEET_CFG, "max_iter": 2, "tol": 0.0}))
     B, N = As.shape[:2]
@@ -1012,14 +1022,25 @@ def fleet_window(torch, As, bs, state) -> dict:
     wall_ms = (time.perf_counter() - t_w) * 1e3
     require(int(st.k.max()) == 2, f"fleet window: {int(st.k.max())} outer "
                                   "iterations, expected 2")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_w = time.perf_counter()
-        run()
-        on_ms = (time.perf_counter() - t_w) * 1e3
-    table = device_table(prof)
+    # the wrappers' counts are what the profiled run launched; a trace that
+    # lost kernel records (CUPTI drops some now and then) is taken again,
+    # and the window's numbers come from the first complete trace
+    for attempt in range(1, WINDOW_TRACES + 1):
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_w = time.perf_counter()
+            run()
+            on_ms = (time.perf_counter() - t_w) * 1e3
+        counted = sum(ops.launch_counts()[k] for k in LANE_KERNELS)
+        table = device_table(prof)
+        lanes = {k: v for k, v in table.items() if "lanes_kernel" in k}
+        seen = sum(v["calls"] for v in lanes.values())
+        if seen == counted:
+            break
+        print(f"  fleet_sq_window: trace {attempt} saw {seen} of the "
+              f"{counted} lane launches; profiling again", flush=True)
     busy = sum(v["device_ms"] for v in table.values())
-    lanes = {k: v for k, v in table.items() if "lanes_kernel" in k}
     syncs = sum(ev.count for ev in prof.key_averages()
                 if ev.key == "aten::_local_scalar_dense")
     top = sorted(table.items(), key=lambda kv: -kv[1]["device_ms"])[:6]
@@ -1030,7 +1051,8 @@ def fleet_window(torch, As, bs, state) -> dict:
             "idle_share": 1 - busy / wall_ms if busy else None,
             "idle_share_profiler_on": 1 - busy / on_ms if busy else None,
             "lane_ms": sum(v["device_ms"] for v in lanes.values()),
-            "lane_launches": sum(v["calls"] for v in lanes.values()),
+            "lane_launches": seen, "lane_launches_counted": counted,
+            "traces": attempt,
             "lane_kernels": lanes, "top": dict(top)}
 
 
@@ -1361,19 +1383,24 @@ def sharded_cg_phase(torch, api, ops, report, A1, b1) -> None:
             torch.cuda.synchronize()
             wall16 = time.perf_counter() - t0
             by_type = ops.launch_counts_by_type()
-            for k in ("block_matvec_f16", "block_rmatvec_f16"):
-                require(by_type.get(k, 0) > 0,
-                        f"sharded_fp16: {k} was not launched")
+            for k in ("block_matvec", "block_rmatvec"):
+                require(by_type.get(f"{k}_f16", 0) > 0,
+                        f"sharded_fp16: {k}_f16 was not launched")
+                require(not by_type.get(f"{k}_f32", 0),
+                        f"sharded_fp16: {k}_f32 was launched")
             require(bool(torch.isfinite(res16.z).all())
                     and int(res16.status) != 2,
                     "sharded_fp16: non-finite or DIVERGED")
+            iters16 = max(int(res16.iters), 1)
             report["sharded_fp16"] = {"iters": int(res16.iters),
                                       "fit_s": wall16,
+                                      "s_per_outer_iter": wall16 / iters16,
                                       "launches_by_type": by_type}
             phase("sharded_fp16", t_ph,
                   f"the same node in fp16 through the engine (sub-solver, "
                   f"nb = {A1.shape[-1]}), {int(res16.iters)} iters, fit "
-                  f"{wall16:.2f} s (set-up included); launches by type "
+                  f"{wall16:.2f} s, {wall16 / iters16 * 1e3:.2f} ms/outer "
+                  f"iter (set-up included); launches by type "
                   f"{ {k: v for k, v in by_type.items() if 'block' in k} }")
         finally:
             sharded._all_reduce, sharded._gather = plain
@@ -1519,10 +1546,13 @@ def fleet_phases(torch, api, ops, report, dev) -> dict:
         t_ph = time.perf_counter()
         win = fleet_window(torch, As_sq, bs_sq, res_sq.state)
         report["fleet_sq_window"] = win
+        require(win["lane_launches_counted"] == 2 * 122,
+                f"fleet_sq_window: {win['lane_launches_counted']} lane "
+                f"kernel launches in 2 outer iterations (expected 244)")
         require(win["busy_ms"] > 0 and win["lane_launches"] == 2 * 122,
-                f"fleet_sq_window: the profiler saw {win['lane_launches']} "
-                f"lane kernel launches in 2 outer iterations (expected "
-                f"244) and {win['busy_ms']:.3f} ms of device time")
+                f"fleet_sq_window: the last of {win['traces']} traces saw "
+                f"{win['lane_launches']} of the 244 lane kernel launches "
+                f"and {win['busy_ms']:.3f} ms of device time")
         phase("fleet_sq_window", t_ph,
               f"2 outer iterations of fleet_sq from its state: wall "
               f"{win['wall_ms']:.2f} ms (profiler off), "
@@ -3126,51 +3156,62 @@ def main() -> int:
     report["normal_matvec_plans"] = plans
 
     # block_matvec / block_rmatvec: the Fig. 3 point with M = 4 blocks (the
-    # first rows are the path's shape), and a ragged shape whose last block
-    # is short and whose nb is not a multiple of 4
+    # first rows are the path's shape), a ragged shape whose last block
+    # is short and whose nb is not a multiple of 4, and the sharded cell's
+    # per-rank block (1, 25,000, 1,000) with M = 1 (its 480 launches of
+    # each)
     M3 = 4
     Ar = torch.randn(2, 3_000, 1_001, device=dev, generator=g)
-    for Ab, K in ((A3, 1), (A3, 3), (Ar, 1), (Ar, 3)):
+    for Ab, Mb, K in ((A3, M3, 1), (A3, M3, 3), (Ar, M3, 1), (Ar, M3, 3),
+                      (A3[:1, :, :1_000].contiguous(), 1, 1)):
         Nb, mb, nbb = Ab.shape
-        nb = -(-nbb // M3)
-        x = torch.randn(Nb, M3, nb, K, device=dev, generator=g)
-        y = torch.randn(Nb, M3, mb, K, device=dev, generator=g)
-        label = f"{tuple(Ab.shape)} M={M3} K={K}"
-        nbytes = 4 * (Nb * mb * nbb + Nb * M3 * (nb + mb) * K)
+        nb = -(-nbb // Mb)
+        x = torch.randn(Nb, Mb, nb, K, device=dev, generator=g)
+        y = torch.randn(Nb, Mb, mb, K, device=dev, generator=g)
+        label = f"{tuple(Ab.shape)} M={Mb} K={K}"
+        nbytes = 4 * (Nb * mb * nbb + Nb * Mb * (nb + mb) * K)
         flops = 2 * Nb * mb * nbb * K
-        view = (Ab.view(Nb, mb, M3, nb).transpose(1, 2)
-                if nbb == M3 * nb else None)
-        got, want = (block_matvec.block_matvec(Ab, x, M3),
-                     ref.block_matvec_ref(Ab, x, M3))
-        scale = float(ref.block_matvec_ref(Ab.abs(), x.abs(), M3).max())
+        view = (Ab.view(Nb, mb, Mb, nb).transpose(1, 2)
+                if nbb == Mb * nb else None)
+        got, want = (block_matvec.block_matvec(Ab, x, Mb),
+                     ref.block_matvec_ref(Ab, x, Mb))
+        scale = float(ref.block_matvec_ref(Ab.abs(), x.abs(), Mb).max())
         kernel_row("block_matvec", f"block_matvec {label}",
-                   lambda Ab=Ab, x=x: block_matvec.block_matvec(Ab, x, M3),
-                   lambda Ab=Ab, x=x: ref.block_matvec_ref(Ab, x, M3),
+                   lambda Ab=Ab, x=x, Mb=Mb:
+                       block_matvec.block_matvec(Ab, x, Mb),
+                   lambda Ab=Ab, x=x, Mb=Mb: ref.block_matvec_ref(Ab, x, Mb),
                    None if view is None else
                    (lambda view=view, x=x: torch.matmul(view, x)),
                    (got, want, scale), nbytes, flops)
         del got, want
-        got, want = (block_matvec.block_rmatvec(Ab, y, M3),
-                     ref.block_rmatvec_ref(Ab, y, M3))
-        scale = float(ref.block_rmatvec_ref(Ab.abs(), y.abs(), M3).max())
+        got, want = (block_matvec.block_rmatvec(Ab, y, Mb),
+                     ref.block_rmatvec_ref(Ab, y, Mb))
+        scale = float(ref.block_rmatvec_ref(Ab.abs(), y.abs(), Mb).max())
         kernel_row("block_rmatvec", f"block_rmatvec {label}",
-                   lambda Ab=Ab, y=y: block_matvec.block_rmatvec(Ab, y, M3),
-                   lambda Ab=Ab, y=y: ref.block_rmatvec_ref(Ab, y, M3),
+                   lambda Ab=Ab, y=y, Mb=Mb:
+                       block_matvec.block_rmatvec(Ab, y, Mb),
+                   lambda Ab=Ab, y=y, Mb=Mb:
+                       ref.block_rmatvec_ref(Ab, y, Mb),
                    None if view is None else
                    (lambda view=view, y=y: torch.matmul(view.mT, y)),
                    (got, want, scale), nbytes, flops)
         del got, want
     # the bf16 / fp16 block kernels: the sharded engine's per-rank block
     # (1, 25,000, 1,000) first (its sub-solver's shape; K = 3 for softmax),
-    # then Fig. 3's (8, 25,000, 4,000) with M = 4 and the ragged
-    # (2, 3,000, 1,001) (the scalar paths), held to their plain versions at
+    # then Fig. 3's (8, 25,000, 4,000) with M = 4, the ragged
+    # (2, 3,000, 1,001) (the scalar route) and, in fp16, sharded_fp16's
+    # one-node block (1, 25,000, 4,000), held to their plain versions at
     # the f32-accumulation bound 1e-5 x scale + 1e-6; bytes count 2 for an
     # element of A; the yardstick is torch.matmul on the half-width (N, M,
-    # m, nb) view and half-width blocks (bf16 out: another rounding)
+    # m, nb) view and half-width blocks (bf16 out: another rounding); each
+    # row prints the plan it ran (kernels/block_matvec.py, block_plan)
+    block_plans = report.setdefault("block_plans", {})
     for sfx, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
         for Ab, Mb, K in ((A3[:1, :, :1_000].to(dt), 1, 1),
                           (A3[:1, :, :1_000].to(dt), 1, 3),
-                          (A3.to(dt), M3, 1), (Ar.to(dt), M3, 1)):
+                          (A3.to(dt), M3, 1), (Ar.to(dt), M3, 1),
+                          *(((A3[:1].to(dt), 1, 1),) if sfx == "f16"
+                            else ())):
             Nb, mb, nbb = Ab.shape
             nb = -(-nbb // Mb)
             x = torch.randn(Nb, Mb, nb, K, device=dev, generator=g)
@@ -3188,6 +3229,12 @@ def main() -> int:
                     else ref.block_matvec_ref
                 got = fn(Ab, v, Mb)
                 require(got.dtype == torch.float32, f"{kname}_{sfx}: f32 out")
+                require(torch.equal(fn(Ab, v, Mb), got),
+                        f"{kname}_{sfx} {label}: two calls differ")
+                plan = block_matvec.plan_for(Ab, Mb, K, adjoint=adj)
+                block_plans[f"{kname} {label}"] = plan._asdict()
+                print(f"  {kname} {label}: plan {plan._asdict()}",
+                      flush=True)
                 scale = float(plain(Ab.float().abs(), v.abs(), Mb).max())
                 kernel_row(f"{kname}_{sfx}", f"{kname} {label}",
                            lambda Ab=Ab, v=v, fn=fn, Mb=Mb: fn(Ab, v, Mb),

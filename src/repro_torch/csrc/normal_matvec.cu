@@ -62,6 +62,7 @@
 //   its partial + (shift_c * p_c).
 #include <stdint.h>
 
+#include "bulk.cuh"
 #include "elem.cuh"
 
 namespace {
@@ -98,54 +99,6 @@ __device__ __forceinline__ float shift_at(const Shift& s, int col) {
 // g + shift * p as the plain version rounds it (no contraction into an FMA)
 __device__ __forceinline__ float finish(float g, float s, float p) {
   return __fadd_rn(g, __fmul_rn(s, p));
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-// One arrival that also expects `bytes` of copies to land on the barrier.
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-// Waits until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n"
-      :: "r"(bar), "r"(parity) : "memory");
-}
-// `bytes` contiguous bytes of global memory into shared memory, completing
-// on barrier bar (both addresses 16-byte aligned, bytes a multiple of 16).
-__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(dst), "l"(src) : "memory");
-}
-// An arrival on bar once this thread's earlier cp.asyncs have landed (the
-// barrier's count includes it: .noinc).
-__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// The shuffle-down tree: lane 0 ends with the warp's sum.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // Grid: N * ctas CTAs, CTA b streams node b / ctas, tiles

@@ -956,13 +956,20 @@ def test_cuda_block_launch_counts_and_refusals(cuda_gen):
         block_matvec.block_matvec(a, x[:, :3], 4)       # wrong block count
 
 
-# bf16 / fp16 A: the sharded engine's per-rank block and Fig. 3's point
-# (16-byte loads; block_rmatvec 8 columns a thread), the ragged shape and an
-# odd n (scalar loads; one column a thread), nb a multiple of 8 on few rows,
-# and a last block with no column
-HALF_BLOCK_SHAPES = [(1, 25_000, 1_000, 1), (8, 25_000, 4_000, 4),
-                     (2, 3_000, 1_001, 4), (3, 130, 517, 3), (2, 300, 256, 4),
-                     (1, 5, 5, 4)]
+# bf16 / fp16 A: the sharded engine's per-rank blocks (sharded_bf16's
+# (1, 25,000, 1,000), sharded_fp16's (1, 25,000, 4,000)) and Fig. 3's point
+# on the stream route, the plan's edges (fewer rows than the grid's CTAs, m
+# not a multiple of a tile's rows, m = 1, M = 4 with nb % 8 == 0 on few
+# rows, 2 and 4 chunks a lane, an empty last block, M = 3: block_matvec's X
+# in shared memory), the ragged shape and an odd n (the scalar route), and a
+# last block with no column
+HALF_BLOCK_SHAPES = [(1, 25_000, 1_000, 1), (1, 25_000, 4_000, 1),
+                     (8, 25_000, 4_000, 4), (1, 37, 1_000, 1),
+                     (2, 301, 256, 4), (1, 1, 1_000, 1), (3, 9, 64, 4),
+                     (1, 300, 8_192, 1), (1, 300, 16_384, 1),
+                     (1, 50, 256, 17), (2, 40, 1_200, 3),
+                     (2, 3_000, 1_001, 4), (3, 130, 517, 3),
+                     (2, 300, 256, 4), (1, 5, 5, 4)]
 
 
 @pytest.mark.cuda
@@ -972,7 +979,8 @@ HALF_BLOCK_SHAPES = [(1, 25_000, 1_000, 1), (8, 25_000, 4_000, 4),
 def test_cuda_half_width_block_matvec_rmatvec(cuda_gen, shape, K, dtype):
     """The bf16 / fp16 instantiations against their plain versions (A
     widened exactly, f32 sums): f32-accumulation error <= 1e-5 x scale +
-    1e-6; f32 out, one launch of the typed kernel, the padded rows 0."""
+    1e-6; f32 out, the launches of the typed kernel the plan gives, two
+    calls equal bit for bit, the padded rows 0."""
     N, m, n, M = shape
     if N * m * n > 10 ** 8 and K > 1:
         pytest.skip("K = 3 runs at the per-rank and smaller shapes")
@@ -981,9 +989,13 @@ def test_cuda_half_width_block_matvec_rmatvec(cuda_gen, shape, K, dtype):
     x = torch.randn((N, M, nb, K), device="cuda", generator=cuda_gen)
     y = torch.randn((N, M, m, K), device="cuda", generator=cuda_gen)
     sfx = block_matvec.SUFFIX[dtype]
+    stream = n % 8 == 0 and nb % 8 == 0
     for fn, plain, v in ((block_matvec.block_matvec, ref.block_matvec_ref, x),
                          (block_matvec.block_rmatvec, ref.block_rmatvec_ref,
                           y)):
+        adjoint = fn is block_matvec.block_rmatvec
+        plan = block_matvec.plan_for(a, M, K, adjoint=adjoint)
+        assert plan.route == ("stream" if stream else "scalar")
         ops.reset_launch_counts()
         got = fn(a, v, M)
         counts = ops.launch_counts_by_type()
@@ -991,16 +1003,17 @@ def test_cuda_half_width_block_matvec_rmatvec(cuda_gen, shape, K, dtype):
         scale = float(plain(a.float().abs(), v.abs(), M).max())
         assert got.dtype == torch.float32
         assert float((got - want).abs().max()) <= 1e-5 * scale + 1e-6
-        assert counts.get(f"{fn.__name__}_{sfx}", 0) >= 1
+        assert counts.get(f"{fn.__name__}_{sfx}", 0) == plan.launches >= 1
         assert not counts.get(f"{fn.__name__}_f32", 0)
+        assert torch.equal(fn(a, v, M), got)
     assert not block_matvec.block_rmatvec(a, y, M).reshape(
         N, M * nb, K)[:, n:].any()
     # A two bytes past 16: every row segment unaligned, the scalar paths
     flat = torch.randn(a.numel() + 1, device="cuda",
                        generator=cuda_gen).to(dtype)
     a1 = flat[1:].view(N, m, n)
-    assert block_matvec.rmatvec_columns(2, n, nb,
-                                        a1.data_ptr() % 16 == 0) == 1
+    assert block_matvec.plan_for(a1, M, K, adjoint=True).route == "scalar"
+    assert block_matvec.plan_for(a1, M, K, adjoint=False).route == "scalar"
     scale = float(ref.block_matvec_ref(a1.float().abs(), x.abs(), M).max())
     err = float((block_matvec.block_matvec(a1, x, M)
                  - ref.block_matvec_ref(a1, x, M)).abs().max())
@@ -1019,8 +1032,11 @@ def test_cuda_half_width_block_refusals(cuda_gen):
         block_matvec.block_matvec(a.double(), x.double(), 4)
     with pytest.raises(ValueError):             # the blocks stay f32
         block_matvec.block_matvec(a.bfloat16(), x.bfloat16(), 4)
-    assert block_matvec.rmatvec_columns(2, 16, 8, True) == 8
-    assert block_matvec.rmatvec_columns(4, 16, 8, True) == 1
+    for adjoint in (False, True):
+        assert block_matvec.plan_for(a.bfloat16(), 2, 1,
+                                     adjoint=adjoint).route == "stream"
+        assert block_matvec.plan_for(a, 2, 1,
+                                     adjoint=adjoint).route == "scalar"
 
 
 def _grid_rank(rank, store, A, b, queue):
